@@ -4,7 +4,9 @@ The JAX package's param pytree flattens to ``{path: array}`` with the
 ``::``-joined tree paths of ``repro/checkpoint/checkpoint.py:_flatten``
 (``"layers::run_0::attn::wq"``, stacked per run with a leading layer
 axis).  The port keeps exactly that nesting, as a nested dict of tensors,
-so the mapping is 1:1 and needs no renaming or transposes.
+so the mapping is 1:1 and needs no renaming or transposes.  A trainer
+state (params, optimizer state, pending update, step) maps the same way,
+so the two trainers can start from one point.
 """
 from __future__ import annotations
 
@@ -65,3 +67,21 @@ def to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
     visit("", params)
     return flat
+
+
+def state_from_flat(flat: Dict[str, np.ndarray], *,
+                    device: Optional[torch.device | str] = None
+                    ) -> Dict[str, Any]:
+    """A whole trainer state of the JAX package, flattened by tree path
+    (``"params::…"``, ``"opt::m::…"``, ``"pending::…"``, ``"step"``,
+    optionally ``"residual::…"`` and AdamW's ``"opt::v::…"`` /
+    ``"opt::t"``), as the port's trainer state: the same nesting, each
+    leaf keeping its dtype, the step counters as host ints and no phase-2
+    collective in flight."""
+    state = from_flat(flat, device=device)
+    state["step"] = int(np.asarray(flat["step"]))
+    if "t" in state["opt"]:
+        state["opt"]["t"] = int(np.asarray(flat["opt::t"]))
+    state["inflight"] = None
+    return state
+

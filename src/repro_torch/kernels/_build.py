@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,12 +28,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (every pointer and the stream
 # as c_void_p: anything else would cut a 64-bit address)
 SIGNATURES = {
     "rt_flash_decode_paged": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
     "rt_decode_view_attend": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "rt_greedy_sample": [_P, _P, _P, _I, _I, _I, _P],
+    "rt_gumbel_sample": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "rt_fused_sgd_update": [_P] * 4 + [_L, _I, _I, _F, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -52,6 +56,17 @@ def _nvcc() -> str:
 
 def sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+
+
+def kernel_names():
+    """The ``__global__`` functions of the sources, sorted: the names a
+    profiler shows for the port's own kernels."""
+    return sorted({m.group(1) for p in sources()
+                   for m in _GLOBAL.finditer(p.read_text())})
 
 
 def source_hash() -> str:

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (dtype_code, launch_splits,
                                         require_aligned, require_cuda,
-                                        split_scratch)
+                                        sm_count, split_scratch)
 
 NEG_INF = -1e30
 
@@ -77,7 +77,7 @@ def decode_view_attend(q, k_view, v_view, pos, *, window: int = 0):
     if pos.dtype != torch.int32:
         raise ValueError("decode_view_attend: pos must be int32")
     out = torch.empty_like(q)
-    nsplit = launch_splits(b, 1, h, kvh, s1, window)
+    nsplit = launch_splits(b, 1, h, kvh, s1, window, sms=sm_count(q.device))
     part_acc, part_ml = split_scratch(b * h, nsplit, hd, q.device)
     lib = _build.library()
     rc = lib.rt_decode_view_attend(

@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (dtype_code, launch_splits,
                                         require_aligned, require_cuda,
-                                        split_scratch)
+                                        sm_count, split_scratch)
 
 NEG_INF = -1e30
 
@@ -94,7 +94,8 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, pos, *,
     q = q.contiguous()
     out = torch.empty_like(q)
     nb_seq = block_tables.shape[1]
-    nsplit = launch_splits(b, c, h, kvh, nb_seq * bs, window)
+    nsplit = launch_splits(b, c, h, kvh, nb_seq * bs, window,
+                           sms=sm_count(q.device))
     part_acc, part_ml = split_scratch(b * c * h, nsplit, hd, q.device)
     lib = _build.library()
     rc = lib.rt_flash_decode_paged(

@@ -1,5 +1,5 @@
-"""Shared building blocks: inits, rmsnorm, the swiglu MLP and rotary
-embeddings (``repro/models/layers.py``)."""
+"""Shared building blocks: inits, rmsnorm, the swiglu MLP, rotary
+embeddings and the cross-entropy loss (``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
@@ -74,3 +74,11 @@ def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
     x32 = x.float()
     out = x32 * cos + x32.roll(x.shape[-1] // 2, dims=-1) * sin
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in f32.  logits (..., V); labels (...) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - ll).mean()

@@ -8,6 +8,7 @@ whose members are plain functions over a nested dict of tensors.
   paged_step(params, cache, slot_buf, tokens, block_tables, meta)
   paged_decode_loop(params, cache, slot_buf, block_tables, meta,
                     num_steps=N)
+  loss(params, batch)                       -> (loss, metrics)
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ class Model:
     paged_step: Callable
     paged_decode_loop: Callable
     paged_spec: PagedSpec
+    loss: Callable
 
 
 def _init(seed: int, device, *, cfg):
@@ -62,7 +64,7 @@ def build_model(cfg: ModelConfig) -> Model:
         has_blocks=True, has_state=False,
         reclaim_window=cfg.sliding_window,
         kernel_spec=(("attn", "decode_view_attend/flash_decode_paged"),
-                     ("sampling", "greedy_sample")))
+                     ("sampling", "greedy_sample/gumbel_sample")))
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg=cfg),
@@ -71,4 +73,5 @@ def build_model(cfg: ModelConfig) -> Model:
         paged_step=functools.partial(transformer.paged_step, cfg=cfg),
         paged_decode_loop=functools.partial(transformer.paged_decode_loop,
                                             cfg=cfg),
-        paged_spec=spec)
+        paged_spec=spec,
+        loss=functools.partial(transformer.lm_loss, cfg=cfg))

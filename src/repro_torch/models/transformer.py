@@ -1,6 +1,7 @@
 """Decoder-only transformer for the dense GQA family
 (``repro/models/transformer.py``): params, forward in three cache modes,
-the fused serving step and the N-step on-device decode loop.
+the fused serving step, the N-step on-device decode loop and the
+language-model loss.
 
 Params keep the reference's nesting and its stacked per-run layout
 (``params["layers"]["run_0"]["attn"]["wq"]`` of shape (L, D, H*hd)), so
@@ -18,11 +19,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.sampling import greedy_sample
+from repro_torch.kernels import prng
+from repro_torch.kernels.sampling import greedy_sample, gumbel_sample
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
-                                       embed_init)
+from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
+                                       dense_init, embed_init)
 
 
 def runs_of(cfg) -> List[Tuple[str, str, int]]:
@@ -80,9 +83,22 @@ def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
 
 
 def _layer(tree, i: int):
-    """Layer i's params out of a stacked run (views, no copy)."""
+    """Layer i's cache out of a stacked run (views, no copy)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree, n: int):
+    """The n layers' params out of a stacked run: views, one ``unbind``
+    per leaf, whose backward is one ``stack`` of the n layer gradients.
+    (Indexing the leaf once per layer would give each layer's gradient
+    a zero-filled full-size (n, ...) tensor and sum n of them.)"""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
 
 
 def _logits(params, h, cfg):
@@ -117,18 +133,71 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
     rope, write = attn_mod.shared_inputs(
         cfg, tokens.shape[1], h.device, cache=_layer(rc, 0) if rc else None,
         block_tables=block_tables, pos=pos, valid_len=valid_len)
-    for i in range(n):
-        lp = _layer(rp, i)
-        lc = _layer(rc, i) if rc is not None else None
+
+    def block(h, lp, lc):
         x = apply_norm(lp["ln1"], h, cfg)
         y, _ = attn_mod.apply_attention(
             lp["attn"], x, cfg, rope=rope, write=write, window=window,
             cache=lc, block_tables=block_tables, pos=pos)
         h = h + y
-        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+
+    # the training forward recomputes each layer in the backward pass
+    # (the reference's jax.checkpoint around the scanned layer); only the
+    # full-sequence form, which writes no cache in place, is checkpointed
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for i, lp in enumerate(_unstack(rp, n)):
+        lc = _layer(rc, i) if rc is not None else None
+        if remat:
+            h = checkpoint(block, h, lp, lc, use_reentrant=False)
+        else:
+            h = block(h, lp, lc)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = _logits(params, h, cfg) if need_logits else None
     return logits, cache, h
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_lm_ce(params, h, labels, cfg, *, mask_from: int = 0):
+    """Cross-entropy over sequence chunks of ``cfg.loss_chunk``: the
+    (B, C, V) logits chunk is the only vocab-sized activation alive.
+    h (B, S, D) final hidden states; position p predicts labels[p]
+    (already shifted).  Mean nll over positions >= mask_from."""
+    b, s, _ = h.shape
+    chunk = min(cfg.loss_chunk or s, s)
+    if s % chunk:
+        chunk = s           # the reference's fallback for a ragged tail
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, s, chunk):
+        logits = _logits(params, h[:, start:start + chunk], cfg).float()
+        lx = labels[:, start:start + chunk].long()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lx[..., None])[..., 0]
+        pos = start + torch.arange(chunk, device=h.device)[None]
+        m = (pos >= mask_from).float().expand(lx.shape)
+        tot = tot + ((logz - ll) * m).sum()
+        cnt = cnt + m.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(params, batch, cfg):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S) over
+    the full-sequence forward (text only: MTP and image tokens belong to
+    families the port does not have yet, and the dense family has no
+    auxiliary loss).  Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    chunked = bool(cfg.loss_chunk)
+    logits, _, h = forward(params, tokens, cfg, need_logits=not chunked)
+    if chunked:
+        ce = chunked_lm_ce(params, h[:, :-1], tokens[:, 1:], cfg)
+    else:
+        ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return ce, {"ce": ce, "loss": ce}
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *, dtype=None,
@@ -142,29 +211,37 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, dtype=None,
                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
 
 
-def _sample_rows(logits, *, temperature: float = 0.0):
-    """One token per row on the device.  Greedy only: temperature/top-k
-    sampling needs the reference's threefry keys (ROADMAP §1)."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 sampling is not ported yet (gumbel_sample with "
-            "threefry keys, ROADMAP §1)")
-    return greedy_sample(logits)
+def _sample_rows(logits, rids, positions, *, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0):
+    """One token per row on the device: greedy at temperature 0, else
+    gumbel-max over the optional top-k.  The noise of a token is
+    ``jax.random.gumbel`` under ``fold_in(fold_in(PRNGKey(seed), rid),
+    position)``, a pure function of the request and the token's absolute
+    position, so the draw is the same at any dispatch depth and across
+    preemption recompute.  Keys and noise are built on the device."""
+    if temperature <= 0.0:
+        return greedy_sample(logits)
+    keys = prng.sample_keys(seed, rids, positions)
+    noise = prng.gumbel(keys, logits.shape[-1])
+    return gumbel_sample(logits, noise, temperature=temperature,
+                         top_k=top_k)
 
 
 def paged_step(params, cache, slot_buf, tokens, block_tables, meta, cfg, *,
-               temperature: float = 0.0):
+               temperature: float = 0.0, top_k: int = 0, seed: int = 0):
     """Fused continuous-batching step: mixed prefill+decode rows, the
     frontier logits sliced and sampled on the device.
 
     tokens (B,C) int32; block_tables (B,NB) int32; meta (6,B) int32 rows
     pos / valid_len / src_slot / dst_slot / state_slot / rid (see the
-    reference's ``paged_step``; state_slot and rid are unused by greedy
-    dense serving); slot_buf (S+1,) int32, the last sampled token per
-    slot (slot S is the spare that rows with dst_slot < 0 write).
+    reference's ``paged_step``; state_slot is unused by dense serving,
+    rid keys the draw at temperature > 0); slot_buf (S+1,) int32, the
+    last sampled token per slot (slot S is the spare that rows with
+    dst_slot < 0 write).
     Returns (next_tokens (B,) int32, slot_buf, cache); slot_buf and the
     cache are updated in place."""
-    pos, valid_len, src_slot, dst_slot = meta[0], meta[1], meta[2], meta[3]
+    pos, valid_len, src_slot, dst_slot, rid = (meta[0], meta[1], meta[2],
+                                               meta[3], meta[5])
     wired = src_slot >= 0
     tok0 = torch.where(wired, slot_buf[src_slot.clamp(min=0).long()],
                        tokens[:, 0])
@@ -177,7 +254,8 @@ def paged_step(params, cache, slot_buf, tokens, block_tables, meta, cfg, *,
     rows = torch.arange(h.shape[0], device=h.device)
     hf = h[rows, idx][:, None]                                  # (B,1,D)
     logits = _logits(params, hf, cfg)[:, 0].float()
-    toks = _sample_rows(logits, temperature=temperature)
+    toks = _sample_rows(logits, rid, pos + valid_len,
+                        temperature=temperature, top_k=top_k, seed=seed)
     spare = slot_buf.shape[0] - 1
     dst = torch.where(dst_slot >= 0, dst_slot, torch.full_like(dst_slot, spare))
     slot_buf.index_put_((dst.long(),), toks)
@@ -227,7 +305,8 @@ def _scatter_loop_views(cache, views, block_tables):
 
 
 def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
-                      num_steps: int, temperature: float = 0.0):
+                      num_steps: int, temperature: float = 0.0,
+                      top_k: int = 0, seed: int = 0):
     """Up to ``num_steps`` decode steps per row in one dispatch.
 
     meta (6,B) int32 rows pos0 / steps / slot / state_slot / rid / eos
@@ -238,7 +317,8 @@ def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
     the device.  Returns (tokens (B,N) int32, counts (B,) int32, eos_hit
     (B,) bool, slot_buf, cache); slot_buf and the cache are updated in
     place."""
-    pos0, steps, slot, eos = meta[0], meta[1], meta[2].long(), meta[5]
+    pos0, steps, slot, rid, eos = (meta[0], meta[1], meta[2].long(),
+                                   meta[4], meta[5])
     b = pos0.shape[0]
     nb = block_tables.shape[1]
     block_size = cache["run_0"]["k"].shape[2]
@@ -262,7 +342,8 @@ def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
         _, views, h = forward(params, tokens, cfg, cache=views, pos=pos,
                               valid_len=valid, need_logits=False)
         logits = _logits(params, h[:, :1], cfg)[:, 0].float()
-        tok = _sample_rows(logits, temperature=temperature)
+        tok = _sample_rows(logits, rid, pos + 1, temperature=temperature,
+                           top_k=top_k, seed=seed)
         hit = active & (eos >= 0) & (tok == eos)
         out[:, i] = torch.where(active, tok, torch.full_like(tok, -1))
         # inactive rows dump their sample into the spare slot

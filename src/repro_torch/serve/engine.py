@@ -1,5 +1,5 @@
 """Continuous-batching inference engine over a paged KV cache
-(``repro/serve/engine.py``), greedy, on one device.
+(``repro/serve/engine.py``), on one device.
 
 Each ``step()`` is one fused ``paged_step`` call carrying mixed
 prefill+decode rows, or — with ``steps_per_dispatch = N > 1`` and no
@@ -8,16 +8,18 @@ steps with per-row stop conditions on the device.  The row layout adapts
 to the step (decode buckets, chunk-wide prefill rows, width-1 mixed rows
 with prefill chunks split into one row per token); a per-row
 ``valid_len`` routes padded rows' K/V writes to the trash block.
-Sampling happens on the device, and a device-resident per-slot token
-buffer feeds step k's samples into step k+1, so the host dispatches step
-k+1 before it reads step k's tokens (depth-1 pipelining): each
+Sampling happens on the device (greedy, or temperature / top-k with
+per-row keys ``fold_in(fold_in(seed, rid), position)``, so a token's
+draw does not depend on the dispatch depth), and a device-resident
+per-slot token buffer feeds step k's samples into step k+1, so the host
+dispatches step k+1 before it reads step k's tokens (depth-1
+pipelining): each
 dispatch's tokens are copied into pinned host memory behind a CUDA event
 at dispatch time, and the fetch waits on that event only.
 
 Not ported yet (each raises, see ROADMAP.md §1): the unfused
 ``fused=False`` baseline, tensor-parallel device slices,
-``reclaim_requests`` and request deadlines (the cluster slice), and
-``temperature > 0``.
+``reclaim_requests`` and request deadlines (the cluster slice).
 """
 from __future__ import annotations
 
@@ -67,7 +69,9 @@ class EngineConfig:
     prefill_chunk: int = 32         # tokens per prefill row (padded shape)
     prefill_token_budget: int = 64  # max prefill tokens per engine step
     admission_lookahead: int = 2    # prompts prefilled ahead of a free row
-    temperature: float = 0.0        # only 0 (greedy) is ported
+    temperature: float = 0.0        # 0 => greedy (sampled on the device)
+    top_k: int = 0                  # 0 => full-vocab temperature sampling
+    seed: int = 0
     steps_per_dispatch: int = 1     # decode steps per device dispatch (N)
     fused: bool = True              # only the fused step is ported
 
@@ -192,8 +196,6 @@ class Engine:
             raise ValueError("steps_per_dispatch must be >= 1")
         if not cfg.fused:
             raise _not_ported("the unfused fused=False baseline")
-        if cfg.temperature > 0.0:
-            raise _not_ported("temperature > 0 sampling")
         self.device = (torch.device(device) if device is not None
                        else _default_device())
         self.model = model
@@ -207,6 +209,8 @@ class Engine:
         self._dev_tail = 0.0
         self.params = _to_device(params, self.device)
         self.cfg = cfg
+        self._sample_kw = dict(temperature=float(cfg.temperature),
+                               top_k=int(cfg.top_k), seed=int(cfg.seed))
         self.kv = PagedKVCache(cfg.num_blocks, cfg.block_size,
                                cfg.blocks_per_seq,
                                window=self.spec.reclaim_window)
@@ -411,7 +415,7 @@ class Engine:
         self._m.model_calls.inc()
         toks, self._slot_buf, self.cache = self.model.paged_step(
             self.params, self.cache, self._slot_buf, self._tensor(tokens),
-            self._tensor(tables), self._tensor(meta))
+            self._tensor(tables), self._tensor(meta), **self._sample_kw)
         return toks
 
     def _step_fused(self, now: float, finished: List[RequestResult]) -> None:
@@ -614,7 +618,7 @@ class Engine:
             self.model.paged_decode_loop(
                 self.params, self.cache, self._slot_buf,
                 self._tensor(self.kv.table_array(rids)), self._tensor(meta),
-                num_steps=n_steps)
+                num_steps=n_steps, **self._sample_kw)
         rec = _Inflight(_HostCopy(out, counts, eos_hit), emits, now,
                         loop=True, planned=planned)
         t1 = time.perf_counter()
@@ -653,7 +657,8 @@ class Engine:
                     self.model.paged_decode_loop(
                         self.params, self.cache, self._slot_buf,
                         self._tensor(self.kv.table_array([None] * rows)),
-                        self._tensor(meta), num_steps=cfg.steps_per_dispatch)
+                        self._tensor(meta), num_steps=cfg.steps_per_dispatch,
+                        **self._sample_kw)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         for h in (self._m.model_calls, self._m.host_syncs,

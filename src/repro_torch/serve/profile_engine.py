@@ -26,12 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import _build
 from repro_torch.models.model import build_model
 from repro_torch.serve import Engine, EngineConfig, Request
 
-PORT_KERNELS = ("flash_decode_paged_kernel", "decode_view_kernel",
-                "combine_splits", "greedy_chunk_kernel",
-                "greedy_merge_kernel")
+PORT_KERNELS = tuple(_build.kernel_names())
 # cuBLAS names its Hopper products "nvjet_*"; older builds "*gemm*"
 GEMM_MARKERS = ("nvjet", "gemm", "xmma", "cutlass", "wgmma", "matmul")
 

@@ -108,10 +108,16 @@ def test_engine_eos_stops_inside_step_and_loop(setup, spd):
 
 
 def test_engine_rejects_what_is_not_ported(setup):
-    tmodel, tparams = setup[:2]
-    for bad in (dict(temperature=0.8), dict(fused=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(tmodel, tparams, EngineConfig(**bad), device="cpu")
+    tmodel, tparams, work = setup[:3]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(tmodel, tparams, EngineConfig(fused=False), device="cpu")
+    # temperature sampling is ported: it serves (token identity with the
+    # JAX engine is tests/test_torch_sampling.py)
+    hot = Engine(tmodel, tparams, EngineConfig(temperature=0.8, top_k=5,
+                                               **WIDE), device="cpu")
+    p, g = work[0]
+    res = hot.run([Request(prompt=p.copy(), max_new_tokens=g, rid=0)])
+    assert len(res[0].tokens) == g
     eng = Engine(tmodel, tparams, EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit(Request(prompt=np.arange(3), max_new_tokens=2,

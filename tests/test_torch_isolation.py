@@ -13,10 +13,19 @@ SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
 
 MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
+           "repro_torch.tree",
            "repro_torch.kernels", "repro_torch.kernels._build",
+           "repro_torch.kernels.prng", "repro_torch.kernels.sampling",
+           "repro_torch.kernels.fused_update",
            "repro_torch.models.layers", "repro_torch.models.attention",
            "repro_torch.models.transformer", "repro_torch.models.model",
-           "repro_torch.serve", "repro_torch.serve.engine"]
+           "repro_torch.serve", "repro_torch.serve.engine",
+           "repro_torch.optim.sgd", "repro_torch.optim.schedules",
+           "repro_torch.core", "repro_torch.core.autodiff",
+           "repro_torch.core.topology", "repro_torch.core.virtual",
+           "repro_torch.core.sync", "repro_torch.core.trainer",
+           "repro_torch.data.pipeline", "repro_torch.launch.train",
+           "repro_torch.launch.profile_train"]
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -51,3 +60,10 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
     model = build_model(smoke_variant(get_config("qwen2-1.5b")))
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(model, {})
+
+
+def test_trainer_entry_point_raises_when_cuda_is_absent(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1"])

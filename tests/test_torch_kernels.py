@@ -172,13 +172,14 @@ def test_greedy_plain_matches_pallas_exactly_with_cross_block_ties(case):
 @pytest.mark.parametrize("b", [1, 2, 8, 136, 264])
 @pytest.mark.parametrize("v", [9, 1537, 151936])
 def test_greedy_chunks_cover_the_vocab_without_empty_chunks(b, v):
-    """The CUDA launch's column chunks: contiguous ranges of one size that
-    cover the row, none empty, about TARGET_CTAS CTAs in all."""
-    from repro_torch.kernels._common import TARGET_CTAS
-    n = sampling.greedy_chunks(b, v)
+    """The CUDA launch's column chunks on a 132-SM card (an H100 SXM):
+    contiguous ranges of one size that cover the row, none empty, about
+    the sampling kernels' CTAS_PER_SM CTAs per SM in all."""
+    sms = 132
+    n = sampling.greedy_chunks(b, v, sms)
     chunk = -(-v // n)
     assert n >= 1 and (n - 1) * chunk < v <= n * chunk
-    assert n == 1 or b * (n - 1) < TARGET_CTAS
+    assert n == 1 or b * (n - 1) < sampling.CTAS_PER_SM * sms
     assert n == 1 or chunk >= sampling.THREADS * sampling.MIN_COLS_PER_THREAD
 
 
@@ -198,9 +199,15 @@ def test_wrappers_route_cpu_to_plain_without_counting():
     view = torch.zeros((1, 5, 1, 16))
     decode_view.decode_view_attend(q, view, view,
                                    torch.zeros(1, dtype=torch.int32))
+    sampling.gumbel_sample(lg, torch.zeros_like(lg), temperature=0.5,
+                           top_k=3)
+    kernels.fused_sgd_update(torch.zeros(4), torch.zeros(4), torch.ones(4),
+                             lr=0.1, momentum=0.9, weight_decay=0.0)
     assert kernels.launch_counts() == {"flash_decode_paged": 0,
                                        "decode_view_attend": 0,
-                                       "greedy_sample": 0}
+                                       "greedy_sample": 0,
+                                       "gumbel_sample": 0,
+                                       "fused_sgd_update": 0}
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
@@ -214,3 +221,19 @@ def test_wrappers_raise_off_cpu_without_cuda():
             q, pool, pool, torch.zeros((1, 2), dtype=torch.int32,
                                        device="meta"),
             torch.zeros((1,), dtype=torch.int32, device="meta"))
+
+
+def test_profiler_groups_every_port_kernel():
+    """The profilers' "port kernels" group is read from the sources'
+    ``__global__`` names, so a renamed or added kernel cannot fall into
+    "other"."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.profile_engine import _group
+    names = _build.kernel_names()
+    assert {"flash_decode_paged_kernel", "decode_view_kernel",
+            "combine_splits", "argmax_chunk_kernel", "argmax_merge_kernel",
+            "topk_hist_kernel", "fused_sgd_kernel"} <= set(names)
+    for name in names:
+        assert _group(f"void rt::{name}<float>(float const*, int)") == \
+            "port kernels"
+    assert _group("nvjet_tst_128x256") == "matrix products"
