@@ -22,7 +22,17 @@
    update through ``repro_torch.launch.train``, then runs the virtual
    CSGD and LSGD (4 workers, groups of 2) from one set of weights and
    checks that they agree after ``finalize`` (the paper's claim).
-5. Prints the ``kernels`` JSON line, the card's name and power limit, and
+5. The mamba path: the slot-state gather and scatter at every row count
+   the engine gives them, for one layer (the fused step) and for all 48
+   layers at once (the decode loop's entry and exit), for both state
+   leaves, bit for bit against their plain versions; the SSD intra-chunk
+   block at the prefill rows x one 256-token chunk and at 4 x 512
+   tokens, and ``ssm.ssd_chunked_pallas`` (its own path) against the
+   plain chunked SSD; then full-width mamba2-370m (bf16, random weights
+   from a seed) serves the same 16 requests at steps_per_dispatch 1 and 8,
+   greedy twice and sampled once per depth, each token checked against a
+   teacher-forced f32 forward, every state slot free at the end.
+6. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -82,6 +92,16 @@ VIRTUAL_BOUND = 1e-5
 # the fused update against its plain version: w within one bf16 ulp,
 # f32 momentum within 1e-6 relative
 UPDATE_M_RTOL = 1e-6
+# the SSD block against its plain version: |kernel - plain| <= a *
+# max|plain| + r * |plain|; f32 outputs (states, and y of the f32 path)
+# sum up to 256 keys and 256 state columns in another order; bf16 y
+# rounds an f32 result, so kernel and plain may differ by one bf16 ulp
+SSD_F32_TOL = (1e-4, 1e-4)
+SSD_BF16_TOL = (1e-3, 1e-2)
+MAMBA = "mamba2-370m"
+# ssd_chunk's shapes: the engine's prefill rows x one 256-token chunk,
+# and 4 sequences of 512 tokens (two chunks each)
+SSD_CASES = (("prefill rows x 1 chunk", None, 256), ("4 x 512", 4, 512))
 
 SEED = 0
 
@@ -554,6 +574,10 @@ def _serve_once(torch, model, params, work, depth, **sample):
                  f"tokens, wanted {n}")
     if snap["counters"]["jit_compiles"] != 0:
         fail("jit_compiles != 0")
+    if eng.state_slots is not None and \
+            eng.state_slots.num_free != eng.cfg.num_slots:
+        fail(f"depth {depth}: {eng.cfg.num_slots - eng.state_slots.num_free}"
+             " state slots still held after the run")
     ntok = sum(len(r.tokens) for r in res.values())
     decode_rates = [(len(r.tokens) - 1) / (r.finish_time
                                            - r.first_token_time)
@@ -586,7 +610,7 @@ def phase_serve(torch, cfg):
     params = model.init(SEED, "cuda")
     torch.cuda.synchronize()
     nparams = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] qwen2-1.5b full width: {cfg.num_layers} layers, "
+    print(f"[serve] {cfg.name} full width: {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, {nparams / 1e9:.3f}B params "
           f"{cfg.param_dtype}, "
           f"init {time.perf_counter() - t0:.1f}s", flush=True)
@@ -722,12 +746,297 @@ def phase_virtual(torch, cfg):
     return diff
 
 
+# ---------------------------------------------------------------------------
+# the mamba path: slot-state kernels, the SSD block, serving
+# ---------------------------------------------------------------------------
+
+
+def slot_rows(ec):
+    """Row counts the slot kernels get on the mamba path: the decode
+    buckets and the chunk-wide mixed step."""
+    return list(ec.decode_buckets) + [ec.mixed_chunk_rows]
+
+
+def phase_slot_state(torch, timer, mcfg, ec):
+    """Kernels 10 and 11 at the mamba path's shapes: both pool leaves
+    as the model allocates them (the conv window, 3 x 2304 bf16 a row,
+    and the SSD state, 32 x 64 x 128 f32 a row) of S = num_slots + 1
+    slots, one layer's pool (the
+    fused step's call, once per layer) and all layers' at once (the
+    decode loop's entry and exit), at every row count of
+    ``slot_rows``.  Gathers with every third row fresh (it reads zeros);
+    scatters to distinct live slots, then with every fourth row routed
+    to trash slot 0.  Bit for bit against the plain versions (slot 0
+    left out where two rows write it).  Library yardsticks, never used
+    by the port: ``index_select`` on the slot axis (it does not zero
+    fresh rows) and ``index_copy_``."""
+    from repro_torch.kernels import slot_state as ss
+    from repro_torch.models.ssm import init_ssm_cache
+    s = ec.num_slots + 1
+    leaves = [(name, tuple(t.shape[1:]), t.dtype) for name, t in
+              init_ssm_cache(mcfg, 1, mcfg.cdtype, "meta").items()]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for leaf, feat, dtype in leaves:
+        esize = torch.empty((), dtype=dtype).element_size()
+        for layers in (0, mcfg.num_layers):
+            lead = (layers, s) if layers else (s,)
+            pool = torch.randn(lead + feat, generator=g, device="cuda").to(
+                dtype)
+            stacked = bool(layers)
+            axis = 1 if stacked else 0
+            row_bytes = math.prod(feat) * esize * max(layers, 1)
+            for b in slot_rows(ec):
+                slots = torch.tensor(rng.permutation(np.arange(1, s))[:b],
+                                     dtype=torch.int32, device="cuda")
+                fresh = torch.tensor(np.arange(b) % 3 == 1, device="cuda")
+                vlead = (layers, b) if layers else (b,)
+                values = torch.randn(vlead + feat, generator=g,
+                                     device="cuda").to(dtype)
+                label = (f"{leaf} {'L=%d' % layers if layers else 'layer'}"
+                         f" B={b}")
+                got = ss.slot_gather(pool, slots, fresh, stacked=stacked)
+                want = ss.slot_gather_plain(pool, slots, fresh,
+                                            stacked=stacked)
+                if not torch.equal(got, want):
+                    fail(f"slot_gather {label}: kernel != plain")
+                stale = torch.tensor(np.arange(b) % 4 == 3, device="cuda")
+                routed = torch.where(stale, torch.zeros_like(slots), slots)
+                for dst, whole in ((slots, True), (routed, False)):
+                    k_pool, p_pool = pool.clone(), pool.clone()
+                    ss.slot_scatter(k_pool, dst, values, stacked=stacked)
+                    ss.slot_scatter_plain(p_pool, dst, values,
+                                          stacked=stacked)
+                    body = ((slice(None),) if whole else
+                            ((slice(None), slice(1, None)) if stacked
+                             else (slice(1, None),)))
+                    if not torch.equal(k_pool[body], p_pool[body]):
+                        fail(f"slot_scatter {label}: kernel != plain")
+                    del k_pool, p_pool
+                nfresh = int(fresh.sum())
+                slots_l = slots.long()
+                # gather: the non-fresh rows read once, every row written
+                gb, gby = bound_ms((2 * b - nfresh) * row_bytes + 8 * b, 0,
+                                   BF16_OPS_PER_S)
+                sb, sby = bound_ms(2 * b * row_bytes + 4 * b, 0,
+                                   BF16_OPS_PER_S)
+                times = dict(
+                    gather=timer(lambda: ss.slot_gather(
+                        pool, slots, fresh, stacked=stacked)),
+                    gather_plain=timer(lambda: ss.slot_gather_plain(
+                        pool, slots, fresh, stacked=stacked)),
+                    gather_lib=timer(lambda: pool.index_select(
+                        axis, slots)),
+                    scatter=timer(lambda: ss.slot_scatter(
+                        pool, slots, values, stacked=stacked)),
+                    scatter_plain=timer(lambda: ss.slot_scatter_plain(
+                        pool, slots, values, stacked=stacked)),
+                    scatter_lib=timer(lambda: pool.index_copy_(
+                        axis, slots_l, values)))
+                out[(leaf, layers, b)] = dict(
+                    gather=dict(max_abs_err=0.0, ms=times["gather"],
+                                plain_ms=times["gather_plain"],
+                                bound_ms=gb, bound_by=gby,
+                                library_ms=times["gather_lib"]),
+                    scatter=dict(max_abs_err=0.0, ms=times["scatter"],
+                                 plain_ms=times["scatter_plain"],
+                                 bound_ms=sb, bound_by=sby,
+                                 library_ms=times["scatter_lib"]))
+                print(f"[slot_state] {label} S={s} row_bytes="
+                      f"{math.prod(feat) * esize} ({str(dtype)[6:]}) "
+                      f"fresh={nfresh} exact=yes "
+                      f"gather kernel_ms={times['gather']:.4f} plain_ms="
+                      f"{times['gather_plain']:.4f} bound_ms={gb:.4f} ({gby})"
+                      f" library_ms(index_select)={times['gather_lib']:.4f};"
+                      f" scatter kernel_ms={times['scatter']:.4f} plain_ms="
+                      f"{times['scatter_plain']:.4f} bound_ms={sb:.4f} "
+                      f"({sby}) library_ms(index_copy_)="
+                      f"{times['scatter_lib']:.4f}", flush=True)
+                del values
+            del pool
+    return out
+
+
+def _ssd_inputs(torch, g, bc, l, h, p, n, dt_bias, A):
+    """SSD block inputs as the mamba path makes them: bf16 x, B, C after
+    the conv and silu, dt = softplus(raw + dt_bias) with the model's
+    dt bias, da the within-chunk cumsum of dt * A."""
+    F = torch.nn.functional
+    x = F.silu(torch.randn((bc, l, h, p), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    B = F.silu(torch.randn((bc, l, h, n), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    C = F.silu(torch.randn((bc, l, h, n), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    raw = torch.randn((bc, l, h), generator=g, device="cuda")
+    dt = F.softplus(raw + dt_bias.float())
+    da = torch.cumsum(dt * A.float(), dim=1)
+    return x, dt, da, B, C
+
+
+def _close_scaled(got, want, tol):
+    """max |got - want| and its worst ratio to tol[0] * max|want| +
+    tol[1] * |want| (at most 1 passes)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    lim = tol[0] * want.abs().max() + tol[1] * want.abs()
+    return d.max().item(), (d / lim).max().item()
+
+
+def phase_ssd_chunk(torch, timer, mcfg, ec):
+    """Kernel 12 at the mamba shapes (l 256, 32 heads, p 64, n 128, bf16
+    x/B/C, f32 dt and da, the dt bias and A of a seeded layer) against
+    its plain version: the engine's prefill rows x one chunk and 4 x 512
+    tokens.  Then its own path: ``ssm.ssd_chunked_pallas`` against the
+    plain ``ssd_chunked`` in float32 on the same two shapes, every
+    launch count set to 0 just before and read just after.  No single
+    PyTorch call computes the block (library none)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import ssm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, nh, _ = ssm._dims(mcfg)
+    sm = mcfg.ssm
+    l, p, n = sm.chunk_size, sm.head_dim, sm.d_state
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    layer = ssm.init_ssm(gen, mcfg, "cuda")
+    A = -torch.exp(layer["A_log"].float())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    out, path = {}, []
+    for label, seqs, tokens in SSD_CASES:
+        seqs = seqs or ec.prefill_rows
+        bc = seqs * -(-tokens // l)
+        x, dt, da, B, C = _ssd_inputs(torch, g, bc, l, nh, p, n,
+                                      layer["dt_bias"], A)
+        y, st = sc.ssd_chunk_bchp(x, dt, da, B, C)
+        y0, st0 = sc.ssd_chunk_bchp_plain(x, dt, da, B, C)
+        ey, ry = _close_scaled(y, y0, SSD_BF16_TOL)
+        es, rs = _close_scaled(st, st0, SSD_F32_TOL)
+        if not (math.isfinite(ey + es) and ry <= 1.0 and rs <= 1.0):
+            fail(f"ssd_chunk_bchp {label}: y off by {ey} ({ry:.3g}x its "
+                 f"bound), states by {es} ({rs:.3g}x)")
+        rows = bc * nh
+        nbytes = rows * l * (2 * p + 2 * 2 * n + 2 * 4 + 2 * p) \
+            + rows * n * p * 4
+        # scores on and below the diagonal, their product with x dt,
+        # and the states: two operations a multiply-add
+        tri = l * (l + 1) // 2
+        ops = rows * (2 * tri * n + 2 * tri * p + 2 * l * n * p)
+        bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        ms = timer(lambda: sc.ssd_chunk_bchp(x, dt, da, B, C))
+        plain_ms = timer(lambda: sc.ssd_chunk_bchp_plain(x, dt, da, B, C))
+        out[label] = dict(max_abs_err=max(ey, es), ms=ms, plain_ms=plain_ms,
+                          bound_ms=bnd, bound_by=by, library_ms=None)
+        print(f"[ssd_chunk_bchp] {label}: bc={bc} l={l} h={nh} p={p} n={n} "
+              f"bf16 y err={ey:.3g} (x{ry:.3f} of bound) states err="
+              f"{es:.3g} (x{rs:.3f}) kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bnd:.4f} ({by}) library_ms=none "
+              f"(no single PyTorch call)", flush=True)
+        # the kernel's own path, in float32
+        xs = x.float().reshape(seqs, -1, nh, p)
+        dts = dt.reshape(seqs, -1, nh)
+        Bs = B.float().reshape(seqs, -1, nh, n)[:, :, :1]
+        Cs = C.float().reshape(seqs, -1, nh, n)[:, :, :1]
+        path.append((label, xs, dts, Bs, Cs))
+        del x, dt, da, B, C, y, st, y0, st0
+    kernels.reset_launch_counts()
+    results = [ssm.ssd_chunked_pallas(xs, dts, A, Bs, Cs, chunk=l)
+               for _, xs, dts, Bs, Cs in path]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["ssd_chunk_bchp"]
+    if launches != len(path):
+        fail(f"ssd_chunked_pallas launched ssd_chunk_bchp {launches} times"
+             f" in {len(path)} calls")
+    for (label, xs, dts, Bs, Cs), (y2, f2) in zip(path, results):
+        y1, f1 = ssm.ssd_chunked(xs, dts, A, Bs, Cs, chunk=l)
+        ey, ry = _close_scaled(y2, y1, SSD_F32_TOL)
+        ef, rf = _close_scaled(f2, f1, SSD_F32_TOL)
+        print(f"[ssd_chunked_pallas] {label} f32 vs ssd_chunked: y err "
+              f"{ey:.3g} (x{ry:.3f} of bound) final state err {ef:.3g} "
+              f"(x{rf:.3f})", flush=True)
+        if not (ry <= 1.0 and rf <= 1.0):
+            fail(f"ssd_chunked_pallas {label} differs from ssd_chunked")
+    return out, launches
+
+
+def phase_serve_mamba(torch, mcfg):
+    """The mamba serving path, full-width mamba2-370m from SEED, the
+    qwen2 phase's 16 requests: per depth (1 and 8) two greedy runs, which
+    must repeat token for token, and one at SAMPLE_T / SAMPLE_TOP_K; the
+    slot kernels must launch in every run, attention in none, and every
+    state slot must be free after each; then the teacher-forced f32
+    check (the logit tolerances only).  Returns the launches of each depth's first greedy and its
+    sampled run, summed."""
+    from repro_torch import kernels
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    model = build_model(mcfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {mcfg.name} full width: {mcfg.num_layers} layers, "
+          f"d_model {mcfg.d_model}, {nparams / 1e9:.3f}B params "
+          f"{mcfg.param_dtype}, init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    work = workload(mcfg.vocab_size, SEED)
+    launches = {fn.__name__: 0 for fn in kernels.KERNELS}
+    greedy_streams, sampled_streams = [], []
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+    for depth in (1, 8):
+        runs = []
+        for rep, kw in ((0, {}), (1, {}), (0, sample)):
+            stream, counts, _, line = _serve_once(torch, model, params, work,
+                                                  depth, **kw)
+            mode = (f"T={SAMPLE_T} top_k={SAMPLE_TOP_K}" if kw
+                    else "greedy")
+            print(f"[serve] {mcfg.name} depth={depth} {mode} run={rep} "
+                  f"{line}", flush=True)
+            for name in ("slot_gather", "slot_scatter"):
+                if counts[name] <= 0:
+                    fail(f"{mcfg.name} depth {depth}: {name} never "
+                         "launched")
+            for name in ("flash_decode_paged", "decode_view_attend"):
+                if counts[name]:
+                    fail(f"{mcfg.name} launched {name}")
+            sampler = "gumbel_sample" if kw else "greedy_sample"
+            other = "greedy_sample" if kw else "gumbel_sample"
+            if counts[sampler] <= 0 or counts[other]:
+                fail(f"{mcfg.name} depth {depth}: {mode} serving did not "
+                     f"go through {sampler} alone")
+            if rep == 0:
+                for k, v in counts.items():
+                    launches[k] += v
+            if kw:
+                sampled_streams.append(stream)
+            else:
+                runs.append(stream)
+        if runs[0] != runs[1]:
+            fail(f"{mcfg.name} depth {depth}: two greedy runs gave other "
+                 "streams")
+        greedy_streams.append(runs[0])
+    same = (greedy_streams[0] == greedy_streams[1],
+            sampled_streams[0] == sampled_streams[1])
+    print(f"[serve] {mcfg.name}: greedy streams repeat at each depth; "
+          f"depth 1 == depth 8: greedy {same[0]}, sampled {same[1]}",
+          flush=True)
+    # held to the qwen2 phase's logit tolerances; the share of tokens equal
+    # to the f32 argmax is printed, not held to qwen2's floor: bf16
+    # through 48 mamba layers leaves a wider logit error, so near-ties
+    # flip more often (PERF.md)
+    _teacher_forced_check(torch, model, params, work, greedy_streams,
+                          sampled_streams, argmax_floor=None)
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _teacher_forced_check(torch, model, params, work, greedy, sampled):
+def _teacher_forced_check(torch, model, params, work, greedy, sampled,
+                          argmax_floor=TF_ARGMAX_FLOOR):
     """Every emitted token against a plain f32 forward over the emitted
     stream.  Greedy: its logit within TF_LOGIT_TOL of the row's max, and
     at least TF_ARGMAX_FLOOR of them the row's argmax (bf16 kernels need
@@ -759,17 +1068,18 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled):
                     kth = torch.topk(rows, SAMPLE_TOP_K, -1).values[:, -1]
                     worst_k = max(worst_k, (kth - chosen).max().item())
                     total_k += len(out[i])
-    print(f"[serve] teacher-forced f32 check: greedy {total} tokens, "
-          f"{agree / total:.4f} equal to the f32 argmax (floor "
-          f"{TF_ARGMAX_FLOOR}), worst logit deficit {worst:.4f} "
+    floor = "no floor" if argmax_floor is None else f"floor {argmax_floor}"
+    print(f"[serve] {model.cfg.name} teacher-forced f32 check: greedy "
+          f"{total} tokens, {agree / total:.4f} equal to the f32 argmax "
+          f"({floor}), worst logit deficit {worst:.4f} "
           f"(tolerance {TF_LOGIT_TOL}); sampled {total_k} tokens, worst "
           f"logit below the f32 top-{SAMPLE_TOP_K} kth value "
           f"{worst_k:.4f} (margin {TF_TOPK_MARGIN})", flush=True)
     if not (worst <= TF_LOGIT_TOL):
         fail(f"emitted token logit deficit {worst} > {TF_LOGIT_TOL}")
-    if not (agree / total >= TF_ARGMAX_FLOOR):
+    if argmax_floor is not None and not (agree / total >= argmax_floor):
         fail(f"emitted tokens equal to the f32 argmax: {agree / total} < "
-             f"{TF_ARGMAX_FLOOR}")
+             f"{argmax_floor}")
     if not (worst_k <= TF_TOPK_MARGIN):
         fail(f"a sampled token's logit sits {worst_k} below the f32 "
              f"top-{SAMPLE_TOP_K} kth value (margin {TF_TOPK_MARGIN})")
@@ -820,6 +1130,13 @@ def main() -> int:
     tr = phase(phase_train, torch)
     launches["fused_sgd_update"] = tr["launches"]["fused_sgd_update"]
     phase(phase_virtual, torch, cfg)
+    mcfg = get_config(MAMBA)
+    st = phase(phase_slot_state, torch, timer, mcfg, ec)
+    ssd, ssd_launches = phase(phase_ssd_chunk, torch, timer, mcfg, ec)
+    m_launches = phase(phase_serve_mamba, torch, mcfg)
+    for name in ("slot_gather", "slot_scatter"):
+        launches[name] = m_launches[name]
+    launches["ssd_chunk_bchp"] = ssd_launches
 
     def row(results, label):
         """The kernel's JSON numbers: times of the engine's full decode
@@ -853,6 +1170,21 @@ def main() -> int:
              source=f"{src}/fused_update.cu",
              replaces="src/repro/kernels/fused_update.py:43",
              launches=launches["fused_sgd_update"], **fu),
+        # the fused decode step's call: one layer's SSD state pool
+        dict(name="slot_gather", route="cuda", source=f"{src}/slot_state.cu",
+             replaces="src/repro/kernels/slot_state.py:44",
+             launches=launches["slot_gather"],
+             **st[("state", 0, top)]["gather"]),
+        dict(name="slot_scatter", route="cuda",
+             source=f"{src}/slot_state.cu",
+             replaces="src/repro/kernels/slot_state.py:69",
+             launches=launches["slot_scatter"],
+             **st[("state", 0, top)]["scatter"]),
+        dict(name="ssd_chunk_bchp", route="cuda",
+             source=f"{src}/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd_chunk.py:54",
+             launches=launches["ssd_chunk_bchp"],
+             **ssd[SSD_CASES[0][0]]),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -166,7 +166,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def _load_all():
     # the port registers only the archs it serves so far (ROADMAP §1)
-    from repro_torch.configs import qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import mamba2_370m, qwen2_1_5b  # noqa: F401
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

@@ -6,6 +6,9 @@ version and a launch counter (``<wrapper>.launches``).
   sampling.greedy_sample            per-row argmax
   sampling.gumbel_sample            temperature / top-k gumbel-max
   fused_update.fused_sgd_update     SGD-momentum (+ LARS) update
+  slot_state.slot_gather            recurrent-state rows out of a slot pool
+  slot_state.slot_scatter           recurrent-state rows back into it
+  ssd_chunk.ssd_chunk_bchp          Mamba-2 SSD intra-chunk block
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built on first use by ``_build``) or raises.
@@ -15,9 +18,12 @@ from repro_torch.kernels.decode_view import decode_view_attend
 from repro_torch.kernels.flash_decode import flash_decode_paged
 from repro_torch.kernels.fused_update import fused_sgd_update
 from repro_torch.kernels.sampling import greedy_sample, gumbel_sample
+from repro_torch.kernels.slot_state import slot_gather, slot_scatter
+from repro_torch.kernels.ssd_chunk import ssd_chunk_bchp
 
 KERNELS = (flash_decode_paged, decode_view_attend, greedy_sample,
-           gumbel_sample, fused_sgd_update)
+           gumbel_sample, fused_sgd_update, slot_gather, slot_scatter,
+           ssd_chunk_bchp)
 
 
 def reset_launch_counts() -> None:
@@ -31,4 +37,5 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNELS", "decode_view_attend", "flash_decode_paged",
            "fused_sgd_update", "greedy_sample", "gumbel_sample",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "slot_gather",
+           "slot_scatter", "ssd_chunk_bchp"]

@@ -1,5 +1,6 @@
 """Shared building blocks: inits, rmsnorm, the swiglu MLP, rotary
-embeddings and the cross-entropy loss (``repro/models/layers.py``)."""
+embeddings, the depthwise causal conv with its slot-state helpers, and
+the cross-entropy loss (``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
@@ -7,6 +8,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.slot_state import slot_scatter
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
@@ -74,6 +77,65 @@ def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
     x32 = x.float()
     out = x32 * cos + x32.roll(x.shape[-1] // 2, dims=-1) * sin
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv1d (the mamba frontend) and slot-state helpers
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen: torch.Generator, channels: int, kernel: int, dtype,
+                device):
+    return {"conv_w": dense_init(gen, (kernel, channels), dtype, device,
+                                 scale=1.0 / math.sqrt(kernel)),
+            "conv_b": torch.zeros((channels,), dtype=dtype, device=device)}
+
+
+def apply_conv1d(params, x: torch.Tensor, cache=None):
+    """Depthwise causal conv.  x (B, S, C); cache (B, K-1, C) past inputs
+    or None (zeros).  Returns (y, new_cache), the new cache holding the
+    last K-1 inputs."""
+    w = params["conv_w"].to(x.dtype)             # (K, C)
+    bias = params["conv_b"].to(x.dtype)
+    k, s = w.shape[0], x.shape[1]
+    if cache is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)              # (B, S+K-1, C)
+    # sum_k w[k] * x[t - (K-1) + k], in the reference's order
+    y = sum(w[i] * xp[:, i:i + s] for i in range(k))
+    y = y + bias
+    new_cache = xp[:, -(k - 1):] if k > 1 else pad
+    return y, new_cache
+
+
+def slot_conv_window(conv0: torch.Tensor, x_raw: torch.Tensor, valid_len):
+    """Conv cache for a paged state slot: the last K-1 *valid* inputs of
+    [conv0 | x_raw], the window ending just before column ``valid_len``
+    (None: every column is valid)."""
+    b, s = x_raw.shape[:2]
+    k1 = conv0.shape[1]
+    full = torch.cat([conv0, x_raw], dim=1)      # (B, K-1+S, C)
+    vl = (torch.full((b,), s, dtype=torch.long, device=x_raw.device)
+          if valid_len is None else valid_len.long())
+    idx = vl[:, None] + torch.arange(k1, device=x_raw.device)[None]
+    return torch.gather(full, 1, idx[..., None].expand(-1, -1,
+                                                      full.shape[2]))
+
+
+def slot_state_scatter(pool: torch.Tensor, state_slots: torch.Tensor,
+                       valid_len, value: torch.Tensor) -> torch.Tensor:
+    """Write each row's recurrent state to its slot of ``pool`` (S, *F),
+    in place; rows with ``valid_len == 0`` (padding, stale rows) write
+    trash slot 0 instead, so they can never advance a live slot's state.
+    Goes through the ``slot_scatter`` kernel on the card."""
+    wslot = (state_slots if valid_len is None
+             else torch.where(valid_len > 0, state_slots,
+                              torch.zeros_like(state_slots)))
+    return slot_scatter(pool, wslot.to(torch.int32).contiguous(),
+                        value.to(pool.dtype).contiguous())
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
-"""Model interface of the port for the dense family
+"""Model interface of the port for the dense and ssm families
 (``repro/models/model.py``): ``build_model(cfg)`` returns a ``Model``
 whose members are plain functions over a nested dict of tensors.
 
   init(seed, device)                        -> params
   forward(params, tokens, ...)              -> (logits, cache, h)
-  init_paged_cache(num_blocks, block_size, device=...) -> K/V pools
+  init_paged_cache(num_blocks, block_size, num_state_slots=...,
+                   device=...)              -> K/V or slot-state pools
   paged_step(params, cache, slot_buf, tokens, block_tables, meta)
   paged_decode_loop(params, cache, slot_buf, block_tables, meta,
                     num_steps=N)
@@ -25,7 +26,9 @@ from repro_torch.models import transformer
 @dataclass(frozen=True)
 class PagedSpec:
     """Paged-serving capability record (see the reference).  The dense
-    family keeps per-token K/V block pools and no recurrent state.
+    family keeps per-token K/V block pools and no recurrent state; the
+    ssm family keeps one recurrent-state slot per sequence and no block
+    pools (the engine still meters its tokens in host-side blocks).
 
       reclaim_window  positions after which a block is dead for every
                       layer (the sliding window, when every layer has
@@ -38,6 +41,14 @@ class PagedSpec:
     has_state: bool
     reclaim_window: int = 0
     kernel_spec: Tuple[Tuple[str, str], ...] = ()
+
+    @property
+    def width1_mixed(self) -> bool:
+        """Whether mixed prefill+decode steps may split prefill chunks
+        into width-1 rows.  Recurrent state forbids it: token i+1's state
+        depends on token i's within the same call, so a chunk stays one
+        row."""
+        return not self.has_state
 
 
 @dataclass
@@ -59,12 +70,16 @@ def _init(seed: int, device, *, cfg):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    transformer.runs_of(cfg)            # raises for families not ported
+    kinds = {k for k, _, _ in transformer.runs_of(cfg)}   # raises if not
+    kspec = {"sampling": "greedy_sample/gumbel_sample"}    # ported
+    if "attn" in kinds:
+        kspec["attn"] = "decode_view_attend/flash_decode_paged"
+    if "ssm" in kinds:
+        kspec["ssm"] = "slot_gather/slot_scatter"
     spec = PagedSpec(
-        has_blocks=True, has_state=False,
-        reclaim_window=cfg.sliding_window,
-        kernel_spec=(("attn", "decode_view_attend/flash_decode_paged"),
-                     ("sampling", "greedy_sample/gumbel_sample")))
+        has_blocks="attn" in kinds, has_state="ssm" in kinds,
+        reclaim_window=cfg.sliding_window if "attn" in kinds else 0,
+        kernel_spec=tuple(sorted(kspec.items())))
     return Model(
         cfg=cfg,
         init=functools.partial(_init, cfg=cfg),

@@ -1,18 +1,21 @@
-"""Decoder-only transformer for the dense GQA family
-(``repro/models/transformer.py``): params, forward in three cache modes,
-the fused serving step, the N-step on-device decode loop and the
-language-model loss.
+"""Decoder-only stacks of the port (``repro/models/transformer.py``): the
+dense GQA family and the Mamba-2 (ssm) family.  Params, forward in three
+cache modes, the fused serving step, the N-step on-device decode loop
+and the language-model loss.
 
-Params keep the reference's nesting and its stacked per-run layout
-(``params["layers"]["run_0"]["attn"]["wq"]`` of shape (L, D, H*hd)), so
-``repro_torch.interop`` maps them 1:1.  The layer stack runs as a Python
-loop over the leading axis (the reference's ``lax.scan``).
+Layers are grouped into runs of identical (mixer, ffn) kinds, each
+parameter-stacked with a leading layer axis (``params["layers"]["run_0"]
+["attn"]["wq"]`` of shape (L, D, H*hd)), so ``repro_torch.interop`` maps
+them 1:1.  A run executes as a Python loop over that axis (the
+reference's ``lax.scan``).
 
-The cache is ``{"run_0": {"k": (L, nb, bs, KV, hd), "v": ...}}`` and is
-updated in place.  Block tables are passed to each call directly: the
-reference broadcasts them into the cache pytree
-(``with_block_tables``/``_canonical_block_tables``) only to keep its jit
-signatures stable, which eager PyTorch does not need.
+The paged cache holds, per run, K/V block pools ``{"k", "v"}`` of (L,
+nb, bs, KV, hd) for attention, or slot-state pools ``{"conv", "state"}``
+of (L, S, ...) for ssm layers, and is updated in place.  Block tables
+are passed to each call directly: the reference broadcasts them into the
+cache pytree (``with_block_tables``/``_canonical_block_tables``) only to
+keep its jit signatures stable, which eager PyTorch does not need, and
+slot-state runs carry none.
 """
 from __future__ import annotations
 
@@ -23,23 +26,40 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import prng
 from repro_torch.kernels.sampling import greedy_sample, gumbel_sample
+from repro_torch.kernels.slot_state import slot_gather, slot_scatter
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_init)
+from repro_torch.tree import tree_map
+
+# the (mixer, ffn) runs the port has: dense GQA and mamba layers
+_PORTED_RUNS = {("attn", "dense"), ("ssm", "none")}
 
 
 def runs_of(cfg) -> List[Tuple[str, str, int]]:
-    """Runs of identical (mixer, ffn) layers; the port serves the dense
-    family only, which is one run of ("attn", "dense")."""
+    """Runs of identical (mixer, ffn) layers, as the reference groups
+    them; raises for kinds the port does not have yet."""
     kinds = cfg.layer_kinds()
-    ffns = cfg.ffn_kinds()
-    if (cfg.family not in ("dense",) or set(kinds) != {"attn"}
-            or set(ffns) != {"dense"} or cfg.mla is not None
-            or cfg.activation != "swiglu"):
+    ffns = list(cfg.ffn_kinds())
+    if cfg.family == "ssm" or cfg.d_ff == 0:
+        ffns = ["none"] * cfg.num_layers
+    out: List[List[Any]] = []
+    for k, f in zip(kinds, ffns):
+        if out and out[-1][0] == k and out[-1][1] == f:
+            out[-1][2] += 1
+        else:
+            out.append([k, f, 1])
+    runs = [tuple(r) for r in out]
+    if (any((k, f) not in _PORTED_RUNS for k, f, _ in runs)
+            or cfg.mla is not None
+            or (cfg.activation != "swiglu"
+                and any(f == "dense" for _, f, _ in runs))):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA family only; the "
-            "other families are queued in ROADMAP.md §1")
-    return [("attn", "dense", cfg.num_layers)]
+            f"{cfg.name}: the port serves the dense GQA and the mamba "
+            "(ssm) families only; the other families are queued in "
+            "ROADMAP.md §1")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -47,10 +67,7 @@ def runs_of(cfg) -> List[Tuple[str, str, int]]:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
-    """Random params from ``generator`` (same shapes, inits and nesting as
-    the reference; the numbers differ — torch and jax draw differently)."""
-    ((_, _, n),) = runs_of(cfg)
+def _init_dense_run(cfg, generator, device, n):
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     h, kv, pd = cfg.num_heads, cfg.num_kv_heads, cfg.pdtype
 
@@ -66,15 +83,35 @@ def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
     if cfg.qkv_bias:
         attn.update(bq=const((h * hd,), 0.0), bk=const((kv * hd,), 0.0),
                     bv=const((kv * hd,), 0.0))
-    run = {"ln1": {"scale": const((d,), 1.0)}, "attn": attn,
-           "ln2": {"scale": const((d,), 1.0)},
-           "mlp": {"w_gate": stacked((d, f)), "w_up": stacked((d, f)),
-                   "w_down": stacked((f, d))}}
+    return {"ln1": {"scale": const((d,), 1.0)}, "attn": attn,
+            "ln2": {"scale": const((d,), 1.0)},
+            "mlp": {"w_gate": stacked((d, f)), "w_up": stacked((d, f)),
+                    "w_down": stacked((f, d))}}
+
+
+def _init_ssm_run(cfg, generator, device, n):
+    """n mamba layers drawn one after another (the reference's vmapped
+    ``init_layer``), stacked."""
+    per = [{"ln1": {"scale": torch.ones((cfg.d_model,), dtype=cfg.pdtype,
+                                        device=device)},
+            "ssm": ssm_mod.init_ssm(generator, cfg, device)}
+           for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs), per[0], *per[1:])
+
+
+def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
+    """Random params from ``generator`` (same shapes, inits and nesting as
+    the reference; the numbers differ — torch and jax draw differently)."""
+    layers = {}
+    for i, (kind, _, n) in enumerate(runs_of(cfg)):
+        init_run = _init_dense_run if kind == "attn" else _init_ssm_run
+        layers[f"run_{i}"] = init_run(cfg, generator, device, n)
+    d, pd = cfg.d_model, cfg.pdtype
     params: Dict[str, Any] = {
         "embed": {"embedding": embed_init(generator, (cfg.vocab_size, d), pd,
                                           device)},
         "final_norm": {"scale": torch.ones((d,), dtype=pd, device=device)},
-        "layers": {"run_0": run},
+        "layers": layers,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(generator, (d, cfg.vocab_size),
@@ -117,41 +154,65 @@ def embed_tokens(params, tokens, cfg):
 # ---------------------------------------------------------------------------
 
 
+def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
+                cache=None, block_tables=None, pos=None, valid_len=None,
+                state_slots=None):
+    """One layer: the mixer (attention or mamba) and the dense MLP, each
+    pre-normed and residual.  The layer's cache is updated in place."""
+    x = apply_norm(lp["ln1"], h, cfg)
+    if kind == "attn":
+        y, _ = attn_mod.apply_attention(
+            lp["attn"], x, cfg, rope=rope, write=write,
+            window=cfg.sliding_window, cache=cache,
+            block_tables=block_tables, pos=pos)
+    else:
+        y, _ = ssm_mod.apply_ssm(lp["ssm"], x, cfg, cache=cache, pos=pos,
+                                 valid_len=valid_len,
+                                 state_slots=state_slots)
+    h = h + y
+    if ffn == "dense":
+        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+    return h
+
+
 def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
-            valid_len=None, need_logits=True):
+            valid_len=None, state_slots=None, need_logits=True):
     """Returns (logits, cache, h).
 
-    tokens (B,S).  cache None: full-sequence forward (plain attention).
-    cache with "k"/"v" pools + block_tables: paged step, pos (B,).
-    cache with "kview"/"vview" views: one decode-loop step, pos (B,).
+    tokens (B,S).  cache None: full-sequence forward (plain attention,
+    chunked SSD from a zero state).
+    cache with pools ("k"/"v" + block_tables; "conv"/"state" +
+    state_slots): paged step, pos (B,).
+    cache with views ("kview"/"vview"; "conv_view"/"state_view"): one
+    decode-loop step, pos (B,).
     """
     h = embed_tokens(params, tokens, cfg)
-    ((_, _, n),) = runs_of(cfg)
-    rp = params["layers"]["run_0"]
-    rc = cache["run_0"] if cache is not None else None
-    window = cfg.sliding_window
-    rope, write = attn_mod.shared_inputs(
-        cfg, tokens.shape[1], h.device, cache=_layer(rc, 0) if rc else None,
-        block_tables=block_tables, pos=pos, valid_len=valid_len)
+    rope = write = None
+    for ri, (kind, ffn, n) in enumerate(runs_of(cfg)):
+        rp = params["layers"][f"run_{ri}"]
+        rc = cache[f"run_{ri}"] if cache is not None else None
+        if kind == "attn" and rope is None:
+            rope, write = attn_mod.shared_inputs(
+                cfg, tokens.shape[1], h.device,
+                cache=_layer(rc, 0) if rc else None,
+                block_tables=block_tables, pos=pos, valid_len=valid_len)
 
-    def block(h, lp, lc):
-        x = apply_norm(lp["ln1"], h, cfg)
-        y, _ = attn_mod.apply_attention(
-            lp["attn"], x, cfg, rope=rope, write=write, window=window,
-            cache=lc, block_tables=block_tables, pos=pos)
-        h = h + y
-        return h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+        def block(h, lp, lc, kind=kind, ffn=ffn):
+            return apply_layer(lp, h, cfg, kind, ffn, rope=rope, write=write,
+                               cache=lc, block_tables=block_tables, pos=pos,
+                               valid_len=valid_len, state_slots=state_slots)
 
-    # the training forward recomputes each layer in the backward pass
-    # (the reference's jax.checkpoint around the scanned layer); only the
-    # full-sequence form, which writes no cache in place, is checkpointed
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    for i, lp in enumerate(_unstack(rp, n)):
-        lc = _layer(rc, i) if rc is not None else None
-        if remat:
-            h = checkpoint(block, h, lp, lc, use_reentrant=False)
-        else:
-            h = block(h, lp, lc)
+        # the training forward recomputes each layer in the backward pass
+        # (the reference's jax.checkpoint around the scanned layer); only
+        # the full-sequence form, which writes no cache in place, is
+        # checkpointed
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        for i, lp in enumerate(_unstack(rp, n)):
+            lc = _layer(rc, i) if rc is not None else None
+            if remat:
+                h = checkpoint(block, h, lp, lc, use_reentrant=False)
+            else:
+                h = block(h, lp, lc)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = _logits(params, h, cfg) if need_logits else None
     return logits, cache, h
@@ -200,15 +261,36 @@ def lm_loss(params, batch, cfg):
     return ce, {"ce": ce, "loss": ce}
 
 
-def init_paged_cache(cfg, num_blocks: int, block_size: int, *, dtype=None,
+def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
+                     num_state_slots: int = 0, dtype=None,
                      device=None) -> Dict[str, Any]:
-    """K/V block pools per layer, (L, num_blocks, block_size, KV, hd).
-    Physical block 0 is the trash block inactive rows write to."""
-    ((_, _, n),) = runs_of(cfg)
-    shape = (n, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    """Paged per-layer decode state, by run kind:
+
+      attn  K/V block pools (L, num_blocks, block_size, KV, hd); physical
+            block 0 is the trash block inactive rows write to
+      ssm   slot-state pools of ``num_state_slots`` rows: the conv window
+            (L, S, K-1, convdim) and the SSD state (L, S, H, P, N), the
+            latter in float32 (``ssm.init_ssm_cache``); slot 0 is the
+            trash slot
+    """
     dtype = dtype or cfg.cdtype
-    return {"run_0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    out = {}
+    for i, (kind, _, n) in enumerate(runs_of(cfg)):
+        if kind == "attn":
+            shape = (n, num_blocks, block_size, cfg.num_kv_heads,
+                     cfg.head_dim)
+            out[f"run_{i}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+            continue
+        if num_state_slots < 2:
+            raise ValueError("slot-state runs need num_state_slots >= 2 "
+                             "(slot 0 is the trash slot)")
+        single = ssm_mod.init_ssm_cache(cfg, num_state_slots, dtype, "meta")
+        out[f"run_{i}"] = {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                          device=device)
+                           for k, v in single.items()}
+    return out
 
 
 def _sample_rows(logits, rids, positions, *, temperature: float = 0.0,
@@ -234,14 +316,14 @@ def paged_step(params, cache, slot_buf, tokens, block_tables, meta, cfg, *,
 
     tokens (B,C) int32; block_tables (B,NB) int32; meta (6,B) int32 rows
     pos / valid_len / src_slot / dst_slot / state_slot / rid (see the
-    reference's ``paged_step``; state_slot is unused by dense serving,
-    rid keys the draw at temperature > 0); slot_buf (S+1,) int32, the
+    reference's ``paged_step``; state_slot indexes the slot-state pools
+    of ssm runs, 0 the trash slot, and is unused by attention runs; rid
+    keys the draw at temperature > 0); slot_buf (S+1,) int32, the
     last sampled token per slot (slot S is the spare that rows with
     dst_slot < 0 write).
     Returns (next_tokens (B,) int32, slot_buf, cache); slot_buf and the
     cache are updated in place."""
-    pos, valid_len, src_slot, dst_slot, rid = (meta[0], meta[1], meta[2],
-                                               meta[3], meta[5])
+    pos, valid_len, src_slot, dst_slot, state_slot, rid = meta
     wired = src_slot >= 0
     tok0 = torch.where(wired, slot_buf[src_slot.clamp(min=0).long()],
                        tokens[:, 0])
@@ -249,7 +331,8 @@ def paged_step(params, cache, slot_buf, tokens, block_tables, meta, cfg, *,
     tokens[:, 0] = tok0
     _, cache, h = forward(params, tokens, cfg, cache=cache,
                           block_tables=block_tables, pos=pos,
-                          valid_len=valid_len, need_logits=False)
+                          valid_len=valid_len, state_slots=state_slot,
+                          need_logits=False)
     idx = (valid_len - 1).clamp(min=0).long()
     rows = torch.arange(h.shape[0], device=h.device)
     hf = h[rows, idx][:, None]                                  # (B,1,D)
@@ -289,18 +372,47 @@ def _scatter_view(pool, bt, view):
     return pool
 
 
-def _loop_views(cache, block_tables):
-    """Pools -> per-row resident views, once per dispatch."""
-    return {run: {"kview": _gather_view(rc["k"], block_tables),
-                  "vview": _gather_view(rc["v"], block_tables)}
-            for run, rc in cache.items()}
+def _paged_block_size(cache) -> int:
+    """Tokens per block of the cache's block pools, or 0 when no run is
+    block-pooled (pure slot-state families)."""
+    for rc in cache.values():
+        if "k" in rc:
+            return rc["k"].shape[2]            # (L, nb, bs, ...)
+    return 0
 
 
-def _scatter_loop_views(cache, views, block_tables):
-    """Inverse of ``_loop_views``: commit the views into the pools."""
+def _loop_views(cache, block_tables, state_slot, pos0):
+    """Pools -> per-row resident views, once per dispatch: block pools
+    gather through the tables, slot-state pools gather each row's slot
+    for every layer of the run in one ``slot_gather`` launch per leaf
+    (``pos0 == 0`` rows read zeros, as in the paged step)."""
+    fresh = pos0 == 0
+    views = {}
     for run, rc in cache.items():
-        _scatter_view(rc["k"], block_tables, views[run]["kview"])
-        _scatter_view(rc["v"], block_tables, views[run]["vview"])
+        if "k" in rc:
+            views[run] = {"kview": _gather_view(rc["k"], block_tables),
+                          "vview": _gather_view(rc["v"], block_tables)}
+        else:
+            views[run] = {f"{name}_view": slot_gather(leaf, state_slot, fresh,
+                                                      stacked=True)
+                          for name, leaf in rc.items()}
+    return views
+
+
+def _scatter_loop_views(cache, views, block_tables, state_slot):
+    """Inverse of ``_loop_views``: commit the views into the pools.
+    Every slot-state row writes its own slot (padding rows trash slot 0),
+    and a stopped row's view holds its state as of stopping (later
+    iterations are identity updates), so the write-back is
+    unconditional: one ``slot_scatter`` launch per leaf."""
+    for run, rc in cache.items():
+        if "k" in rc:
+            _scatter_view(rc["k"], block_tables, views[run]["kview"])
+            _scatter_view(rc["v"], block_tables, views[run]["vview"])
+        else:
+            for name, pool in rc.items():
+                slot_scatter(pool, state_slot, views[run][f"{name}_view"],
+                             stacked=True)
     return cache
 
 
@@ -312,35 +424,41 @@ def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
     meta (6,B) int32 rows pos0 / steps / slot / state_slot / rid / eos
     (see the reference's ``paged_decode_loop``).  A Python loop replaces
     the reference's ``fori_loop``; every stop predicate (step budget,
-    eos, the block-capacity check on the table) stays a device tensor,
+    eos, and for block-pooled runs the capacity check on the table; pure
+    slot-state families rely on the host-metered budget) stays a device
+    tensor,
     so the host queues all ``num_steps`` iterations without waiting on
     the device.  Returns (tokens (B,N) int32, counts (B,) int32, eos_hit
     (B,) bool, slot_buf, cache); slot_buf and the cache are updated in
     place."""
-    pos0, steps, slot, rid, eos = (meta[0], meta[1], meta[2].long(),
-                                   meta[4], meta[5])
+    pos0, steps, slot, state_slot, rid, eos = meta
+    slot = slot.long()
     b = pos0.shape[0]
     nb = block_tables.shape[1]
-    block_size = cache["run_0"]["k"].shape[2]
+    block_size = _paged_block_size(cache)
     spare = slot_buf.shape[0] - 1
     dev = pos0.device
     bt_long = block_tables.long()
-    views = _loop_views(cache, block_tables)
+    views = _loop_views(cache, block_tables, state_slot, pos0)
     out = torch.full((b, num_steps), -1, dtype=torch.int32, device=dev)
     counts = torch.zeros((b,), dtype=torch.int32, device=dev)
     stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
     for i in range(num_steps):
         active = (steps > i) & ~stopped
         pos = pos0 + i
-        # device-side capacity predicate: the write at `pos` must land in
-        # a reserved block, not the trash placeholder of the frontier
-        lblk = (pos // block_size).long()
-        entry = torch.gather(bt_long, 1, lblk.clamp(max=nb - 1)[:, None])[:, 0]
-        active &= (lblk < nb) & (entry != 0)
+        if block_size:
+            # device-side capacity predicate: the write at `pos` must land
+            # in a reserved block, not the trash placeholder of the
+            # frontier
+            lblk = (pos // block_size).long()
+            entry = torch.gather(bt_long, 1,
+                                 lblk.clamp(max=nb - 1)[:, None])[:, 0]
+            active &= (lblk < nb) & (entry != 0)
         valid = active.to(torch.int32)
         tokens = slot_buf[slot][:, None]
         _, views, h = forward(params, tokens, cfg, cache=views, pos=pos,
-                              valid_len=valid, need_logits=False)
+                              valid_len=valid, state_slots=state_slot,
+                              need_logits=False)
         logits = _logits(params, h[:, :1], cfg)[:, 0].float()
         tok = _sample_rows(logits, rid, pos + 1, temperature=temperature,
                            top_k=top_k, seed=seed)
@@ -351,6 +469,6 @@ def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
             (torch.where(active, slot, torch.full_like(slot, spare)),), tok)
         counts += valid
         stopped |= hit
-    _scatter_loop_views(cache, views, block_tables)
+    _scatter_loop_views(cache, views, block_tables, state_slot)
     # `stopped` is only set by eos, so it doubles as the eos flag
     return out, counts, stopped, slot_buf, cache

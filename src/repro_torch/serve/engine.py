@@ -6,8 +6,12 @@ prefill+decode rows, or — with ``steps_per_dispatch = N > 1`` and no
 prefill work pending — one ``paged_decode_loop`` dispatch of N decode
 steps with per-row stop conditions on the device.  The row layout adapts
 to the step (decode buckets, chunk-wide prefill rows, width-1 mixed rows
-with prefill chunks split into one row per token); a per-row
-``valid_len`` routes padded rows' K/V writes to the trash block.
+with prefill chunks split into one row per token, or chunk-wide mixed
+rows for families with recurrent state); a per-row ``valid_len`` routes
+padded rows' K/V writes to the trash block and their state writes to
+the trash slot.  Slot-state families (mamba) hold one state slot per
+live sequence (``StateSlotAllocator``, slot 0 the trash), taken at
+admission and given back at eviction and preemption.
 Sampling happens on the device (greedy, or temperature / top-k with
 per-row keys ``fold_in(fold_in(seed, rid), position)``, so a token's
 draw does not depend on the dispatch depth), and a device-resident
@@ -31,7 +35,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.kv_cache import PagedKVCache, StateSlotAllocator
 from repro_torch.serve.scheduler import Request, RequestQueue, Scheduler
 from repro_torch.serve.telemetry import LatencyHists, MetricsRegistry, Telemetry
 
@@ -54,6 +58,8 @@ class _EngineMetrics:
         # compiles nothing while serving, so it stays 0
         self.jit_compiles = registry.counter("engine_jit_compiles", **labels)
         self.live_seqs = registry.gauge("engine_live_seqs", **labels)
+        self.state_slots_free = registry.gauge("engine_state_slots_free",
+                                               **labels)
         self.dispatch_s = {ph: registry.histogram("engine_dispatch_s",
                                                   phase=ph, **labels)
                            for ph in _DISPATCH_PHASES}
@@ -95,6 +101,14 @@ class EngineConfig:
                                     self.prefill_token_budget // 2)
         small = self.max_batch + self.prefill_chunk
         return sorted({full, half, small})
+
+    @property
+    def mixed_chunk_rows(self) -> int:
+        """Rows of a mixed step of a slot-state family: its prefill chunks
+        cannot split into width-1 rows (a token's recurrent state depends
+        on the previous token's within the call), so the mixed layout is
+        chunk-wide rows, the decode rows riding along at valid_len 1."""
+        return self.max_batch + self.prefill_rows
 
     @property
     def decode_buckets(self) -> List[int]:
@@ -211,9 +225,13 @@ class Engine:
         self.cfg = cfg
         self._sample_kw = dict(temperature=float(cfg.temperature),
                                top_k=int(cfg.top_k), seed=int(cfg.seed))
-        self.kv = PagedKVCache(cfg.num_blocks, cfg.block_size,
-                               cfg.blocks_per_seq,
-                               window=self.spec.reclaim_window)
+        # the host-side block accounting runs for every family: for pure
+        # slot-state models (no device block pools) it meters token
+        # capacity, so admission and preemption work as for the others
+        # (window 0: their "blocks" are tokens)
+        self.kv = PagedKVCache(
+            cfg.num_blocks, cfg.block_size, cfg.blocks_per_seq,
+            window=self.spec.reclaim_window if self.spec.has_blocks else 0)
         self.kv.attach_metrics(self.telemetry.registry,
                                replica=replica_id, arch=model.cfg.name)
         self.scheduler = Scheduler(
@@ -222,8 +240,15 @@ class Engine:
         self.scheduler.attach_metrics(self.telemetry.registry,
                                       replica=replica_id,
                                       arch=model.cfg.name)
-        self.cache = model.init_paged_cache(cfg.num_blocks, cfg.block_size,
-                                            device=self.device)
+        # one state slot per admittable sequence plus trash slot 0, so a
+        # free token-buffer slot implies a free state slot
+        self.state_slots = (StateSlotAllocator(cfg.num_slots + 1)
+                            if self.spec.has_state else None)
+        if self.state_slots is not None:
+            self._m.state_slots_free.set(self.state_slots.num_free)
+        self.cache = model.init_paged_cache(
+            cfg.num_blocks, cfg.block_size,
+            num_state_slots=cfg.num_slots + 1, device=self.device)
         self._slot_buf = torch.zeros((cfg.num_slots + 1,), dtype=torch.int32,
                                      device=self.device)
         self._free_slots: List[int] = list(range(cfg.num_slots - 1, -1, -1))
@@ -273,8 +298,24 @@ class Engine:
                 return s
         return None
 
+    def _slot_of(self, rid: Optional[int]) -> int:
+        """The state slot of ``rid`` (trash slot 0 for None, and for
+        every row of a family without recurrent state)."""
+        return (self.state_slots.slot_of(rid)
+                if self.state_slots is not None else 0)
+
+    def _free_state_slot(self, rid: int) -> None:
+        if self.state_slots is not None:
+            self.state_slots.free_if_held(rid)
+            self._m.state_slots_free.set(self.state_slots.num_free)
+
     def _admit(self, req: Request) -> _Seq:
         seq = _Seq(req, slot=self._free_slots.pop())
+        if self.state_slots is not None:
+            if self.state_slots.alloc(req.rid) is None:
+                raise RuntimeError("state-slot pool exhausted despite a "
+                                   "free token-buffer slot (engine bug)")
+            self._m.state_slots_free.set(self.state_slots.num_free)
         self._live.append(seq)
         req.queue_deadline_at = None
         self.telemetry.requests.stamp(req.rid, "admit")
@@ -286,6 +327,7 @@ class Engine:
         self._live.remove(seq)
         self._free_slots.append(seq.slot)
         self.kv.free_seq(seq.req.rid)
+        self._free_state_slot(seq.req.rid)
         self.scheduler.forget(seq.req)
         self._first_token_times.pop(seq.req.rid, None)
         # a preempted request's earlier tokens live in its recompute
@@ -310,6 +352,9 @@ class Engine:
         self._live.remove(victim)
         self._free_slots.append(victim.slot)
         self.kv.free_seq(victim.req.rid)
+        # the victim's state stays behind in its freed slot: recompute
+        # replays the prompt, and pos == 0 on its first chunk reads zeros
+        self._free_state_slot(victim.req.rid)
         self.scheduler.preempt(victim.req, victim.out)
         rid = victim.req.rid
         if victim.prefill_done:
@@ -457,13 +502,15 @@ class Engine:
                               if k >= n_dec), 1
         elif n_dec == 0:
             rows, width = cfg.prefill_rows, cfg.prefill_chunk
-        else:
+        elif self.spec.width1_mixed:
             rows, width = min(k for k in cfg.mixed_buckets
                               if k >= n_dec + n_pre), 1
+        else:
+            rows, width = cfg.mixed_chunk_rows, cfg.prefill_chunk
         tokens = np.zeros((rows, width), np.int32)
         meta = np.zeros((6, rows), np.int32)
         meta[2:4] = -1
-        pos, valid, src, dst, _, rid_row = meta
+        pos, valid, src, dst, state, rid_row = meta
         rids: List[Optional[int]] = [None] * rows
         emits: List[Tuple[int, _Seq, bool]] = []
 
@@ -472,6 +519,7 @@ class Engine:
             valid[row] = 1
             rids[row] = seq.req.rid
             rid_row[row] = seq.req.rid
+            state[row] = self._slot_of(seq.req.rid)
             dst[row] = seq.slot
             src[row] = seq.slot
             emits.append((row, seq, False))
@@ -494,6 +542,7 @@ class Engine:
                 valid[row] = ch.length
                 rids[row] = ch.req.rid
                 rid_row[row] = ch.req.rid
+                state[row] = self._slot_of(ch.req.rid)
                 if completes:
                     dst[row] = seq.slot
                     seq.prefill_done = True
@@ -585,7 +634,7 @@ class Engine:
             return
         rows = min(k for k in cfg.decode_buckets if k >= len(rows_seqs))
         meta = np.zeros((6, rows), np.int32)
-        pos0, steps, slot, _, rid_row, eos = meta
+        pos0, steps, slot, state, rid_row, eos = meta
         eos[:] = -1
         emits: List[Tuple[int, _Seq, bool]] = []
         planned: Dict[int, int] = {}
@@ -595,6 +644,7 @@ class Engine:
             pos0[row] = seq.next_pos
             steps[row] = granted
             slot[row] = seq.slot
+            state[row] = self._slot_of(seq.req.rid)
             rid_row[row] = seq.req.rid
             eos[row] = -1 if seq.req.eos_id is None else seq.req.eos_id
             rids[row] = seq.req.rid
@@ -637,13 +687,17 @@ class Engine:
 
     def warmup(self) -> None:
         """Run every row layout this engine can emit once against the
-        trash block (valid_len 0 and zero step budgets mask every write),
+        trash block and slot (valid_len 0 and zero step budgets mask
+        every write),
         so the kernel library is built and loaded, the allocator holds
         its working set and no first-use cost lands mid-serving."""
         cfg = self.cfg
         shapes = [(b, 1) for b in cfg.decode_buckets]
         shapes += [(cfg.prefill_rows, cfg.prefill_chunk)]
-        shapes += [(b, 1) for b in cfg.mixed_buckets]
+        if self.spec.width1_mixed:
+            shapes += [(b, 1) for b in cfg.mixed_buckets]
+        else:
+            shapes += [(cfg.mixed_chunk_rows, cfg.prefill_chunk)]
         for rows, width in shapes:
             meta = np.zeros((6, rows), np.int32)
             meta[2:4] = -1

@@ -1,5 +1,6 @@
 """Where a serving step's time goes on the card: serves a fixed workload
-through full-width qwen2-1.5b (random bf16 weights from a seed) at
+through a full-width model (qwen2-1.5b, or ``--arch mamba2-370m``;
+random bf16 weights from a seed) at
 steps_per_dispatch 1 and 8 under ``torch.profiler`` (device activity
 only: recording every host operator slows the run about fourfold), and
 prints, per depth, the wall time, the device's busy share (summed
@@ -8,7 +9,7 @@ kernel time by group (the port's CUDA kernels, matrix products,
 everything else), the top kernels, and the engine's host time per
 dispatch.
 
-    python -m repro_torch.serve.profile_engine [--out DIR]
+    python -m repro_torch.serve.profile_engine [--arch NAME] [--out DIR]
 
 Needs a CUDA card.  With ``--out`` it also writes a Chrome trace per
 depth there.
@@ -92,11 +93,13 @@ def profile(depth: int, model, params, work, out_dir=None) -> dict:
     kernels.sort(reverse=True)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out_dir / f"serve_depth{depth}.json"))
+        prof.export_chrome_trace(
+            str(out_dir / f"serve_{model.cfg.name}_depth{depth}.json"))
     full = eng.metrics_snapshot()
     snap = full["counters"]
     return {
-        "depth": depth, "wall_s": wall, "tokens": ntok,
+        "arch": model.cfg.name, "depth": depth, "wall_s": wall,
+        "tokens": ntok,
         "tok_s": ntok / wall, "steps": snap["steps"],
         "model_calls": snap["model_calls"],
         "kernels_per_model_call": sum(c for _, c, _ in kernels)
@@ -115,10 +118,12 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the Chrome traces")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    choices=("qwen2-1.5b", "mamba2-370m"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(args.arch)
     model = build_model(cfg)
     params = model.init(args.seed, "cuda")
     work = workload(cfg.vocab_size, args.seed)

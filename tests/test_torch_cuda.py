@@ -13,14 +13,20 @@ round an f32 result to bf16, so they may differ by one bf16 ulp, at
 most 2^-7 = 0.0078 of the value); greedy and gumbel sampling exactly
 equal; the fused update within one bf16 ulp for bf16 w and 1e-6
 relative for f32 state (kernel and plain version round each operation
-alike, so they agree exactly in practice).
+alike, so they agree exactly in practice); the slot gather and scatter
+bit for bit (the scatter on every slot but trash slot 0, and on slot 0
+too where the destinations are distinct); the SSD block within
+|kernel - plain| <= a * max|plain| + r * |plain|, a = r = 1e-4 for
+float32 outputs (f32 sums over up to 256 keys and 256 state columns in
+another order) and a = 1e-3, r = 1e-2 for bfloat16 y (one bf16 ulp).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (decode_view, flash_decode,
-                                 fused_update, prng, sampling)
+                                 fused_update, prng, sampling, slot_state,
+                                 ssd_chunk)
 from repro_torch.kernels._common import sm_count
 
 pytestmark = pytest.mark.cuda
@@ -235,3 +241,155 @@ def test_apply_update_on_card_launches_the_kernel(dev, kind):
         torch.testing.assert_close(params[k], want_p[k], atol=0, rtol=1e-6)
         torch.testing.assert_close(state["m"][k], want_m[k], atol=0,
                                    rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernels 10-11: slot gather / scatter
+# ---------------------------------------------------------------------------
+
+SLOT = [
+    # S, feature shape, dtype
+    (11, (3, 2304), torch.bfloat16),        # mamba2-370m conv window rows
+    (11, (32, 64, 128), torch.bfloat16),    # mamba2-370m SSD state rows
+    (11, (1001,), torch.bfloat16),          # odd row length: 2-byte units
+    (5, (7,), torch.float32),               # odd: 4-byte units
+    (12, (3, 5), torch.float32),
+]
+ROWS = [1, 2, 3, 4, 8, 10]                  # up to the engine's 10 rows
+
+
+def _slot_case(dev, s, feat, dt, b, layers, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = (layers, s) if layers else (s,)
+    pool = torch.randn(lead + feat, generator=gen, device=dev).to(dt)
+    rng = np.random.default_rng(seed)
+    # distinct live slots; past S - 1 rows the rest share trash slot 0,
+    # the only slot two rows may share
+    distinct = b < s
+    slots = np.zeros(b, np.int64)
+    live = min(b, s - 1)
+    slots[:live] = rng.permutation(np.arange(1, s))[:live]
+    slots = torch.tensor(rng.permutation(slots), dtype=torch.int32,
+                         device=dev)
+    vlead = (layers, b) if layers else (b,)
+    values = torch.randn(vlead + feat, generator=gen, device=dev).to(dt)
+    return pool, slots, values, distinct
+
+
+@pytest.mark.parametrize("case", SLOT)
+@pytest.mark.parametrize("b", ROWS)
+@pytest.mark.parametrize("layers", [0, 3])
+def test_slot_gather_kernel_bit_exact(dev, case, b, layers):
+    s, feat, dt = case
+    pool, slots, _, _ = _slot_case(dev, s, feat, dt, b, layers, s * b)
+    fresh = torch.tensor(np.arange(b) % 3 == 1, device=dev)
+    stacked = bool(layers)
+    before = slot_state.slot_gather.launches
+    for fr in (None, fresh):
+        got = slot_state.slot_gather(pool, slots, fr, stacked=stacked)
+        want = slot_state.slot_gather_plain(pool, slots, fr,
+                                            stacked=stacked)
+        assert got.dtype == pool.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+    assert slot_state.slot_gather.launches == before + 2
+
+
+@pytest.mark.parametrize("case", SLOT)
+@pytest.mark.parametrize("b", ROWS)
+@pytest.mark.parametrize("layers", [0, 3])
+def test_slot_scatter_kernel_bit_exact(dev, case, b, layers):
+    """Rows with valid_len 0 are routed to trash slot 0 first
+    (``layers.slot_state_scatter``'s rule): every other slot is exact;
+    slot 0 too when the destinations are distinct."""
+    s, feat, dt = case
+    pool, slots, values, distinct = _slot_case(dev, s, feat, dt, b, layers,
+                                               s + b)
+    stacked = bool(layers)
+    stale = torch.tensor(np.arange(b) % 4 == 2, device=dev)
+    routed = torch.where(stale, torch.zeros_like(slots), slots)
+    for dst in ((slots, routed) if b > 2 else (slots,)):
+        got, want = pool.clone(), pool.clone()
+        slot_state.slot_scatter(got, dst, values, stacked=stacked)
+        slot_state.slot_scatter_plain(want, dst, values, stacked=stacked)
+        body = (slice(None), slice(1, None)) if stacked else (
+            slice(1, None),)
+        assert torch.equal(got[body], want[body])
+        if distinct and dst is slots:
+            assert torch.equal(got, want)
+
+
+def test_slot_state_scatter_route_on_card(dev):
+    """The route through ``layers.slot_state_scatter`` on the card
+    launches the kernel and leaves a live slot alone for a stale row."""
+    from repro_torch.models.layers import slot_state_scatter
+    pool = torch.zeros((4, 6), device=dev)
+    slots = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    vl = torch.tensor([3, 0], dtype=torch.int32, device=dev)
+    before = slot_state.slot_scatter.launches
+    slot_state_scatter(pool, slots, vl, torch.ones((2, 6), device=dev))
+    assert slot_state.slot_scatter.launches == before + 1
+    assert torch.equal(pool[1], torch.ones(6, device=dev))
+    assert torch.equal(pool[2], torch.zeros(6, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# kernel 12: the SSD intra-chunk block
+# ---------------------------------------------------------------------------
+
+SSD_SHAPES = [
+    # bc, h, p, n
+    (2, 4, 64, 128),        # mamba2-370m's head dim and state
+    (1, 3, 24, 20),         # neither a power of two
+    (1, 2, 128, 256),       # the kernel's largest p and n
+]
+
+
+def _close_scaled(got, want, a, r):
+    got, want = got.float(), want.float()
+    lim = a * want.abs().max() + r * want.abs()
+    return bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("l", [16, 48, 64, 128, 256])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_matches_plain(dev, shape, l, dt):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bc, h, p, n = shape
+    gen = torch.Generator(device=dev).manual_seed(l * p + n)
+    x = (torch.randn((bc, l, h, p), generator=gen, device=dev) * 0.5).to(dt)
+    dtv = torch.nn.functional.softplus(
+        torch.randn((bc, l, h), generator=gen, device=dev) - 3.0)
+    da = -torch.cumsum(torch.nn.functional.softplus(
+        torch.randn((bc, l, h), generator=gen, device=dev)) * 0.1, dim=1)
+    B = (torch.randn((bc, l, h, n), generator=gen, device=dev) * 0.5).to(dt)
+    C = (torch.randn((bc, l, h, n), generator=gen, device=dev) * 0.5).to(dt)
+    before = ssd_chunk.ssd_chunk_bchp.launches
+    y, st = ssd_chunk.ssd_chunk_bchp(x, dtv, da, B, C)
+    assert ssd_chunk.ssd_chunk_bchp.launches == before + 1
+    y0, st0 = ssd_chunk.ssd_chunk_bchp_plain(x, dtv, da, B, C)
+    assert y.dtype == dt and st.dtype == torch.float32
+    ya, yr = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 1e-2)
+    assert _close_scaled(y, y0, ya, yr)
+    assert _close_scaled(st, st0, 1e-4, 1e-4)
+
+
+def test_ssd_chunked_pallas_on_card_matches_plain_route(dev):
+    """The whole SSD through kernel 12 against the plain chunked SSD, in
+    float32 (TF32 off), with a ragged tail and an initial state."""
+    from repro_torch.models import ssm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, p, g, n, chunk = 2, 300, 4, 64, 1, 128, 256
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev) * 0.5
+    dtv = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev) - 3.0)
+    A = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
+    B = torch.randn((b, s, g, n), generator=gen, device=dev) * 0.5
+    C = torch.randn((b, s, g, n), generator=gen, device=dev) * 0.5
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev) * 0.5
+    y1, f1 = ssm.ssd_chunked(x, dtv, A, B, C, chunk=chunk, init_state=s0)
+    y2, f2 = ssm.ssd_chunked_pallas(x, dtv, A, B, C, chunk=chunk,
+                                    init_state=s0)
+    assert _close_scaled(y2, y1, 1e-4, 1e-4)
+    assert _close_scaled(f2, f1, 1e-4, 1e-4)

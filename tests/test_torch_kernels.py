@@ -203,11 +203,22 @@ def test_wrappers_route_cpu_to_plain_without_counting():
                            top_k=3)
     kernels.fused_sgd_update(torch.zeros(4), torch.zeros(4), torch.ones(4),
                              lr=0.1, momentum=0.9, weight_decay=0.0)
+    pool = torch.zeros((2, 4, 6))
+    slots = torch.tensor([1, 3], dtype=torch.int32)
+    kernels.slot_gather(pool, slots, stacked=True)
+    kernels.slot_scatter(pool[0], slots, torch.ones((2, 6)))
+    x = torch.zeros((1, 8, 2, 4))
+    bc = torch.zeros((1, 8, 2, 3))
+    kernels.ssd_chunk_bchp(x, torch.ones((1, 8, 2)), torch.zeros((1, 8, 2)),
+                           bc, bc)
     assert kernels.launch_counts() == {"flash_decode_paged": 0,
                                        "decode_view_attend": 0,
                                        "greedy_sample": 0,
                                        "gumbel_sample": 0,
-                                       "fused_sgd_update": 0}
+                                       "fused_sgd_update": 0,
+                                       "slot_gather": 0,
+                                       "slot_scatter": 0,
+                                       "ssd_chunk_bchp": 0}
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
@@ -221,6 +232,18 @@ def test_wrappers_raise_off_cpu_without_cuda():
             q, pool, pool, torch.zeros((1, 2), dtype=torch.int32,
                                        device="meta"),
             torch.zeros((1,), dtype=torch.int32, device="meta"))
+    from repro_torch import kernels
+    slots = torch.zeros((2,), dtype=torch.int32, device="meta")
+    pool = torch.zeros((3, 5), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.slot_gather(pool, slots)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.slot_scatter(pool, slots, torch.zeros((2, 5), device="meta"))
+    x = torch.zeros((1, 8, 2, 4), device="meta")
+    d = torch.zeros((1, 8, 2), device="meta")
+    bc = torch.zeros((1, 8, 2, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ssd_chunk_bchp(x, d, d, bc, bc)
 
 
 def test_profiler_groups_every_port_kernel():
@@ -232,7 +255,8 @@ def test_profiler_groups_every_port_kernel():
     names = _build.kernel_names()
     assert {"flash_decode_paged_kernel", "decode_view_kernel",
             "combine_splits", "argmax_chunk_kernel", "argmax_merge_kernel",
-            "topk_hist_kernel", "fused_sgd_kernel"} <= set(names)
+            "topk_hist_kernel", "fused_sgd_kernel", "slot_gather_kernel",
+            "slot_scatter_kernel", "ssd_chunk_kernel"} <= set(names)
     for name in names:
         assert _group(f"void rt::{name}<float>(float const*, int)") == \
             "port kernels"
