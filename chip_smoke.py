@@ -32,7 +32,18 @@
    from a seed) serves the same 16 requests at steps_per_dispatch 1 and 8,
    greedy twice and sampled once per depth, each token checked against a
    teacher-forced f32 forward, every state slot free at the end.
-6. Prints the ``kernels`` JSON line, the card's name and power limit, and
+6. The MLA + MoE path: the absorbed MLA attends over latent views and
+   latent block pools at every row layout the engine dispatches, at
+   deepseek-v3's widths (128 heads, latent rank 512, rope 64, 640 keys),
+   held to their plain versions within one bf16 ulp; then full-width
+   deepseek-v3 cut to 4 layers (3 dense, the first MoE layer with its
+   256 experts; bf16, random weights from a seed) serves the same 16
+   requests, depth 1 greedy twice (the streams must repeat), depth 8
+   greedy and sampled once each, each token checked against a
+   teacher-forced f32 forward of the plain model in its dropless form,
+   routed as the served run routed (the router's top-8 choice is
+   discontinuous; the count of bf16-vs-f32 routing flips is printed).
+7. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -102,6 +113,8 @@ MAMBA = "mamba2-370m"
 # ssd_chunk's shapes: the engine's prefill rows x one 256-token chunk,
 # and 4 sequences of 512 tokens (two chunks each)
 SSD_CASES = (("prefill rows x 1 chunk", None, 256), ("4 x 512", 4, 512))
+# the MLA + MoE path; its depth cut is profile_engine.DEPTH_CUTS's
+DEEPSEEK = "deepseek-v3-671b"
 
 SEED = 0
 
@@ -215,28 +228,37 @@ def first_positions(rng, b, span):
     return ctx
 
 
-def paged_case(torch, g, rng, ctx, c, nb_seq, H, KV, HD, BS):
-    """Rows whose first query sits at ctx[b]: each row's real blocks
-    (distinct, shuffled) up to its last query, the trash block 0 after;
-    the trash block and every slot past a row's frontier hold large
-    NaN-free garbage, so a key read past the mask shows."""
-    b = len(ctx)
-    need = (ctx + c - 1) // BS + 1
+def paged_tables(rng, ctx, c, nb_seq, bs):
+    """Block tables for rows whose first query sits at ctx[b]: each row's
+    real blocks (distinct, shuffled) up to its last query, the trash
+    block 0 after.  Returns (tables (B, nb_seq), the pool's block count,
+    a (blocks, bs) mask of the trash block and every slot past a row's
+    frontier, where the caller plants garbage)."""
+    need = (ctx + c - 1) // bs + 1
     nb = int(need.sum()) + 1
-    kp = torch.randn((nb, BS, KV, HD), generator=g, device="cuda").to(
-        torch.bfloat16)
-    vp = torch.randn((nb, BS, KV, HD), generator=g, device="cuda").to(
-        torch.bfloat16)
     perm = rng.permutation(nb - 1) + 1
-    bt = np.zeros((b, nb_seq), np.int32)
-    poison = np.zeros((nb, BS), bool)
+    bt = np.zeros((len(ctx), nb_seq), np.int32)
+    poison = np.zeros((nb, bs), bool)
     poison[0] = True
     used = 0
     for r, n in enumerate(need):
         bt[r, :n] = perm[used:used + n]
         used += n
         last = ctx[r] + c - 1
-        poison[bt[r, last // BS], last % BS + 1:] = True
+        poison[bt[r, last // bs], last % bs + 1:] = True
+    return bt, nb, poison
+
+
+def paged_case(torch, g, rng, ctx, c, nb_seq, H, KV, HD, BS):
+    """K/V pools and queries for ``paged_tables``' rows; the trash block
+    and every slot past a row's frontier hold large NaN-free garbage, so
+    a key read past the mask shows."""
+    b = len(ctx)
+    bt, nb, poison = paged_tables(rng, ctx, c, nb_seq, BS)
+    kp = torch.randn((nb, BS, KV, HD), generator=g, device="cuda").to(
+        torch.bfloat16)
+    vp = torch.randn((nb, BS, KV, HD), generator=g, device="cuda").to(
+        torch.bfloat16)
     mask = torch.from_numpy(poison).cuda()[:, :, None, None]
     kp.masked_fill_(mask, 60.0)
     vp.masked_fill_(mask, -60.0)
@@ -1030,51 +1052,428 @@ def phase_serve_mamba(torch, mcfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the MLA + MoE path: the absorbed MLA attends, deepseek-v3 serving
+# ---------------------------------------------------------------------------
+
+
+def mla_case(torch, g, rng, b, c, ecfg, dcfg, paged):
+    """Inputs of one MLA attend at the deepseek widths: each row's first
+    query at a position from ``first_positions`` over the table's (or
+    view's) span; views of blocks_per_seq * block_size + 1 slots, or
+    pools behind ``paged_tables``.  Slots past a row's frontier, the
+    trash slot and the trash block hold large NaN-free garbage."""
+    a, H = dcfg.mla, dcfg.num_heads
+    r, rd, bs, nb_seq = (a.kv_lora_rank, a.qk_rope_head_dim, ecfg.block_size,
+                         ecfg.blocks_per_seq)
+    s = nb_seq * bs
+    ctx = first_positions(rng, b, s - c + 1)
+    dt = torch.bfloat16
+    q_lat = torch.randn((b, c, H, r), generator=g, device="cuda").to(dt)
+    q_rope = torch.randn((b, c, H, rd), generator=g, device="cuda").to(dt)
+    pos = torch.from_numpy(ctx.astype(np.int32)).cuda()
+    if not paged:
+        ckv = torch.randn((b, s + 1, r), generator=g, device="cuda").to(dt)
+        kr = torch.randn((b, s + 1, rd), generator=g, device="cuda").to(dt)
+        past = (torch.arange(s + 1, device="cuda")[None]
+                > (pos + c - 1)[:, None])[..., None]
+        ckv.masked_fill_(past, 60.0)
+        kr.masked_fill_(past, -60.0)
+        return q_lat, q_rope, ckv, kr, None, pos, ctx
+    bt, nb, poison = paged_tables(rng, ctx, c, nb_seq, bs)
+    ckv = torch.randn((nb, bs, r), generator=g, device="cuda").to(dt)
+    kr = torch.randn((nb, bs, rd), generator=g, device="cuda").to(dt)
+    mask = torch.from_numpy(poison).cuda()[..., None]
+    ckv.masked_fill_(mask, 60.0)
+    kr.masked_fill_(mask, -60.0)
+    return (q_lat, q_rope, ckv, kr, torch.from_numpy(bt).cuda(), pos, ctx)
+
+
+def mla_sdpa(torch, q_lat, q_rope, ckv, kr, pos, scale):
+    """The library yardstick: one scaled_dot_product_attention over each
+    row's latent view, the heads folded into the query axis (every head
+    attends the same latents): q (B, 1, C*H, r + rd), k = [ckv, kr]
+    (B, 1, S, r + rd), v = ckv, a boolean causal mask, the scale given.
+    Returns (callable, None), or (None, the reason) if SDPA refuses."""
+    from repro_torch.kernels import mla_decode as md
+    F = torch.nn.functional
+    b, c, h, r = q_lat.shape
+    s = ckv.shape[1]
+    q = torch.cat([q_lat, q_rope], -1).reshape(b, 1, c * h, -1)
+    k = torch.cat([ckv, kr], -1)[:, None]
+    v = ckv[:, None]
+    qpos = (pos[:, None].long() + torch.arange(c, device="cuda")[None])
+    mask = (torch.arange(s, device="cuda")[None, None]
+            <= qpos[..., None])                               # (B,C,S)
+    mask = mask[:, :, None].expand(b, c, h, s).reshape(b, 1, c * h, s)
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale)
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as err:
+        return None, f"{type(err).__name__}: {str(err)[:120]}"
+    want = md.mla_decode_views_plain(q_lat, q_rope, ckv, kr, pos,
+                                     scale=scale)
+    err = (out.reshape(b, c, h, r).float() - want.float()).abs().max().item()
+    if not err <= 0.05:
+        fail(f"the SDPA yardstick disagrees with the plain MLA attend by "
+             f"{err}")
+    return call, None
+
+
+def phase_mla(torch, timer, dcfg, ec, paged):
+    """Kernel 8 (views) or 9 (paged) at every row layout the engine
+    dispatches (decode buckets, prefill rows x chunk, width-1 mixed
+    rows) at deepseek-v3's widths (128 heads, r 512, rd 64), 640 keys a
+    row, against its plain version within one bf16 ulp, timed beside its
+    bound, the plain version and one SDPA call over the gathered views.
+    The decode rows split their keys over CTAs and the wide layouts run
+    unsplit: the phase fails unless both epilogues are compared."""
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels._common import attention_splits, sm_count
+    name = "mla_decode_paged" if paged else "mla_decode_views"
+    a, H = dcfg.mla, dcfg.num_heads
+    r, rd = a.kv_lora_rank, a.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7 + paged)
+    rng = np.random.default_rng(SEED + 7 + paged)
+    results = []
+    for b, c in step_shapes(ec):
+        label = f"B={b} C={c}"
+        q_lat, q_rope, ckv, kr, bt, pos, ctx = mla_case(torch, g, rng, b, c,
+                                                        ec, dcfg, paged)
+        keys = ec.blocks_per_seq * ec.block_size
+        if paged:
+            def kern():
+                return md.mla_decode_paged(q_lat, q_rope, ckv, kr, bt, pos,
+                                           scale=scale)
+
+            def plain():
+                return md.mla_decode_paged_plain(q_lat, q_rope, ckv, kr, bt,
+                                                 pos, scale=scale)
+            bl = bt.long()
+            vckv = ckv[bl].reshape(b, keys, r)
+            vkr = kr[bl].reshape(b, keys, rd)
+        else:
+            def kern():
+                return md.mla_decode_views(q_lat, q_rope, ckv, kr, pos,
+                                           scale=scale)
+
+            def plain():
+                return md.mla_decode_views_plain(q_lat, q_rope, ckv, kr,
+                                                 pos, scale=scale)
+            keys += 1
+            vckv, vkr = ckv, kr
+        tiles = -(-(c * H) // md.TILE_ROWS)
+        nsplit = attention_splits(b * tiles, keys, sm_count(0))
+        err, ratio = compare_bf16(kern(), plain())
+        if not (math.isfinite(err) and ratio <= 1.0):
+            fail(f"{name} {label}: max |kernel - plain| = {err}, "
+                 f"{ratio:.3g}x the bound {ATTN_ATOL} + {ATTN_RTOL}|plain|")
+        # each row's visible latents read once, queries read and the
+        # output written once; 2 (r + rd) + 2 r operations a visible key
+        # and query row
+        read = int(np.minimum(ctx + c, keys).sum())
+        vis = int(sum(p + i + 1 for p in ctx for i in range(c)))
+        nbytes = (read * (r + rd) * 2 + q_lat.numel() * 2 * 2
+                  + q_rope.numel() * 2 + b * 4
+                  + (bt.numel() * 4 if paged else 0))
+        bnd, by = bound_ms(nbytes, vis * H * (2 * (r + rd) + 2 * r),
+                           BF16_OPS_PER_S)
+        ms = timer(kern)
+        plain_ms = timer(plain)
+        lib, why = mla_sdpa(torch, q_lat, q_rope, vckv, vkr, pos, scale)
+        lib_ms = timer(lib) if lib is not None else None
+        results.append(dict(label=label, nsplit=nsplit, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                            bound_by=by, library_ms=lib_ms))
+        lib_txt = f"{lib_ms:.4f}" if lib is not None else f"none ({why})"
+        print(f"[{name}] {label} keys={keys} nsplit={nsplit} H={H} r={r} "
+              f"rd={rd} err={err:.3g} (x{ratio:.3f} of bound) "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd:.4f} ({by}) library_ms(sdpa)={lib_txt}",
+              flush=True)
+        del q_lat, q_rope, ckv, kr, vckv, vkr, lib
+    if {r["nsplit"] > 1 for r in results} != {False, True}:
+        fail(f"{name}: the engine's shapes did not reach both the split and "
+             "the unsplit epilogue")
+    return results
+
+
+class ServedRouting:
+    """Records the experts the served MoE layers pick for every request
+    position, while an engine runs over ``self.model``: the model's step
+    functions are wrapped to note the rows' request ids, the forward to
+    note their positions and valid lengths, and the router to note its
+    choice.  ``resolve()`` gives ``{(rid, position): [ids (K,) of each
+    MoE layer]}`` (a recomputed position keeps its last routing)."""
+
+    def __init__(self, torch, model):
+        import dataclasses
+        from repro_torch.models import moe, transformer
+        self.torch, self.moe, self.tf = torch, moe, transformer
+        self.records, self.ctx = [], {}
+
+        def step(params, cache, slot_buf, tokens, block_tables, meta, **kw):
+            self.ctx["rid"] = meta[5]
+            return model.paged_step(params, cache, slot_buf, tokens,
+                                    block_tables, meta, **kw)
+
+        def loop(params, cache, slot_buf, block_tables, meta, **kw):
+            self.ctx["rid"] = meta[4]
+            return model.paged_decode_loop(params, cache, slot_buf,
+                                           block_tables, meta, **kw)
+
+        self.model = dataclasses.replace(model, paged_step=step,
+                                         paged_decode_loop=loop)
+
+    def __enter__(self):
+        self._forward, self._route = self.tf.forward, self.moe.route
+
+        def forward(params, tokens, cfg, **kw):
+            self.ctx.update(pos=kw.get("pos"), valid=kw.get("valid_len"),
+                            rows=tokens.shape[0], layer=0)
+            return self._forward(params, tokens, cfg, **kw)
+
+        def route(params, xt, cfg):
+            out = self._route(params, xt, cfg)
+            c = self.ctx
+            if c.get("pos") is not None:
+                self.records.append((c["rid"], c["pos"], c["valid"],
+                                     c["layer"], out[2].reshape(
+                                         c["rows"], -1, out[2].shape[-1])))
+                c["layer"] += 1
+            return out
+
+        self.tf.forward, self.moe.route = forward, route
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.forward, self.moe.route = self._forward, self._route
+
+    def resolve(self):
+        by = {}
+        for rid, pos, valid, layer, ids in self.records:
+            rid, pos, valid, ids = (t.cpu().numpy() for t in
+                                    (rid, pos, valid, ids))
+            for b in range(ids.shape[0]):
+                for c in range(int(valid[b])):
+                    by.setdefault((int(rid[b]), int(pos[b]) + c), {})[
+                        layer] = np.sort(ids[b, c])
+        return {k: [v[i] for i in sorted(v)] for k, v in by.items()}
+
+
+def phase_serve_deepseek(torch, dcfg):
+    """The MLA + MoE serving path: full-width deepseek-v3 cut to its
+    first DEEPSEEK_LAYERS layers (3 dense, the first MoE), bf16 weights
+    from SEED, the qwen2 phase's 16 requests: depth 1 greedy twice (the
+    streams must repeat), depth 8 greedy once and at SAMPLE_T /
+    SAMPLE_TOP_K once.  Both MLA kernels must launch at depth 8, the
+    paged one at depth 1, the GQA attention kernels never.  Then every
+    token against a teacher-forced f32 forward of the plain model in its
+    dropless form.  Returns the launches of the first greedy run of each
+    depth and of the sampled run, summed."""
+    from repro_torch import kernels
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    model = build_model(dcfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {dcfg.name} full width cut to {dcfg.num_layers} layers "
+          f"(runs {[(k, f, n) for k, f, n in _runs(dcfg)]}), d_model "
+          f"{dcfg.d_model}, {dcfg.moe.num_experts} experts top-"
+          f"{dcfg.moe.num_experts_per_tok}: {nparams / 1e9:.3f}B params "
+          f"{dcfg.param_dtype} ({torch.cuda.memory_allocated() / 1e9:.2f} GB"
+          f" on the card), init {time.perf_counter() - t0:.1f}s", flush=True)
+    work = workload(dcfg.vocab_size, SEED)
+    launches = {fn.__name__: 0 for fn in kernels.KERNELS}
+    greedy, sampled, routes = [], [], {}
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+    runs = ((1, 0, {}), (1, 1, {}), (8, 0, {}), (8, 0, sample))
+    for depth, rep, kw in runs:
+        torch.cuda.reset_peak_memory_stats()
+        with ServedRouting(torch, model) as rec:
+            stream, counts, _, line = _serve_once(torch, rec.model, params,
+                                                  work, depth, **kw)
+        mode = f"T={SAMPLE_T} top_k={SAMPLE_TOP_K}" if kw else "greedy"
+        print(f"[serve] {dcfg.name} depth={depth} {mode} run={rep} {line} "
+              f"peak_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              flush=True)
+        need = ["mla_decode_paged"] + (["mla_decode_views"] if depth > 1
+                                       else [])
+        for name in need:
+            if counts[name] <= 0:
+                fail(f"{dcfg.name} depth {depth}: {name} never launched")
+        for name in ("flash_decode_paged", "decode_view_attend"):
+            if counts[name]:
+                fail(f"{dcfg.name} launched {name}")
+        sampler = "gumbel_sample" if kw else "greedy_sample"
+        other = "greedy_sample" if kw else "gumbel_sample"
+        if counts[sampler] <= 0 or counts[other]:
+            fail(f"{dcfg.name} depth {depth}: {mode} serving did not go "
+                 f"through {sampler} alone")
+        if rep == 0:
+            for k, v in counts.items():
+                launches[k] += v
+        (sampled if kw else greedy).append(stream)
+        routes[id(stream)] = rec.resolve()
+    if greedy[0] != greedy[1]:
+        fail(f"{dcfg.name} depth 1: two greedy runs gave other streams")
+    print(f"[serve] {dcfg.name}: depth-1 greedy streams repeat; depth 1 == "
+          f"depth 8 greedy: {greedy[0] == greedy[2]}", flush=True)
+    distinct = [s for i, s in enumerate(greedy) if s not in greedy[:i]]
+    # held to the qwen2 phase's logit tolerances against an f32 oracle
+    # that routes as the served run routed (the router's top-8 choice is
+    # discontinuous: bf16 noise flips it for some tokens, PERF.md); the
+    # share of tokens equal to the f32 argmax is printed, not held to
+    # qwen2's floor
+    _teacher_forced_check(torch, model, params, work, distinct, sampled,
+                          argmax_floor=None,
+                          routes=[routes[id(s)] for s in distinct + sampled])
+    del params
+    return launches
+
+
+def _runs(cfg):
+    from repro_torch.models.transformer import runs_of
+    return runs_of(cfg)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _teacher_forced_check(torch, model, params, work, greedy, sampled,
-                          argmax_floor=TF_ARGMAX_FLOOR):
+                          argmax_floor=TF_ARGMAX_FLOOR, routes=None):
     """Every emitted token against a plain f32 forward over the emitted
     stream.  Greedy: its logit within TF_LOGIT_TOL of the row's max, and
     at least TF_ARGMAX_FLOOR of them the row's argmax (bf16 kernels need
     not pick the same token as f32 where random weights leave near-ties,
     so exact identity is not required).  Sampled: its logit no more than
-    TF_TOPK_MARGIN below the row's f32 SAMPLE_TOP_K-th value."""
+    TF_TOPK_MARGIN below the row's f32 SAMPLE_TOP_K-th value.
+
+    ``routes`` (the MoE family; one ``ServedRouting.resolve()`` per
+    stream set, greedy then sampled): the forward runs the MoE in its
+    dropless (serving) form, the full-sequence default being the training
+    capacity; its expert leaves stay bf16 and the MoE casts them a group
+    at a time (one f32 expert leaf is 15 GB at deepseek-v3's widths).
+    The oracle routes every position to the experts the served run chose
+    there, with f32 gates: the top-k choice is discontinuous, and bf16
+    noise flips it for some tokens.  A second f32 forward with the f32
+    router's own choice counts those flips, and the worst deficit and
+    margin of emitted tokens with and without a flip at their position
+    are printed beside the check."""
+    from repro_torch.models import moe, transformer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
     p32 = _cast(params, torch.float32)
     cfg32 = model.cfg.replace(param_dtype="float32", compute_dtype="float32")
-    from repro_torch.models import transformer
     worst, agree, total, worst_k, total_k = 0.0, 0, 0, 0.0, 0
-    with torch.no_grad():
-        for out, is_greedy in ([(o, True) for o in greedy]
-                               + [(o, False) for o in sampled]):
-            for i, (prompt, _) in enumerate(work):
-                seq = list(prompt) + out[i]
-                toks = torch.tensor([seq[:-1]], device="cuda")
-                logits, _, _ = transformer.forward(p32, toks, cfg32)
-                rows = logits[0, len(prompt) - 1:].float()
-                emitted = torch.tensor(out[i], device="cuda")
-                chosen = rows.gather(1, emitted[:, None])[:, 0]
-                if is_greedy:
-                    deficit = (rows.max(-1).values - chosen).max().item()
-                    worst = max(worst, deficit)
-                    agree += int((rows.argmax(-1) == emitted).sum().item())
-                    total += len(out[i])
-                else:
-                    kth = torch.topk(rows, SAMPLE_TOP_K, -1).values[:, -1]
-                    worst_k = max(worst_k, (kth - chosen).max().item())
-                    total_k += len(out[i])
+    flips = routed = 0
+    # the f32 router's own choice: worst greedy deficit / sampled margin
+    # of emitted tokens whose served routing differs (True) or not
+    by_flip = {True: [0.0, 0.0, 0], False: [0.0, 0.0, 0]}
+    route = moe.route
+    forced, natural = [], []
+
+    def forced_route(params_, xt, cfg):
+        probs, _, ids = route(params_, xt, cfg)
+        natural.append(ids.sort(-1).values)
+        if not forced:
+            return probs, _, ids
+        ids = forced[len(natural) - 1]
+        gates = probs.gather(1, ids)
+        return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), ids
+
+    moe.route = forced_route
+    try:
+        with torch.no_grad():
+            sets = ([(o, True) for o in greedy]
+                    + [(o, False) for o in sampled])
+            for j, (out, is_greedy) in enumerate(sets):
+                for i, (prompt, _) in enumerate(work):
+                    seq = list(prompt) + out[i]
+                    toks = torch.tensor([seq[:-1]], device="cuda")
+                    forced.clear()
+                    flipped = torch.zeros((toks.shape[1],), dtype=torch.bool,
+                                          device="cuda")
+                    if routes is not None:
+                        # the f32 router's own choice, then the served one
+                        natural.clear()
+                        own, _, _ = transformer.forward(p32, toks, cfg32,
+                                                        dropless=True)
+                        try:
+                            per_pos = [routes[j][(i, p)]
+                                       for p in range(toks.shape[1])]
+                        except KeyError as err:
+                            fail(f"no served routing recorded at {err}")
+                        forced.extend(
+                            torch.tensor(np.stack([r[layer] for r in per_pos]),
+                                         device="cuda")
+                            for layer in range(len(per_pos[0])))
+                        for a, b in zip(natural, forced):
+                            differ = (a != b).any(-1)
+                            flipped |= differ
+                            flips += int(differ.sum().item())
+                            routed += a.shape[0]
+                    natural.clear()
+                    logits, _, _ = transformer.forward(
+                        p32, toks, cfg32, dropless=routes is not None)
+                    rows = logits[0, len(prompt) - 1:].float()
+                    emitted = torch.tensor(out[i], device="cuda")
+                    chosen = rows.gather(1, emitted[:, None])[:, 0]
+                    if is_greedy:
+                        gap = rows.max(-1).values - chosen
+                        worst = max(worst, gap.max().item())
+                        agree += int((rows.argmax(-1) == emitted).sum().item())
+                        total += len(out[i])
+                    else:
+                        kth = torch.topk(rows, SAMPLE_TOP_K, -1).values
+                        gap = kth[:, -1] - chosen
+                        worst_k = max(worst_k, gap.max().item())
+                        total_k += len(out[i])
+                    if routes is None:
+                        continue
+                    rows = own[0, len(prompt) - 1:].float()
+                    chosen = rows.gather(1, emitted[:, None])[:, 0]
+                    gap = (rows.max(-1).values if is_greedy else torch.topk(
+                        rows, SAMPLE_TOP_K, -1).values[:, -1]) - chosen
+                    fl = flipped[len(prompt) - 1:]
+                    for key, sel in ((True, gap[fl]), (False, gap[~fl])):
+                        if sel.numel():
+                            slot = 0 if is_greedy else 1
+                            by_flip[key][slot] = max(by_flip[key][slot],
+                                                     sel.max().item())
+                            by_flip[key][2] += sel.numel()
+    finally:
+        moe.route = route
+    del p32
     floor = "no floor" if argmax_floor is None else f"floor {argmax_floor}"
-    print(f"[serve] {model.cfg.name} teacher-forced f32 check: greedy "
-          f"{total} tokens, {agree / total:.4f} equal to the f32 argmax "
-          f"({floor}), worst logit deficit {worst:.4f} "
+    oracle = " (routed as served)" if routes is not None else ""
+    print(f"[serve] {model.cfg.name} teacher-forced f32 check{oracle}: "
+          f"greedy {total} tokens, {agree / total:.4f} equal to the f32 "
+          f"argmax ({floor}), worst logit deficit {worst:.4f} "
           f"(tolerance {TF_LOGIT_TOL}); sampled {total_k} tokens, worst "
           f"logit below the f32 top-{SAMPLE_TOP_K} kth value "
           f"{worst_k:.4f} (margin {TF_TOPK_MARGIN})", flush=True)
+    if routes is not None:
+        print(f"[serve] {model.cfg.name} router: {flips} of {routed} "
+              "token-layer routings of the served run differ from the f32 "
+              "router's own choice; against the f32 forward that routes "
+              "by its own choice, emitted tokens at a flipped position: "
+              f"{by_flip[True][2]}, worst greedy deficit "
+              f"{by_flip[True][0]:.4f}, worst sampled margin "
+              f"{by_flip[True][1]:.4f}; at an unflipped one: "
+              f"{by_flip[False][2]}, {by_flip[False][0]:.4f}, "
+              f"{by_flip[False][1]:.4f}; peak memory of the check "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     if not (worst <= TF_LOGIT_TOL):
         fail(f"emitted token logit deficit {worst} > {TF_LOGIT_TOL}")
     if argmax_floor is not None and not (agree / total >= argmax_floor):
@@ -1086,8 +1485,12 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
 
 
 def _cast(tree, dtype):
-    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
-            for k, v in tree.items()}
+    """The params the f32 forward reads, in ``dtype``: expert leaves are
+    left as they are (see ``_teacher_forced_check``) and the MTP head,
+    which no forward here reads, is left out."""
+    return {k: v if k == "experts" else
+            _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items() if k != "mtp"}
 
 
 # ---------------------------------------------------------------------------
@@ -1137,6 +1540,13 @@ def main() -> int:
     for name in ("slot_gather", "slot_scatter"):
         launches[name] = m_launches[name]
     launches["ssd_chunk_bchp"] = ssd_launches
+    from repro_torch.serve.profile_engine import served_config
+    dcfg = served_config(DEEPSEEK)
+    mv = phase(phase_mla, torch, timer, dcfg, ec, False)
+    mp = phase(phase_mla, torch, timer, dcfg, ec, True)
+    d_launches = phase(phase_serve_deepseek, torch, dcfg)
+    for name in ("mla_decode_views", "mla_decode_paged"):
+        launches[name] = d_launches[name]
 
     def row(results, label):
         """The kernel's JSON numbers: times of the engine's full decode
@@ -1185,6 +1595,16 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_chunk.py:54",
              launches=launches["ssd_chunk_bchp"],
              **ssd[SSD_CASES[0][0]]),
+        dict(name="mla_decode_views", route="cuda",
+             source=f"{src}/mla_decode.cu",
+             replaces="src/repro/kernels/mla_decode.py:104",
+             launches=launches["mla_decode_views"],
+             **row(mv, f"B={top} C=1")),
+        dict(name="mla_decode_paged", route="cuda",
+             source=f"{src}/mla_decode.cu",
+             replaces="src/repro/kernels/mla_decode.py:141",
+             launches=launches["mla_decode_paged"],
+             **row(mp, f"B={top} C=1")),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

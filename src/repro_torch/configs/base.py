@@ -166,7 +166,8 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def _load_all():
     # the port registers only the archs it serves so far (ROADMAP §1)
-    from repro_torch.configs import mamba2_370m, qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import (deepseek_v3_671b,  # noqa: F401
+                                     mamba2_370m, qwen2_1_5b)
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

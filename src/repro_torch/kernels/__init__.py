@@ -9,6 +9,10 @@ version and a launch counter (``<wrapper>.launches``).
   slot_state.slot_gather            recurrent-state rows out of a slot pool
   slot_state.slot_scatter           recurrent-state rows back into it
   ssd_chunk.ssd_chunk_bchp          Mamba-2 SSD intra-chunk block
+  mla_decode.mla_decode_views       N-step loop's absorbed MLA attention
+                                    over per-row latent views
+  mla_decode.mla_decode_paged       fused step's absorbed MLA attention
+                                    over latent block pools
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built on first use by ``_build``) or raises.
@@ -17,13 +21,14 @@ launches its kernel (built on first use by ``_build``) or raises.
 from repro_torch.kernels.decode_view import decode_view_attend
 from repro_torch.kernels.flash_decode import flash_decode_paged
 from repro_torch.kernels.fused_update import fused_sgd_update
+from repro_torch.kernels.mla_decode import mla_decode_paged, mla_decode_views
 from repro_torch.kernels.sampling import greedy_sample, gumbel_sample
 from repro_torch.kernels.slot_state import slot_gather, slot_scatter
 from repro_torch.kernels.ssd_chunk import ssd_chunk_bchp
 
 KERNELS = (flash_decode_paged, decode_view_attend, greedy_sample,
            gumbel_sample, fused_sgd_update, slot_gather, slot_scatter,
-           ssd_chunk_bchp)
+           ssd_chunk_bchp, mla_decode_views, mla_decode_paged)
 
 
 def reset_launch_counts() -> None:
@@ -37,5 +42,6 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNELS", "decode_view_attend", "flash_decode_paged",
            "fused_sgd_update", "greedy_sample", "gumbel_sample",
-           "launch_counts", "reset_launch_counts", "slot_gather",
+           "launch_counts", "mla_decode_paged", "mla_decode_views",
+           "reset_launch_counts", "slot_gather",
            "slot_scatter", "ssd_chunk_bchp"]

@@ -40,6 +40,10 @@ SIGNATURES = {
     "rt_slot_gather": [_P] * 4 + [_I, _I, _I, _L, _I, _P],
     "rt_slot_scatter": [_P] * 3 + [_I, _I, _I, _L, _I, _P],
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
+    "rt_mla_decode_views": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3
+    + [_F, _I, _I, _P],
+    "rt_mla_decode_paged": [_P] * 5 + [_I, _I] + [_P] * 4 + [_I] * 3
+    + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

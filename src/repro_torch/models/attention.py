@@ -104,15 +104,20 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
                   block_tables=None, pos=None, valid_len=None):
     """What every layer of one forward shares (the reference recomputes
     them per layer and XLA folds the copies): the rope table of the query
-    positions, and where each layer's new K/V rows go — (block, slot)
-    pairs in the pools, or the slot of each row's view.  Keyed by the
-    cache form, as ``apply_attention`` reads them."""
+    positions (at ``qk_rope_head_dim`` for MLA, which ropes only that
+    part of its heads), and where each layer's new K/V or latent rows go
+    — (block, slot) pairs in the pools, or the slot of each row's view.
+    Keyed by the cache form (one layer's), as ``apply_attention`` and
+    ``mla.apply_mla`` read them."""
+    rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
+        else cfg.head_dim
     if cache is None:
         positions = torch.arange(x_len, device=device)[None]
         write = None
-    elif "kview" in cache:
+    elif "kview" in cache or "ckv_view" in cache:
         positions = pos[:, None]
-        sview = cache["kview"].shape[-3] - 1
+        view = cache["kview"] if "kview" in cache else cache["ckv_view"]
+        sview = view.shape[1] - 1                  # (B, S+1, ...)
         write = pos.long().clamp(max=sview - 1)
         if valid_len is not None:
             write = torch.where(valid_len > 0, write,
@@ -120,9 +125,10 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
     else:
         positions = pos[:, None] + torch.arange(x_len, device=device,
                                                 dtype=pos.dtype)[None]
+        pool = cache["k"] if "k" in cache else cache["ckv"]
         write = paged_write_indices(positions, block_tables,
-                                    cache["k"].shape[-3], valid_len)
-    return rope_table(positions, cfg.head_dim, cfg.rope_theta), write
+                                    pool.shape[1], valid_len)  # (nb, bs, ...)
+    return rope_table(positions, rope_dim, cfg.rope_theta), write
 
 
 def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,

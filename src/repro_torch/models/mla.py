@@ -1,0 +1,152 @@
+"""Multi-head latent attention (DeepSeek-V2/V3, arXiv:2412.19437) of the
+port (``repro/models/mla.py``).
+
+Queries and keys/values go through low-rank latents; the serving cache
+keeps only the compressed latent c_kv (kv_lora_rank) and one shared
+rotary key (qk_rope_head_dim) per token.  The cache forms use the
+absorbed formulation: q_nope is pushed through W^{UK} so the scores are
+taken against the latents directly, and the attention output (in latent
+space) is expanded through W^{UV} afterwards.
+
+Three forms, as ``apply_attention``'s:
+
+  cache None               the full sequence with keys and values
+                           expanded from the latent (training form; the
+                           plain oracle of the tests and the chip check)
+  {"ckv_view", "kr_view"}  the N-step loop's per-row latent views
+                           (kernel ``mla_decode_views``)
+  {"ckv", "krope"} + tables  the fused step's latent block pools
+                           (kernel ``mla_decode_paged``)
+
+Both cache forms update their latent storage in place.  The reference's
+contiguous-cache decode belongs to the non-paged ``prefill`` /
+``decode_step`` entry point, which the port does not have yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.mla_decode import mla_decode_paged, mla_decode_views
+from repro_torch.models.layers import apply_norm, apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def init_mla(gen: torch.Generator, cfg, device):
+    """One layer's params, with the reference's shapes and inits (the
+    numbers differ: torch and jax draw differently)."""
+    a = cfg.mla
+    d, h, pd = cfg.d_model, cfg.num_heads, cfg.pdtype
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+
+    def ones(n):
+        return {"scale": torch.ones((n,), dtype=pd, device=device)}
+
+    return {
+        "wq_a": dense_init(gen, (d, a.q_lora_rank), pd, device),
+        "q_norm": ones(a.q_lora_rank),
+        "wq_b": dense_init(gen, (a.q_lora_rank, h * qk), pd, device),
+        "wkv_a": dense_init(gen, (d, a.kv_lora_rank + a.qk_rope_head_dim),
+                            pd, device),
+        "kv_norm": ones(a.kv_lora_rank),
+        "wkv_b": dense_init(gen, (a.kv_lora_rank,
+                                  h * (a.qk_nope_head_dim + a.v_head_dim)),
+                            pd, device),
+        "wo": dense_init(gen, (h * a.v_head_dim, d), pd, device),
+    }
+
+
+def _project_q(params, x, cfg):
+    """x (B,S,D) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope)."""
+    a = cfg.mla
+    dt = x.dtype
+    cq = apply_norm(params["q_norm"], x @ params["wq_a"].to(dt), cfg)
+    q = (cq @ params["wq_b"].to(dt)).reshape(
+        *x.shape[:2], cfg.num_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
+    return q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
+
+
+def _latent_kv(params, x, cfg):
+    """x (B,S,D) -> the normed latent c (B,S,r), k_rope (B,S,rope)."""
+    a = cfg.mla
+    ckv = x @ params["wkv_a"].to(x.dtype)
+    c, k_rope = ckv[..., :a.kv_lora_rank], ckv[..., a.kv_lora_rank:]
+    return apply_norm(params["kv_norm"], c, cfg), k_rope
+
+
+def _wkv_b_split(params, cfg):
+    """W^{UK} (r,H,nope) and W^{UV} (r,H,v) out of wkv_b."""
+    a = cfg.mla
+    w = params["wkv_b"].reshape(a.kv_lora_rank, cfg.num_heads,
+                                a.qk_nope_head_dim + a.v_head_dim)
+    return w[..., :a.qk_nope_head_dim], w[..., a.qk_nope_head_dim:]
+
+
+def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
+              block_tables=None, pos=None):
+    """Returns (y, cache).  ``rope`` is the table of the query positions
+    at ``qk_rope_head_dim`` and ``write`` the latent write targets, both
+    from ``attention.shared_inputs`` for the same cache form.
+
+    cache None: causal attention over the full sequence x (B,S,D).
+    cache {"ckv_view", "kr_view"}: x (B,1,D), pos (B,); each row writes
+      its latent at its view slot ``write`` (inactive rows the trash slot
+      S), then attends its view.
+    cache {"ckv", "krope"} + block_tables (B,NB): x (B,C,D), pos (B,) the
+      position of each row's first token; the C latents are scattered
+      into the pools at ``write`` (padding to the trash block) before any
+      query attends through the tables.
+    """
+    a = cfg.mla
+    h = cfg.num_heads
+    b, s = x.shape[:2]
+    dt = x.dtype
+    scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
+    wk, wv = (w.to(dt) for w in _wkv_b_split(params, cfg))
+    q_nope, q_rope = _project_q(params, x, cfg)
+    c, k_rope = _latent_kv(params, x, cfg)
+    q_rope = apply_rope(q_rope, rope)
+    k_rope = apply_rope(k_rope[:, :, None, :], rope)[:, :, 0, :]
+
+    if cache is None:
+        # keys and values expanded from the latent (the training form)
+        k_nope = torch.einsum("bsr,rhn->bshn", c, wk)
+        v = torch.einsum("bsr,rhv->bshv", c, wv)
+        logits = (torch.einsum("bqhn,bshn->bhqs", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bqhn,bsn->bhqs", q_rope.float(),
+                                 k_rope.float())) * scale
+        idx = torch.arange(s, device=x.device)
+        logits = torch.where(idx[None, :] <= idx[:, None], logits,
+                             torch.full((), NEG_INF, device=x.device))
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        o = torch.einsum("bhqs,bshv->bqhv", probs, v)
+        y = o.reshape(b, s, h * a.v_head_dim) @ params["wo"].to(dt)
+        return y, None
+
+    if block_tables is None and "ckv_view" not in cache:
+        raise NotImplementedError(
+            "MLA's contiguous-cache decode belongs to the non-paged "
+            "prefill/decode_step entry point, queued in ROADMAP.md "
+            "('Next' item 1)")
+    # absorb q_nope through W^{UK}: scores against the latents directly
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk).contiguous()
+    q_rope = q_rope.contiguous()
+    if "ckv_view" in cache:
+        ckv_c, kr_c = cache["ckv_view"], cache["kr_view"]
+        rows = torch.arange(b, device=x.device)
+        ckv_c.index_put_((rows, write), c[:, 0].to(ckv_c.dtype))
+        kr_c.index_put_((rows, write), k_rope[:, 0].to(kr_c.dtype))
+        o_lat = mla_decode_views(q_lat, q_rope, ckv_c, kr_c, pos,
+                                 scale=scale)
+    else:
+        ckv_pool, kr_pool = cache["ckv"], cache["krope"]
+        ckv_pool.index_put_(write, c.to(ckv_pool.dtype))
+        kr_pool.index_put_(write, k_rope.to(kr_pool.dtype))
+        o_lat = mla_decode_paged(q_lat, q_rope, ckv_pool, kr_pool,
+                                 block_tables, pos, scale=scale)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(dt), wv)
+    y = o.reshape(b, s, h * a.v_head_dim) @ params["wo"].to(dt)
+    return y, cache

@@ -1,4 +1,4 @@
-"""Model interface of the port for the dense and ssm families
+"""Model interface of the port for the dense, ssm and MLA + MoE families
 (``repro/models/model.py``): ``build_model(cfg)`` returns a ``Model``
 whose members are plain functions over a nested dict of tensors.
 
@@ -26,8 +26,9 @@ from repro_torch.models import transformer
 @dataclass(frozen=True)
 class PagedSpec:
     """Paged-serving capability record (see the reference).  The dense
-    family keeps per-token K/V block pools and no recurrent state; the
-    ssm family keeps one recurrent-state slot per sequence and no block
+    family keeps per-token K/V block pools and no recurrent state, the
+    MLA family per-token latent block pools (they page alike); the ssm
+    family keeps one recurrent-state slot per sequence and no block
     pools (the engine still meters its tokens in host-side blocks).
 
       reclaim_window  positions after which a block is dead for every
@@ -69,11 +70,19 @@ def _init(seed: int, device, *, cfg):
     return transformer.init_params(cfg, gen, device)
 
 
+def _loss_not_ported(params, batch, *, cfg):
+    raise NotImplementedError(
+        f"{cfg.name}: training the MoE / multi-token-prediction family "
+        "needs the MoE aux loss and the MTP term of the reference's loss; "
+        "queued in ROADMAP.md ('Next')")
+
+
 def build_model(cfg: ModelConfig) -> Model:
     kinds = {k for k, _, _ in transformer.runs_of(cfg)}   # raises if not
     kspec = {"sampling": "greedy_sample/gumbel_sample"}    # ported
     if "attn" in kinds:
-        kspec["attn"] = "decode_view_attend/flash_decode_paged"
+        kspec["attn"] = ("mla_decode_views/mla_decode_paged" if cfg.mla
+                         else "decode_view_attend/flash_decode_paged")
     if "ssm" in kinds:
         kspec["ssm"] = "slot_gather/slot_scatter"
     spec = PagedSpec(
@@ -89,4 +98,6 @@ def build_model(cfg: ModelConfig) -> Model:
         paged_decode_loop=functools.partial(transformer.paged_decode_loop,
                                             cfg=cfg),
         paged_spec=spec,
-        loss=functools.partial(transformer.lm_loss, cfg=cfg))
+        loss=functools.partial(
+            _loss_not_ported if cfg.moe is not None or cfg.mtp_depth
+            else transformer.lm_loss, cfg=cfg))

@@ -1,7 +1,7 @@
 """Decoder-only stacks of the port (``repro/models/transformer.py``): the
-dense GQA family and the Mamba-2 (ssm) family.  Params, forward in three
-cache modes, the fused serving step, the N-step on-device decode loop
-and the language-model loss.
+dense GQA family, the Mamba-2 (ssm) family and the MLA + MoE family
+(deepseek-v3).  Params, forward in three cache modes, the fused serving
+step, the N-step on-device decode loop and the language-model loss.
 
 Layers are grouped into runs of identical (mixer, ffn) kinds, each
 parameter-stacked with a leading layer axis (``params["layers"]["run_0"]
@@ -10,12 +10,13 @@ them 1:1.  A run executes as a Python loop over that axis (the
 reference's ``lax.scan``).
 
 The paged cache holds, per run, K/V block pools ``{"k", "v"}`` of (L,
-nb, bs, KV, hd) for attention, or slot-state pools ``{"conv", "state"}``
-of (L, S, ...) for ssm layers, and is updated in place.  Block tables
-are passed to each call directly: the reference broadcasts them into the
-cache pytree (``with_block_tables``/``_canonical_block_tables``) only to
-keep its jit signatures stable, which eager PyTorch does not need, and
-slot-state runs carry none.
+nb, bs, KV, hd) for attention, latent block pools ``{"ckv", "krope"}``
+of (L, nb, bs, r) / (L, nb, bs, rope) for MLA, or slot-state pools
+``{"conv", "state"}`` of (L, S, ...) for ssm layers, and is updated in
+place.  Block tables are passed to each call directly: the reference
+broadcasts them into the cache pytree (``with_block_tables``/
+``_canonical_block_tables``) only to keep its jit signatures stable,
+which eager PyTorch does not need, and slot-state runs carry none.
 """
 from __future__ import annotations
 
@@ -28,13 +29,16 @@ from repro_torch.kernels import prng
 from repro_torch.kernels.sampling import greedy_sample, gumbel_sample
 from repro_torch.kernels.slot_state import slot_gather, slot_scatter
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_init)
 from repro_torch.tree import tree_map
 
-# the (mixer, ffn) runs the port has: dense GQA and mamba layers
-_PORTED_RUNS = {("attn", "dense"), ("ssm", "none")}
+# the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
+# dense MLP, MLA with an MoE FFN, and mamba layers
+_PORTED_RUNS = {("attn", "dense"), ("attn", "moe"), ("ssm", "none")}
 
 
 def runs_of(cfg) -> List[Tuple[str, str, int]]:
@@ -52,13 +56,13 @@ def runs_of(cfg) -> List[Tuple[str, str, int]]:
             out.append([k, f, 1])
     runs = [tuple(r) for r in out]
     if (any((k, f) not in _PORTED_RUNS for k, f, _ in runs)
-            or cfg.mla is not None
+            or (cfg.mla is None and any(f == "moe" for _, f, _ in runs))
             or (cfg.activation != "swiglu"
-                and any(f == "dense" for _, f, _ in runs))):
+                and any(f != "none" for _, f, _ in runs))):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA and the mamba "
-            "(ssm) families only; the other families are queued in "
-            "ROADMAP.md §1")
+            f"{cfg.name}: the port serves the dense GQA, the mamba (ssm) "
+            "and the MLA + MoE families only; the other families are "
+            "queued in ROADMAP.md §1")
     return runs
 
 
@@ -67,7 +71,14 @@ def runs_of(cfg) -> List[Tuple[str, str, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _init_dense_run(cfg, generator, device, n):
+def _stack(per_layer):
+    return tree_map(lambda *xs: torch.stack(xs), per_layer[0],
+                    *per_layer[1:])
+
+
+def _init_attn_run(cfg, generator, device, n, ffn="dense"):
+    """n attention layers (GQA, or MLA when the config has it) with a
+    dense MLP or an MoE FFN, stacked."""
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     h, kv, pd = cfg.num_heads, cfg.num_kv_heads, cfg.pdtype
 
@@ -78,34 +89,43 @@ def _init_dense_run(cfg, generator, device, n):
     def const(shape, value):
         return torch.full((n,) + shape, value, dtype=pd, device=device)
 
-    attn = {"wq": stacked((d, h * hd)), "wk": stacked((d, kv * hd)),
-            "wv": stacked((d, kv * hd)), "wo": stacked((h * hd, d))}
-    if cfg.qkv_bias:
-        attn.update(bq=const((h * hd,), 0.0), bk=const((kv * hd,), 0.0),
-                    bv=const((kv * hd,), 0.0))
-    return {"ln1": {"scale": const((d,), 1.0)}, "attn": attn,
-            "ln2": {"scale": const((d,), 1.0)},
-            "mlp": {"w_gate": stacked((d, f)), "w_up": stacked((d, f)),
-                    "w_down": stacked((f, d))}}
+    if cfg.mla is not None:
+        attn = _stack([mla_mod.init_mla(generator, cfg, device)
+                       for _ in range(n)])
+    else:
+        attn = {"wq": stacked((d, h * hd)), "wk": stacked((d, kv * hd)),
+                "wv": stacked((d, kv * hd)), "wo": stacked((h * hd, d))}
+        if cfg.qkv_bias:
+            attn.update(bq=const((h * hd,), 0.0), bk=const((kv * hd,), 0.0),
+                        bv=const((kv * hd,), 0.0))
+    out = {"ln1": {"scale": const((d,), 1.0)}, "attn": attn,
+           "ln2": {"scale": const((d,), 1.0)}}
+    if ffn == "moe":
+        out["moe"] = moe_mod.init_moe(generator, cfg, device, n)
+    else:
+        out["mlp"] = {"w_gate": stacked((d, f)), "w_up": stacked((d, f)),
+                      "w_down": stacked((f, d))}
+    return out
 
 
 def _init_ssm_run(cfg, generator, device, n):
     """n mamba layers drawn one after another (the reference's vmapped
     ``init_layer``), stacked."""
-    per = [{"ln1": {"scale": torch.ones((cfg.d_model,), dtype=cfg.pdtype,
-                                        device=device)},
-            "ssm": ssm_mod.init_ssm(generator, cfg, device)}
-           for _ in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs), per[0], *per[1:])
+    return _stack([{"ln1": {"scale": torch.ones((cfg.d_model,),
+                                                dtype=cfg.pdtype,
+                                                device=device)},
+                    "ssm": ssm_mod.init_ssm(generator, cfg, device)}
+                   for _ in range(n)])
 
 
 def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random params from ``generator`` (same shapes, inits and nesting as
     the reference; the numbers differ — torch and jax draw differently)."""
     layers = {}
-    for i, (kind, _, n) in enumerate(runs_of(cfg)):
-        init_run = _init_dense_run if kind == "attn" else _init_ssm_run
-        layers[f"run_{i}"] = init_run(cfg, generator, device, n)
+    for i, (kind, ffn, n) in enumerate(runs_of(cfg)):
+        layers[f"run_{i}"] = (
+            _init_attn_run(cfg, generator, device, n, ffn) if kind == "attn"
+            else _init_ssm_run(cfg, generator, device, n))
     d, pd = cfg.d_model, cfg.pdtype
     params: Dict[str, Any] = {
         "embed": {"embedding": embed_init(generator, (cfg.vocab_size, d), pd,
@@ -116,6 +136,13 @@ def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(generator, (d, cfg.vocab_size),
                                              pd, device)}
+    if cfg.mtp_depth:
+        # the multi-token-prediction head (one unstacked attn + dense
+        # layer): kept so the tree maps 1:1 onto the reference's; no
+        # serving path reads it
+        params["mtp"] = {
+            "proj": dense_init(generator, (2 * d, d), pd, device),
+            "layer": _layer(_init_attn_run(cfg, generator, device, 1), 0)}
     return params
 
 
@@ -156,11 +183,18 @@ def embed_tokens(params, tokens, cfg):
 
 def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
                 cache=None, block_tables=None, pos=None, valid_len=None,
-                state_slots=None):
-    """One layer: the mixer (attention or mamba) and the dense MLP, each
-    pre-normed and residual.  The layer's cache is updated in place."""
+                state_slots=None, dropless=False):
+    """One layer: the mixer (GQA or MLA attention, or mamba) and the FFN
+    (dense MLP or MoE), each pre-normed and residual.  The layer's cache
+    is updated in place.  The MoE runs dropless whenever there is a cache
+    (a token's output must not depend on the step it shares) or when
+    ``dropless`` asks for it."""
     x = apply_norm(lp["ln1"], h, cfg)
-    if kind == "attn":
+    if kind == "attn" and cfg.mla is not None:
+        y, _ = mla_mod.apply_mla(lp["attn"], x, cfg, rope=rope, write=write,
+                                 cache=cache, block_tables=block_tables,
+                                 pos=pos)
+    elif kind == "attn":
         y, _ = attn_mod.apply_attention(
             lp["attn"], x, cfg, rope=rope, write=write,
             window=cfg.sliding_window, cache=cache,
@@ -172,19 +206,25 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
     h = h + y
     if ffn == "dense":
         h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
+    elif ffn == "moe":
+        y, _ = moe_mod.apply_moe(lp["moe"], apply_norm(lp["ln2"], h, cfg),
+                                 cfg, dropless=cache is not None or dropless)
+        h = h + y
     return h
 
 
 def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
-            valid_len=None, state_slots=None, need_logits=True):
+            valid_len=None, state_slots=None, need_logits=True,
+            dropless=False):
     """Returns (logits, cache, h).
 
     tokens (B,S).  cache None: full-sequence forward (plain attention,
-    chunked SSD from a zero state).
-    cache with pools ("k"/"v" + block_tables; "conv"/"state" +
-    state_slots): paged step, pos (B,).
-    cache with views ("kview"/"vview"; "conv_view"/"state_view"): one
-    decode-loop step, pos (B,).
+    chunked SSD from a zero state; MoE at the training capacity unless
+    ``dropless``, the form the reference's prefill runs).
+    cache with pools ("k"/"v" or "ckv"/"krope" + block_tables;
+    "conv"/"state" + state_slots): paged step, pos (B,).
+    cache with views ("kview"/"vview", "ckv_view"/"kr_view";
+    "conv_view"/"state_view"): one decode-loop step, pos (B,).
     """
     h = embed_tokens(params, tokens, cfg)
     rope = write = None
@@ -200,7 +240,8 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
         def block(h, lp, lc, kind=kind, ffn=ffn):
             return apply_layer(lp, h, cfg, kind, ffn, rope=rope, write=write,
                                cache=lc, block_tables=block_tables, pos=pos,
-                               valid_len=valid_len, state_slots=state_slots)
+                               valid_len=valid_len, state_slots=state_slots,
+                               dropless=dropless)
 
         # the training forward recomputes each layer in the backward pass
         # (the reference's jax.checkpoint around the scanned layer); only
@@ -266,7 +307,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
                      device=None) -> Dict[str, Any]:
     """Paged per-layer decode state, by run kind:
 
-      attn  K/V block pools (L, num_blocks, block_size, KV, hd); physical
+      attn  K/V block pools (L, num_blocks, block_size, KV, hd), or with
+            MLA latent block pools ``ckv`` (L, num_blocks, block_size,
+            kv_lora_rank) and ``krope`` (..., qk_rope_head_dim); physical
             block 0 is the trash block inactive rows write to
       ssm   slot-state pools of ``num_state_slots`` rows: the conv window
             (L, S, K-1, convdim) and the SSD state (L, S, H, P, N), the
@@ -276,6 +319,14 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
     dtype = dtype or cfg.cdtype
     out = {}
     for i, (kind, _, n) in enumerate(runs_of(cfg)):
+        if kind == "attn" and cfg.mla is not None:
+            a = cfg.mla
+            out[f"run_{i}"] = {
+                name: torch.zeros((n, num_blocks, block_size, width),
+                                  dtype=dtype, device=device)
+                for name, width in (("ckv", a.kv_lora_rank),
+                                    ("krope", a.qk_rope_head_dim))}
+            continue
         if kind == "attn":
             shape = (n, num_blocks, block_size, cfg.num_kv_heads,
                      cfg.head_dim)
@@ -372,12 +423,25 @@ def _scatter_view(pool, bt, view):
     return pool
 
 
+# the two pools of a block-pooled run (K/V, or MLA's latent pair) and
+# the names of their loop views
+_BLOCK_POOLS = ((("k", "kview"), ("v", "vview")),
+                (("ckv", "ckv_view"), ("krope", "kr_view")))
+
+
+def _block_pools(rc):
+    """A run's (pool, view) name pairs if it is block-pooled, else ()."""
+    return next((pair for pair in _BLOCK_POOLS if pair[0][0] in rc), ())
+
+
 def _paged_block_size(cache) -> int:
-    """Tokens per block of the cache's block pools, or 0 when no run is
-    block-pooled (pure slot-state families)."""
+    """Tokens per block of the cache's block pools (K/V or MLA latent:
+    they page alike), or 0 when no run is block-pooled (pure slot-state
+    families)."""
     for rc in cache.values():
-        if "k" in rc:
-            return rc["k"].shape[2]            # (L, nb, bs, ...)
+        pools = _block_pools(rc)
+        if pools:
+            return rc[pools[0][0]].shape[2]    # (L, nb, bs, ...)
     return 0
 
 
@@ -389,9 +453,10 @@ def _loop_views(cache, block_tables, state_slot, pos0):
     fresh = pos0 == 0
     views = {}
     for run, rc in cache.items():
-        if "k" in rc:
-            views[run] = {"kview": _gather_view(rc["k"], block_tables),
-                          "vview": _gather_view(rc["v"], block_tables)}
+        pools = _block_pools(rc)
+        if pools:
+            views[run] = {view: _gather_view(rc[pool], block_tables)
+                          for pool, view in pools}
         else:
             views[run] = {f"{name}_view": slot_gather(leaf, state_slot, fresh,
                                                       stacked=True)
@@ -406,9 +471,10 @@ def _scatter_loop_views(cache, views, block_tables, state_slot):
     iterations are identity updates), so the write-back is
     unconditional: one ``slot_scatter`` launch per leaf."""
     for run, rc in cache.items():
-        if "k" in rc:
-            _scatter_view(rc["k"], block_tables, views[run]["kview"])
-            _scatter_view(rc["v"], block_tables, views[run]["vview"])
+        pools = _block_pools(rc)
+        if pools:
+            for pool, view in pools:
+                _scatter_view(rc[pool], block_tables, views[run][view])
         else:
             for name, pool in rc.items():
                 slot_scatter(pool, state_slot, views[run][f"{name}_view"],

@@ -761,5 +761,8 @@ class Engine:
 
 
 def _to_device(tree, device):
+    """The params tree on ``device``: a leaf already there is kept as it
+    is (``Tensor.to`` returns the tensor itself, so a card-resident tree
+    is never copied)."""
     return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}

@@ -1,6 +1,7 @@
 """Where a serving step's time goes on the card: serves a fixed workload
-through a full-width model (qwen2-1.5b, or ``--arch mamba2-370m``;
-random bf16 weights from a seed) at
+through a full-width model (qwen2-1.5b, or ``--arch mamba2-370m`` or
+``deepseek-v3-671b``, the latter cut to its first 4 layers to fit one
+card; random bf16 weights from a seed) at
 steps_per_dispatch 1 and 8 under ``torch.profiler`` (device activity
 only: recording every host operator slows the run about fourfold), and
 prints, per depth, the wall time, the device's busy share (summed
@@ -57,6 +58,21 @@ def _group(name: str) -> str:
 ENGINE_CONFIG = dict(max_batch=8, block_size=16, num_blocks=513,
                      max_seq_len=640, prefill_chunk=128,
                      prefill_token_budget=256)
+
+
+# deepseek-v3-671b on one 80 GB card: every width as published, the depth
+# cut from 61 layers to the 3 dense layers and the first MoE layer
+# (about 31.6 GB of bf16 params, the MTP head included)
+DEPTH_CUTS = {"deepseek-v3-671b": 4}
+
+
+def served_config(arch: str):
+    """The config a card serves for ``arch``: the registry's, with the
+    depth cut of ``DEPTH_CUTS`` where it has one."""
+    cfg = get_config(arch)
+    if arch in DEPTH_CUTS:
+        cfg = cfg.replace(num_layers=DEPTH_CUTS[arch])
+    return cfg
 
 
 def workload(vocab_size: int, seed: int):
@@ -119,11 +135,12 @@ def main() -> int:
                     help="directory for the Chrome traces")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    choices=("qwen2-1.5b", "mamba2-370m"))
+                    choices=("qwen2-1.5b", "mamba2-370m",
+                             "deepseek-v3-671b"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")
-    cfg = get_config(args.arch)
+    cfg = served_config(args.arch)
     model = build_model(cfg)
     params = model.init(args.seed, "cuda")
     work = workload(cfg.vocab_size, args.seed)

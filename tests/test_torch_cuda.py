@@ -18,15 +18,16 @@ bit for bit (the scatter on every slot but trash slot 0, and on slot 0
 too where the destinations are distinct); the SSD block within
 |kernel - plain| <= a * max|plain| + r * |plain|, a = r = 1e-4 for
 float32 outputs (f32 sums over up to 256 keys and 256 state columns in
-another order) and a = 1e-3, r = 1e-2 for bfloat16 y (one bf16 ulp).
+another order) and a = 1e-3, r = 1e-2 for bfloat16 y (one bf16 ulp);
+the MLA attends as the other attention kernels.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (decode_view, flash_decode,
-                                 fused_update, prng, sampling, slot_state,
-                                 ssd_chunk)
+                                 fused_update, mla_decode, prng, sampling,
+                                 slot_state, ssd_chunk)
 from repro_torch.kernels._common import sm_count
 
 pytestmark = pytest.mark.cuda
@@ -393,3 +394,77 @@ def test_ssd_chunked_pallas_on_card_matches_plain_route(dev):
                                     init_state=s0)
     assert _close_scaled(y2, y1, 1e-4, 1e-4)
     assert _close_scaled(f2, f1, 1e-4, 1e-4)
+
+
+# the MLA attends at deepseek-v3's widths (r 512, rd 64): decode rows
+# with their keys split over CTAs, query chunks whose 16-row tiles span
+# two positions (H = 12) or one (H = 128), views of an odd length
+MLA = [
+    # b, c, h, s1 (view slots), bs, nb_seq
+    (8, 1, 128, 641, 16, 40),
+    (2, 1, 128, 97, 16, 6),
+    (3, 5, 12, 33, 8, 4),
+    (2, 64, 16, 129, 16, 8),
+    (1, 3, 128, 17, 4, 4),
+]
+
+
+def _mla_inputs(dev, case, dt):
+    b, c, h, s1, bs, nb_seq = case
+    gen = torch.Generator(device=dev).manual_seed(sum(case))
+    q_lat = torch.randn((b, c, h, 512), generator=gen, device=dev).to(dt)
+    q_rope = torch.randn((b, c, h, 64), generator=gen, device=dev).to(dt)
+    rng = np.random.default_rng(sum(case))
+    pos = rng.integers(0, min(s1, nb_seq * bs) - c, (b,))
+    pos[0] = 0
+    return gen, rng, q_lat, q_rope, torch.tensor(pos, dtype=torch.int32,
+                                                 device=dev)
+
+
+@pytest.mark.parametrize("case", MLA)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_mla_decode_views_kernel_matches_plain(dev, case, dt):
+    b, c, h, s1, _, _ = case
+    gen, _, q_lat, q_rope, pos = _mla_inputs(dev, case, dt)
+    ckv = torch.randn((b, s1, 512), generator=gen, device=dev).to(dt)
+    kr = torch.randn((b, s1, 64), generator=gen, device=dev).to(dt)
+    ckv[:, -1], kr[:, -1] = 1e3, -1e3                # trash slot garbage
+    scale = 192 ** -0.5
+    got = mla_decode.mla_decode_views(q_lat, q_rope, ckv, kr, pos,
+                                      scale=scale)
+    want = mla_decode.mla_decode_views_plain(q_lat, q_rope, ckv, kr, pos,
+                                             scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+@pytest.mark.parametrize("case", MLA)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_mla_decode_paged_kernel_matches_plain(dev, case, dt):
+    b, c, h, _, bs, nb_seq = case
+    gen, rng, q_lat, q_rope, pos = _mla_inputs(dev, case, dt)
+    nb = b * nb_seq + 1
+    ckv = torch.randn((nb, bs, 512), generator=gen, device=dev).to(dt)
+    kr = torch.randn((nb, bs, 64), generator=gen, device=dev).to(dt)
+    ckv[0], kr[0] = 1e3, -1e3                        # trash garbage
+    bt = torch.tensor(rng.permutation(np.arange(1, nb)).reshape(b, nb_seq),
+                      dtype=torch.int32, device=dev)
+    for row in range(b):                             # trash past the frontier
+        bt[row, (int(pos[row]) + c - 1) // bs + 1:] = 0
+    scale = 192 ** -0.5
+    before = mla_decode.mla_decode_paged.launches
+    got = mla_decode.mla_decode_paged(q_lat, q_rope, ckv, kr, bt, pos,
+                                      scale=scale)
+    want = mla_decode.mla_decode_paged_plain(q_lat, q_rope, ckv, kr, bt,
+                                             pos, scale=scale)
+    assert mla_decode.mla_decode_paged.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+def test_mla_kernels_reject_unbuilt_widths(dev):
+    q = torch.zeros((1, 1, 4, 32), device=dev)
+    qr = torch.zeros((1, 1, 4, 16), device=dev)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="not built"):
+        mla_decode.mla_decode_views(q, qr, torch.zeros((1, 9, 32), device=dev),
+                                    torch.zeros((1, 9, 16), device=dev), pos,
+                                    scale=0.1)

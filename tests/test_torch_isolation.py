@@ -18,10 +18,13 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.kernels.prng", "repro_torch.kernels.sampling",
            "repro_torch.kernels.fused_update",
            "repro_torch.kernels.slot_state", "repro_torch.kernels.ssd_chunk",
+           "repro_torch.kernels.mla_decode",
            "repro_torch.models.layers", "repro_torch.models.attention",
-           "repro_torch.models.ssm",
+           "repro_torch.models.ssm", "repro_torch.models.mla",
+           "repro_torch.models.moe",
            "repro_torch.models.transformer", "repro_torch.models.model",
            "repro_torch.serve", "repro_torch.serve.engine",
+           "repro_torch.serve.profile_engine",
            "repro_torch.optim.sgd", "repro_torch.optim.schedules",
            "repro_torch.core", "repro_torch.core.autodiff",
            "repro_torch.core.topology", "repro_torch.core.virtual",
@@ -38,6 +41,7 @@ def test_port_imports_with_jax_and_repro_blocked():
             + "from repro_torch.configs import get_config\n"
             "get_config('qwen2-1.5b')\n"
             "get_config('mamba2-370m')\n"
+            "get_config('deepseek-v3-671b')\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=SRC,

@@ -211,6 +211,14 @@ def test_wrappers_route_cpu_to_plain_without_counting():
     bc = torch.zeros((1, 8, 2, 3))
     kernels.ssd_chunk_bchp(x, torch.ones((1, 8, 2)), torch.zeros((1, 8, 2)),
                            bc, bc)
+    ql, qr = torch.zeros((1, 1, 2, 8)), torch.zeros((1, 1, 2, 4))
+    pos = torch.zeros(1, dtype=torch.int32)
+    kernels.mla_decode_views(ql, qr, torch.zeros((1, 5, 8)),
+                             torch.zeros((1, 5, 4)), pos, scale=0.5)
+    kernels.mla_decode_paged(ql, qr, torch.zeros((3, 4, 8)),
+                             torch.zeros((3, 4, 4)),
+                             torch.tensor([[1, 2]], dtype=torch.int32), pos,
+                             scale=0.5)
     assert kernels.launch_counts() == {"flash_decode_paged": 0,
                                        "decode_view_attend": 0,
                                        "greedy_sample": 0,
@@ -218,7 +226,9 @@ def test_wrappers_route_cpu_to_plain_without_counting():
                                        "fused_sgd_update": 0,
                                        "slot_gather": 0,
                                        "slot_scatter": 0,
-                                       "ssd_chunk_bchp": 0}
+                                       "ssd_chunk_bchp": 0,
+                                       "mla_decode_views": 0,
+                                       "mla_decode_paged": 0}
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
@@ -244,6 +254,19 @@ def test_wrappers_raise_off_cpu_without_cuda():
     bc = torch.zeros((1, 8, 2, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         kernels.ssd_chunk_bchp(x, d, d, bc, bc)
+    ql = torch.zeros((1, 1, 4, 512), device="meta")
+    qr = torch.zeros((1, 1, 4, 64), device="meta")
+    pos = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mla_decode_views(
+            ql, qr, torch.zeros((1, 9, 512), device="meta"),
+            torch.zeros((1, 9, 64), device="meta"), pos, scale=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mla_decode_paged(
+            ql, qr, torch.zeros((3, 4, 512), device="meta"),
+            torch.zeros((3, 4, 64), device="meta"),
+            torch.zeros((1, 2), dtype=torch.int32, device="meta"), pos,
+            scale=0.1)
 
 
 def test_profiler_groups_every_port_kernel():

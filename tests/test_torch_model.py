@@ -226,11 +226,13 @@ def test_init_params_shapes_match_reference(models):
 def test_kernel_spec_names_the_port_kernels(models):
     from repro_torch import kernels
     mamba = build_model(get_config("mamba2-370m"))
-    named = {n for spec in (models[4].paged_spec, mamba.paged_spec)
+    deepseek = build_model(get_config("deepseek-v3-671b"))
+    named = {n for spec in (models[4].paged_spec, mamba.paged_spec,
+                            deepseek.paged_spec)
              for _, ops in spec.kernel_spec for n in ops.split("/")}
     # every kernel but the optimizer update, which runs on the training
     # path, and the SSD block, which (as in the reference) only
     # ``ssd_chunked_pallas`` reaches, serves a layer kind's hot path of
-    # the dense or the mamba family
+    # the dense, the mamba or the MLA family
     assert named == {fn.__name__ for fn in kernels.KERNELS} - {
         kernels.fused_sgd_update.__name__, kernels.ssd_chunk_bchp.__name__}
