@@ -22,7 +22,18 @@
    update through ``repro_torch.launch.train``, then runs the virtual
    CSGD and LSGD (4 workers, groups of 2) from one set of weights and
    checks that they agree after ``finalize`` (the paper's claim).
-5. The mamba path: the slot-state gather and scatter at every row count
+5. The static-batch path (the non-paged ``prefill`` / ``decode_step``,
+   as benchmarks/serve_bench.py's ``run_static``): the flash-attention
+   kernel at the static prefill's shapes (B=8, qwen2's heads, Sq = Sk =
+   each batch's padded prompt, bf16 and f32) and at a window, a
+   non-causal Sq != Sk and an hd-64 case; the contiguous-cache decode
+   kernel at the static decode's shape with length 1, S/2 and S, split
+   and unsplit; then full-width qwen2-1.5b under attn_impl="pallas"
+   serves the same 16 requests as two static batches of 8, twice (the
+   streams must repeat), with exact launch counts of both kernels and
+   of greedy_sample, each token checked against a teacher-forced f32
+   forward of the plain model over the padded prompt.
+6. The mamba path: the slot-state gather and scatter at every row count
    the engine gives them, for one layer (the fused step) and for all 48
    layers at once (the decode loop's entry and exit), for both state
    leaves, bit for bit against their plain versions; the SSD intra-chunk
@@ -32,7 +43,7 @@
    from a seed) serves the same 16 requests at steps_per_dispatch 1 and 8,
    greedy twice and sampled once per depth, each token checked against a
    teacher-forced f32 forward, every state slot free at the end.
-6. The MLA + MoE path: the absorbed MLA attends over latent views and
+7. The MLA + MoE path: the absorbed MLA attends over latent views and
    latent block pools at every row layout the engine dispatches, at
    deepseek-v3's widths (128 heads, latent rank 512, rope 64, 640 keys),
    held to their plain versions within one bf16 ulp; then full-width
@@ -43,7 +54,7 @@
    teacher-forced f32 forward of the plain model in its dropless form,
    routed as the served run routed (the router's top-8 choice is
    discontinuous; the count of bf16-vs-f32 routing flips is printed).
-7. Prints the ``kernels`` JSON line, the card's name and power limit, and
+8. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -115,6 +126,12 @@ MAMBA = "mamba2-370m"
 SSD_CASES = (("prefill rows x 1 chunk", None, 256), ("4 x 512", 4, 512))
 # the MLA + MoE path; its depth cut is profile_engine.DEPTH_CUTS's
 DEEPSEEK = "deepseek-v3-671b"
+# the static-batch path (the non-paged prefill / decode_step, as
+# benchmarks/serve_bench.py's run_static): batches of 8 requests, each
+# prompt right-padded with token 0 to the batch's longest rounded up to
+# STATIC_PAD
+STATIC_BATCH = 8
+STATIC_PAD = 16
 
 SEED = 0
 
@@ -174,20 +191,19 @@ def bound_ms(nbytes: float, ops: float, ops_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sdpa(torch, q, k, v, mask):
+def sdpa(torch, q, k, v, mask, is_causal=False):
     """One scaled_dot_product_attention call, GQA by enable_gqa where
     this PyTorch has it (the yardstick only)."""
     F = torch.nn.functional
+    kw = dict(attn_mask=mask, is_causal=is_causal)
     try:
-        F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                       enable_gqa=True)
-        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                      enable_gqa=True)
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True, **kw)
     except TypeError:       # a PyTorch without enable_gqa
         g = q.shape[1] // k.shape[1]
         k2, v2 = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-        return lambda: F.scaled_dot_product_attention(q, k2, v2,
-                                                      attn_mask=mask)
+        return lambda: F.scaled_dot_product_attention(q, k2, v2, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -766,6 +782,257 @@ def phase_virtual(torch, cfg):
         fail(f"virtual csgd and lsgd differ by {diff} (bound "
              f"{VIRTUAL_BOUND})")
     return diff
+
+
+# ---------------------------------------------------------------------------
+# the static-batch path: flash attention, contiguous-cache decode, serving
+# ---------------------------------------------------------------------------
+
+
+def static_batches(work):
+    """run_static's batches of ``work``: (padded prompts (B, pmax) int32,
+    the requests' indices, pmax, gmax) for each STATIC_BATCH requests."""
+    out = []
+    for i in range(0, len(work), STATIC_BATCH):
+        batch = work[i:i + STATIC_BATCH]
+        pmax = -(-max(len(p) for p, _ in batch) // STATIC_PAD) * STATIC_PAD
+        gmax = max(n for _, n in batch)
+        toks = np.zeros((len(batch), pmax), np.int32)
+        for j, (p, _) in enumerate(batch):
+            toks[j, :len(p)] = p
+        out.append((toks, list(range(i, i + len(batch))), pmax, gmax))
+    return out
+
+
+def _visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the mask keeps: the work of one (row, head)."""
+    i = np.arange(sq)[:, None]
+    j = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    return int(keep.sum())
+
+
+def phase_flash_attention(torch, timer, cfg, work):
+    """Kernel 6 at the static prefill's shapes (B = 8 rows, qwen2's 12
+    heads over 2 kv heads, hd 128, causal, Sq = Sk = each static batch's
+    padded prompt) in bfloat16 and float32, plus a 512-token window-128
+    case, a non-causal Sq 64 / Sk 320 case and an hd-64 case, each held
+    to the plain version within ATTN_ATOL + ATTN_RTOL |plain|.  Library
+    yardstick: scaled_dot_product_attention (is_causal, enable_gqa; a
+    boolean mask for the window)."""
+    from repro_torch.kernels import flash_attention as fa
+    H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cases = []
+    for _, _, pmax, _ in static_batches(work):
+        for dt in (torch.bfloat16, torch.float32):
+            cases.append((f"prefill S={pmax} {str(dt)[6:]}", STATIC_BATCH,
+                          pmax, pmax, H, KV, HD, True, 0, dt))
+    cases += [("window S=512 w=128", STATIC_BATCH, 512, 512, H, KV, HD,
+               True, 128, torch.bfloat16),
+              ("cross Sq=64 Sk=320", STATIC_BATCH, 64, 320, H, KV, HD,
+               False, 0, torch.bfloat16),
+              ("hd64 S=512", STATIC_BATCH, 512, 512, H, KV, 64, True, 0,
+               torch.bfloat16)]
+    results = []
+    for label, b, sq, sk, h, kv, hd, causal, window, dt in cases:
+        q = torch.randn((b, sq, h, hd), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, sk, kv, hd), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, sk, kv, hd), generator=g, device="cuda").to(dt)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def plain():
+            return fa.flash_attention_bhsd_plain(qt, kt, vt, causal=causal,
+                                                 window=window)
+
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        err, ratio = compare_bf16(got, plain().transpose(1, 2))
+        if not (math.isfinite(err) and ratio <= 1.0):
+            fail(f"flash_attention {label}: max |kernel - plain| = {err}, "
+                 f"{ratio:.3g}x the bound {ATTN_ATOL} + {ATTN_RTOL}|plain|")
+        esize = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+        ops = 4 * b * h * hd * _visible_pairs(sq, sk, causal, window)
+        bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else F32_OPS_PER_S)
+        ms = timer(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window))
+        plain_ms = timer(plain)
+        mask = None
+        if window:
+            i = torch.arange(sq, device="cuda")[:, None]
+            j = torch.arange(sk, device="cuda")[None, :]
+            mask = (j <= i) & (j > i - window)
+        lib_ms = timer(sdpa(torch, qt, kt, vt, mask,
+                            is_causal=causal and not window))
+        results.append(dict(label=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                            library_ms=lib_ms))
+        print(f"[flash_attention] {label} B={b} Sq={sq} Sk={sk} H={h} "
+              f"KV={kv} hd={hd} causal={causal} window={window} "
+              f"err={err:.3g} (x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
+              f"library_ms(sdpa)={lib_ms:.4f}", flush=True)
+        del q, k, v, qt, kt, vt, got
+    return results
+
+
+def phase_flash_decode_bhd(torch, timer, cfg, work):
+    """Kernel 7 at the static decode's shape (B = 8, S = each static
+    batch's cache_len, qwen2's heads, hd 128) with ``length`` 1, S // 2
+    and S, in bfloat16 and float32, plus a 128-slot cache that runs
+    unsplit: the phase fails unless both the split-K merge and the
+    direct epilogue are compared.  Slots at and past ``length`` hold
+    large garbage, so a read past the mask shows.  Library yardstick:
+    scaled_dot_product_attention under a boolean mask."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels._common import launch_splits, sm_count
+    H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cases = []
+    for _, _, pmax, gmax in static_batches(work):
+        s = pmax + gmax
+        for dt in (torch.bfloat16, torch.float32):
+            for length in (1, s // 2, s):
+                cases.append((f"S={s} length={length} {str(dt)[6:]}", s,
+                              length, dt))
+    cases.append(("extra S=128 length=100 bfloat16", 128, 100,
+                  torch.bfloat16))
+    results = []
+    for label, s, length, dt in cases:
+        b = STATIC_BATCH
+        q = torch.randn((b, H, HD), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, s, KV, HD), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, s, KV, HD), generator=g, device="cuda").to(dt)
+        past = (torch.arange(s, device="cuda") >= length)[None, :, None,
+                                                          None]
+        k.masked_fill_(past, 60.0)
+        v.masked_fill_(past, -60.0)
+        ln = torch.tensor(length, dtype=torch.int32, device="cuda")
+        nsplit = launch_splits(b, 1, H, KV, s, sms=sm_count(0))
+        got = fd.flash_decode(q, k, v, ln)
+        err, ratio = compare_bf16(got, fd.flash_decode_bhd_plain(q, k, v,
+                                                                 ln))
+        if not (math.isfinite(err) and ratio <= 1.0):
+            fail(f"flash_decode {label}: max |kernel - plain| = {err}, "
+                 f"{ratio:.3g}x the bound {ATTN_ATOL} + {ATTN_RTOL}|plain|")
+        esize = q.element_size()
+        nbytes = (2 * b * length * KV * HD + 2 * q.numel()) * esize + 4
+        bnd, by = bound_ms(nbytes, 4 * b * H * HD * length,
+                           BF16_OPS_PER_S if dt == torch.bfloat16
+                           else F32_OPS_PER_S)
+        ms = timer(lambda: fd.flash_decode(q, k, v, ln))
+        plain_ms = timer(lambda: fd.flash_decode_bhd_plain(q, k, v, ln))
+        mask = (torch.arange(s, device="cuda") < length)[None, None, None]
+        lib_ms = timer(sdpa(torch, q[:, :, None],
+                            k.transpose(1, 2).contiguous(),
+                            v.transpose(1, 2).contiguous(), mask))
+        results.append(dict(label=label, nsplit=nsplit, max_abs_err=err,
+                            ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                            bound_by=by, library_ms=lib_ms))
+        print(f"[flash_decode] {label} B={b} H={H} KV={KV} hd={HD} "
+              f"nsplit={nsplit} err={err:.3g} (x{ratio:.3f} of bound) "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd:.4f} ({by}) library_ms(sdpa)={lib_ms:.4f}",
+              flush=True)
+        del q, k, v, got
+    if {r["nsplit"] > 1 for r in results} != {False, True}:
+        fail("flash_decode: the cases did not reach both the split and "
+             "the unsplit epilogue")
+    return results
+
+
+def _static_once(torch, model, params, batches):
+    """One static-batch run through the non-paged entry point (as
+    run_static): per batch ``prefill`` with cache_len = pmax + gmax, the
+    first token greedy from the last prompt position, then gmax - 1
+    ``decode_step`` calls at positions pmax, pmax + 1, ... (a device
+    tensor: no host read inside the loop), every token through
+    ``greedy_sample``.  Every launch count is set to 0 just before and
+    read just after.  Returns (streams {request: tokens}, counts, wall
+    s, prefill ms per batch, decode ms per step)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.sampling import greedy_sample
+    streams, prefill_ms, decode_ms = {}, [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for toks, rows, pmax, gmax in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        logits, cache = model.prefill(params, torch.from_numpy(toks).cuda(),
+                                      cache_len=pmax + gmax)
+        tok = greedy_sample(logits[:, -1].float())
+        ev[1].record()
+        out = [tok]
+        pos = torch.tensor(pmax, dtype=torch.int32, device="cuda")
+        for i in range(gmax - 1):
+            lg, cache = model.decode_step(params, cache, tok[:, None],
+                                          pos + i)
+            tok = greedy_sample(lg.float())
+            out.append(tok)
+        ev[2].record()
+        toks_out = torch.stack(out, 1).cpu().numpy()
+        prefill_ms.append(ev[0].elapsed_time(ev[1]))
+        decode_ms.append(ev[1].elapsed_time(ev[2]) / max(gmax - 1, 1))
+        for j, r in enumerate(rows):
+            streams[r] = toks_out[j].tolist()
+        del logits, cache, lg
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return streams, kernels.launch_counts(), wall, prefill_ms, decode_ms
+
+
+def phase_serve_static(torch, cfg):
+    """The static-batch main path: full-width qwen2-1.5b under
+    attn_impl="pallas" (bf16, random weights from SEED), the serving
+    phase's 16 requests in two static batches of 8, run twice (the
+    streams must repeat), with exact launch counts — flash_attention
+    once per layer and batch, flash_decode once per layer and decode
+    step, greedy_sample once per step, nothing else — so no plain
+    version ran on the card; then every emitted token against a
+    teacher-forced f32 forward of the plain (naive) model over the
+    padded prompt and the emitted stream."""
+    from repro_torch import kernels
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    pcfg = cfg.replace(attn_impl="pallas")
+    model = build_model(pcfg)
+    params = model.init(SEED, "cuda")
+    work = workload(pcfg.vocab_size, SEED)
+    batches = static_batches(work)
+    L = pcfg.num_layers
+    want = {fn.__name__: 0 for fn in kernels.KERNELS}
+    want.update(flash_attention=L * len(batches),
+                flash_decode=L * sum(g - 1 for *_, g in batches),
+                greedy_sample=sum(g for *_, g in batches))
+    useful = sum(n for _, n in work)
+    runs = []
+    for rep in range(2):
+        streams, counts, wall, pre_ms, dec_ms = _static_once(
+            torch, model, params, batches)
+        if counts != want:
+            fail(f"static run {rep}: launches {counts}, want {want}")
+        runs.append(streams)
+        print(f"[serve_static] run={rep} {pcfg.name} pallas batches="
+              f"{[(p, g) for _, _, p, g in batches]} (pmax, gmax) "
+              f"requests={len(work)} useful_tokens={useful} wall_s="
+              f"{wall:.3f} tok_s={useful / wall:.1f} prefill_ms per batch "
+              f"{[round(x, 2) for x in pre_ms]} decode_ms per step "
+              f"{[round(x, 3) for x in dec_ms]} launches="
+              f"{json.dumps(counts)}", flush=True)
+    if runs[0] != runs[1]:
+        fail("static serving: a repeat gave other streams")
+    padded = [(toks[j], gmax) for toks, rows, _, gmax in batches
+              for j in range(len(rows))]
+    _teacher_forced_check(torch, build_model(cfg.replace(attn_impl="naive")),
+                          params, padded, [runs[0]], [])
+    del params
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1533,6 +1800,13 @@ def main() -> int:
     tr = phase(phase_train, torch)
     launches["fused_sgd_update"] = tr["launches"]["fused_sgd_update"]
     phase(phase_virtual, torch, cfg)
+    from repro_torch.serve.profile_engine import workload
+    work = workload(cfg.vocab_size, SEED)
+    fa = phase(phase_flash_attention, torch, timer, cfg, work)
+    fdb = phase(phase_flash_decode_bhd, torch, timer, cfg, work)
+    s_launches = phase(phase_serve_static, torch, cfg)
+    for name in ("flash_attention", "flash_decode"):
+        launches[name] = s_launches[name]
     mcfg = get_config(MAMBA)
     st = phase(phase_slot_state, torch, timer, mcfg, ec)
     ssd, ssd_launches = phase(phase_ssd_chunk, torch, timer, mcfg, ec)
@@ -1549,8 +1823,9 @@ def main() -> int:
         launches[name] = d_launches[name]
 
     def row(results, label):
-        """The kernel's JSON numbers: times of the engine's full decode
-        bucket, error the worst over every case of the phase."""
+        """The kernel's JSON numbers: times of the case ``label`` (the
+        engine's full decode bucket, or the static path's first batch),
+        error the worst over every case of the phase."""
         pick = next(r for r in results if r["label"] == label)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(max_abs_err=max(r["max_abs_err"] for r in results),
@@ -1558,6 +1833,8 @@ def main() -> int:
 
     src = "src/repro_torch/csrc"
     top = ec.decode_buckets[0]
+    _, _, pmax0, gmax0 = static_batches(work)[0]
+    s0 = pmax0 + gmax0
     rows = [
         dict(name="flash_decode_paged", route="cuda",
              source=f"{src}/flash_decode.cu",
@@ -1605,6 +1882,17 @@ def main() -> int:
              replaces="src/repro/kernels/mla_decode.py:141",
              launches=launches["mla_decode_paged"],
              **row(mp, f"B={top} C=1")),
+        # the static path's first batch, bf16; decode at a full cache
+        dict(name="flash_attention", route="cuda",
+             source=f"{src}/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:77",
+             launches=launches["flash_attention"],
+             **row(fa, fa[0]["label"])),
+        dict(name="flash_decode", route="cuda",
+             source=f"{src}/flash_decode.cu",
+             replaces="src/repro/kernels/flash_decode.py:179",
+             launches=launches["flash_decode"],
+             **row(fdb, f"S={s0} length={s0} bfloat16")),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -2,6 +2,10 @@
 version and a launch counter (``<wrapper>.launches``).
 
   flash_decode.flash_decode_paged   paged decode / prefill-chunk attention
+  flash_decode.flash_decode         one-token decode over a contiguous
+                                    cache (the non-paged decode_step)
+  flash_attention.flash_attention   full-sequence flash attention (the
+                                    non-paged prefill)
   decode_view.decode_view_attend    N-step loop's view attention
   sampling.greedy_sample            per-row argmax
   sampling.gumbel_sample            temperature / top-k gumbel-max
@@ -19,6 +23,10 @@ launches its kernel (built on first use by ``_build``) or raises.
 ``prng`` (the reference's threefry draws) is plain PyTorch.
 """
 from repro_torch.kernels.decode_view import decode_view_attend
+# the modules flash_attention and flash_decode keep their names here
+# (callers import them as modules); their same-named wrappers are
+# reached through them
+from repro_torch.kernels import flash_attention, flash_decode
 from repro_torch.kernels.flash_decode import flash_decode_paged
 from repro_torch.kernels.fused_update import fused_sgd_update
 from repro_torch.kernels.mla_decode import mla_decode_paged, mla_decode_views
@@ -28,7 +36,8 @@ from repro_torch.kernels.ssd_chunk import ssd_chunk_bchp
 
 KERNELS = (flash_decode_paged, decode_view_attend, greedy_sample,
            gumbel_sample, fused_sgd_update, slot_gather, slot_scatter,
-           ssd_chunk_bchp, mla_decode_views, mla_decode_paged)
+           ssd_chunk_bchp, mla_decode_views, mla_decode_paged,
+           flash_attention.flash_attention, flash_decode.flash_decode)
 
 
 def reset_launch_counts() -> None:
@@ -40,7 +49,8 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-__all__ = ["KERNELS", "decode_view_attend", "flash_decode_paged",
+__all__ = ["KERNELS", "decode_view_attend", "flash_attention",
+           "flash_decode", "flash_decode_paged",
            "fused_sgd_update", "greedy_sample", "gumbel_sample",
            "launch_counts", "mla_decode_paged", "mla_decode_views",
            "reset_launch_counts", "slot_gather",

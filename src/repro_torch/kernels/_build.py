@@ -33,6 +33,8 @@ _L = ctypes.c_longlong
 # as c_void_p: anything else would cut a 64-bit address)
 SIGNATURES = {
     "rt_flash_decode_paged": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
+    "rt_flash_decode": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     "rt_decode_view_attend": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "rt_greedy_sample": [_P, _P, _P, _I, _I, _I, _P],
     "rt_gumbel_sample": [_P] * 5 + [_I] * 4 + [_F, _P],

@@ -1,0 +1,110 @@
+"""Flash-attention forward over full sequences: the prefill of the
+non-paged entry point (``Model.prefill`` under ``attn_impl="pallas"``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+``flash_attention_bhsd`` (reached through ``ops.flash_attention``).
+CUDA source: ``csrc/flash_attention.cu``.
+
+Bound on the H100: at qwen2-1.5b's prefill (8 x 512 tokens, 12 heads
+over 2 kv heads, hd 128, causal, bf16) about 29 MB of q/k/v/o against
+6.4 GFLOP: 0.0088 ms of bytes and 0.0065 ms of bf16 tensor-core work,
+so bytes bind at the card's peaks.  This kernel runs on CUDA cores in
+f32 (67 TFLOP/s), where the same work takes at least 0.1 ms: operations
+bind it.
+
+Design against that: one CTA owns 64 query rows of one (row, kv head) —
+all G query heads of ~64/G positions — so every K/V chunk it stages in
+shared memory serves 64 dot products a key (the TPU kernel's grid gave
+each query head its own pass over K/V); the TPU wrapper's padding of
+the head dim to 128 and of S to the block, and its transposes to
+(B,H,S,hd), are gone: the kernel reads (B,S,H,hd) and (B,S,KV,hd) in
+place and masks the ragged tails; causal and window tiles outside a
+query tile's range are never read.  Forward only, as the reference:
+it has no backward, and its configs train through ``blocked``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import (dtype_code, require_aligned,
+                                        require_cuda)
+
+NEG_INF = -1e30
+
+
+def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True,
+                               window: int = 0):
+    """Plain PyTorch version (mirrors ``repro/kernels/ref.py``
+    ``flash_attention_bhsd``): q (B,H,Sq,hd); k, v (B,KV,Sk,hd); exact
+    softmax attention in f32.  Query and key positions both count from
+    0; ``causal`` keeps kpos <= qpos, ``window`` kpos > qpos - window.
+    Returns (B,H,Sq,hd) in q's dtype."""
+    b, h, sq, hd = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, kvh, g, sq, hd).float()
+    logits = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full((), NEG_INF,
+                                                  device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    return o.reshape(b, h, sq, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,Sq,H,hd); k, v (B,Sk,KV,hd) -> (B,Sq,H,hd), as
+    ``ops.flash_attention``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (head dims 64 and 128, float32 and
+    bfloat16).  Forward only: raises when autograd would need a
+    gradient through it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (the reference's Pallas "
+            "kernel has none either): train with attn_impl='blocked' or "
+            "'naive', or call it under torch.no_grad()")
+    if q.device.type == "cpu":
+        o = flash_attention_bhsd_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window)
+        return o.transpose(1, 2)
+    require_cuda("flash_attention", q, k, v)
+    require_aligned("flash_attention", k, v)
+    b, sq, h, hd = q.shape
+    bk, sk, kvh, hd_k = k.shape
+    if (v.shape != k.shape or bk != b or hd_k != hd or h % kvh):
+        raise ValueError("flash_attention: inconsistent shapes "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if hd not in (64, 128):
+        raise ValueError(f"flash_attention: head_dim {hd} not built "
+                         "(64, 128)")
+    if not (k.dtype == v.dtype == q.dtype):
+        raise ValueError("flash_attention: q, k and v must share a dtype")
+    if window < 0 or (window and sq >= sk + window):
+        # a query row past sk + window - 1 would see no key: the plain
+        # version gives it the mean of v (a uniform softmax over -1e30),
+        # the kernel zeros; no caller builds such a row
+        raise ValueError(f"flash_attention: window {window} with Sq {sq} "
+                         f"and Sk {sk} leaves query rows without a key")
+    out = torch.empty_like(q)
+    rc = _build.library().rt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, kvh, hd, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        dtype_code(q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,8 +1,12 @@
-"""Paged decode / prefill-chunk attention (the serving hot loop).
+"""Decode attention over K/V caches: paged decode / prefill-chunk
+attention (the serving hot loop, ``flash_decode_paged``) and one-token
+decode over a contiguous cache (the non-paged ``Model.decode_step``,
+``flash_decode``).
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py``
-``flash_decode_paged_bhd`` (reached through ``ops.flash_decode_paged``).
-CUDA source: ``csrc/flash_decode.cu`` + ``csrc/attend.cuh``.
+Replace the Pallas TPU kernels ``repro/kernels/flash_decode.py``
+``flash_decode_paged_bhd`` and ``flash_decode_bhd`` (reached through
+``ops.flash_decode_paged`` / ``ops.flash_decode``).  CUDA source:
+``csrc/flash_decode.cu`` + ``csrc/attend.cuh``.
 
 Bound on the H100: bytes.  Per call it must read each row's visible K/V
 once (2 * tokens * KV * hd * itemsize) and does 4 * C * H * hd flops per
@@ -20,6 +24,12 @@ batch — each tile's keys are split over up to 264 / CTAs CTAs and a
 second kernel merges their partial softmax results (split-K).  K/V are
 read as 16-byte vectors.  The dot products run on CUDA cores in f32:
 tensor cores (``wgmma``) and TMA are a later step.
+
+The contiguous kernel is the same arithmetic over a (B, S, KV, hd) cache
+addressed in place (the TPU wrapper padded hd to 128 and S to 512 on
+every call); its ``length`` — the number of valid slots, shared by all
+rows — is an int32 scalar the kernel reads from device memory, so a
+decode step never waits on the host for the position.
 """
 from __future__ import annotations
 
@@ -110,3 +120,62 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, pos, *,
 
 
 flash_decode_paged.launches = 0
+
+
+def flash_decode_bhd_plain(q, k, v, length):
+    """Plain PyTorch version (mirrors ``repro/kernels/ref.py``
+    ``flash_decode``, with the cache in the kernel's (B,S,KV,hd) layout):
+    q (B,H,hd); k, v (B,S,KV,hd); slot j valid when j < length (an int
+    or a 0-d tensor); softmax in f32.  Returns (B,H,hd) in q's dtype."""
+    b, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, kvh, g, hd).float()
+    logits = torch.einsum("bkgh,bskh->bkgs", qg, k.float()) * scale
+    valid = torch.arange(s, device=q.device) < torch.as_tensor(
+        length, device=q.device)
+    logits = torch.where(valid, logits, torch.full((), NEG_INF,
+                                                   device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+    return o.reshape(b, h, hd).to(q.dtype)
+
+
+def flash_decode(q, k, v, length):
+    """q (B,H,hd); k, v (B,S,KV,hd) contiguous caches; ``length`` the
+    number of valid slots, shared by every row: a 0-d int32 tensor on
+    q's device (at least 1; past S every slot is valid, as in a full
+    ring cache) -> (B,H,hd).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return flash_decode_bhd_plain(q, k, v, length)
+    require_cuda("flash_decode", q, k, v, length)
+    require_aligned("flash_decode", k, v)
+    b, h, hd = q.shape
+    bk, s, kvh, hd_k = k.shape
+    if (v.shape != k.shape or bk != b or hd_k != hd or h % kvh
+            or length.shape != ()):
+        raise ValueError("flash_decode: inconsistent shapes "
+                         f"q{tuple(q.shape)} cache{tuple(k.shape)} "
+                         f"length{tuple(length.shape)}")
+    if hd not in (64, 128):
+        raise ValueError(f"flash_decode: head_dim {hd} not built (64, 128)")
+    if not (k.dtype == v.dtype == q.dtype):
+        raise ValueError("flash_decode: q and caches must share a dtype")
+    if length.dtype != torch.int32:
+        raise ValueError("flash_decode: length must be int32")
+    out = torch.empty_like(q)
+    nsplit = launch_splits(b, 1, h, kvh, s, sms=sm_count(q.device))
+    part_acc, part_ml = split_scratch(b * h, nsplit, hd, q.device)
+    rc = _build.library().rt_flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, h, kvh,
+        hd, s, 1.0 / math.sqrt(hd), nsplit, dtype_code(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_decode")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -4,9 +4,12 @@ qwen2-1.5b, batch 4 x 512, LSGD, fused SGD, lr 0.01), takes a few warm
 steps, then profiles ``--steps`` steps under ``torch.profiler`` (device
 activity only) and prints one JSON line: step time, the device's busy
 share, kernel time by group (the port's CUDA kernels, matrix products,
-everything else) and the top kernels.
+everything else) and the top kernels.  ``--attn-impl`` replaces the
+config's attention form (``naive`` or ``blocked``; qwen2-1.5b's config
+asks for ``blocked``), so that two forms compare in one process.
 
-    python -m repro_torch.launch.profile_train [--steps 3] [train flags]
+    python -m repro_torch.launch.profile_train [--steps 3] \
+        [--attn-impl naive|blocked] [train flags]
 
 Needs a CUDA card.
 """
@@ -35,15 +38,24 @@ WARM_STEPS = 3
 
 def main(argv=None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
-    steps = 3
+    steps, impl = 3, None
     if "--steps" in argv:
         i = argv.index("--steps")
         steps = int(argv[i + 1])
+        del argv[i:i + 2]
+    if "--attn-impl" in argv:
+        i = argv.index("--attn-impl")
+        impl = argv[i + 1]
+        if impl not in ("naive", "blocked"):
+            raise SystemExit("profile_train: --attn-impl naive|blocked "
+                             "(the flash-attention kernel has no backward)")
         del argv[i:i + 2]
     args = train.parse_args(DEFAULTS + argv)
     if not torch.cuda.is_available() or args.device != "cuda":
         raise SystemExit("profile_train: needs a CUDA card")
     cfg = train.model_config(args)
+    if impl is not None:
+        cfg = cfg.replace(attn_impl=impl)
     model = build_model(cfg)
     tcfg = train.trainer_config(args)
     state = make_init_state(model, tcfg, "cuda")(args.seed)
@@ -78,7 +90,8 @@ def main(argv=None) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     out = {
-        "card": card, "arch": cfg.name, "batch": args.batch,
+        "card": card, "arch": cfg.name, "attn_impl": cfg.attn_impl,
+        "batch": args.batch,
         "seq": args.seq, "sync_mode": args.sync_mode, "steps": steps,
         "step_s": wall / steps, "loss": float(loss),
         "kernels_per_step": sum(c for _, c, _ in kernels) / steps,

@@ -1,11 +1,17 @@
 """Attention of the dense GQA decoder (``repro/models/attention.py``):
-QKV projection with optional bias, rope, and the three forms the serve
-path needs — full sequence (the plain oracle), paged block pools (the
-fused step) and per-row contiguous views (the N-step decode loop).
+QKV projection with optional bias, rope, and four forms — full sequence
+(training and the non-paged prefill, which can also build a contiguous
+cache), one-token decode over that contiguous cache (the non-paged
+``decode_step``), paged block pools (the fused serving step) and per-row
+contiguous views (the N-step decode loop).
 
-The two cache forms update their K/V storage in place (``index_put_``)
-instead of returning fresh copies as the JAX package does: the pools and
-views are large and owned by the caller, who gets the same tensors back.
+The full-sequence form follows ``cfg.attn_impl`` as the reference does:
+``"pallas"`` runs the flash-attention kernel (forward only),
+``"blocked"`` the online-softmax ``blocked_attention``, anything else
+``naive_attention``.  The cache forms update their K/V storage in place
+(``index_put_`` / ``index_copy_``) instead of returning fresh copies as
+the JAX package does: caches, pools and views are large and owned by the
+caller, who gets the same tensors back.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_view import decode_view_attend
-from repro_torch.kernels.flash_decode import flash_decode_paged
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.models.layers import apply_rope, rope_table
 
 NEG_INF = -1e30
@@ -43,6 +50,77 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0):
     logits = torch.where(m, logits, torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      block_q: int = 512, block_kv: int = 1024):
+    """Flash-style online-softmax attention in plain PyTorch, the
+    reference's ``blocked_attention``: q (B,Sq,KV,G,hd); k, v
+    (B,Sk,KV,hd).  Memory O(S * block) instead of O(S^2), and a causal
+    or windowed query block visits only the key blocks it can see.
+    Falls back to ``naive_attention`` when Sq or Sk is not a multiple of
+    its block (blocks are cut to the sequence first)."""
+    b, sq, kvh, g, hd = q.shape
+    sk = k.shape[1]
+    block_q = min(block_q, sq)
+    block_kv = min(block_kv, sk)
+    if sq % block_q or sk % block_kv:
+        return naive_attention(q, k, v, causal=causal, window=window)
+    scale = 1.0 / math.sqrt(hd)
+    neg = torch.full((), NEG_INF, device=q.device)
+    outs = []
+    for q_lo in range(0, sq, block_q):
+        q_blk = q[:, q_lo:q_lo + block_q].float()
+        qpos = q_lo + torch.arange(block_q, device=q.device)
+        hi = min(sk, q_lo + block_q) if causal else sk
+        s_blk = max(0, (q_lo + 1 - window) // block_kv) if window else 0
+        acc = torch.zeros((b, kvh, g, block_q, hd), dtype=torch.float32,
+                          device=q.device)
+        m_i = torch.full((b, kvh, g, block_q), NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        l_i = torch.zeros((b, kvh, g, block_q), dtype=torch.float32,
+                          device=q.device)
+        for k_lo in range(s_blk * block_kv, hi, block_kv):
+            k_blk = k[:, k_lo:k_lo + block_kv]
+            v_blk = v[:, k_lo:k_lo + block_kv]
+            kpos = k_lo + torch.arange(block_kv, device=q.device)
+            logits = torch.einsum("bqkgh,bskh->bkgqs", q_blk,
+                                  k_blk.float()) * scale
+            msk = None
+            if causal:
+                msk = kpos[None, :] <= qpos[:, None]
+            if window:
+                inside = kpos[None, :] > qpos[:, None] - window
+                msk = inside if msk is None else msk & inside
+            if msk is not None:
+                logits = torch.where(msk, logits, neg)
+            m_new = torch.maximum(m_i, logits.amax(-1))
+            alpha = torch.exp(m_i - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l_i = l_i * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(v.dtype), v_blk).float()
+            m_i = m_new
+        o = acc / torch.clamp_min(l_i[..., None], 1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B,Bq,KV,G,hd)
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0):
+    """One token over a contiguous (possibly ring) cache, the reference's
+    ``decode_attention``: q (B,1,KV,G,hd); caches (B,Sc,KV,hd) already
+    holding the token at slot pos % Sc; pos a scalar.  Slots j <= pos
+    are valid, which once pos >= Sc (a full ring) is every slot; the
+    window is the ring's length, so ``window`` masks nothing more."""
+    sc, hd = k_cache.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(),
+                          k_cache.float()) * scale
+    valid = torch.arange(sc, device=q.device) <= pos
+    logits = torch.where(valid, logits, torch.full((), NEG_INF,
+                                                   device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v_cache)
 
 
 def paged_decode_attention(q, k_cache, v_cache, q_positions, *,
@@ -106,9 +184,13 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
     them per layer and XLA folds the copies): the rope table of the query
     positions (at ``qk_rope_head_dim`` for MLA, which ropes only that
     part of its heads), and where each layer's new K/V or latent rows go
-    — (block, slot) pairs in the pools, or the slot of each row's view.
-    Keyed by the cache form (one layer's), as ``apply_attention`` and
-    ``mla.apply_mla`` read them."""
+    — (block, slot) pairs in the pools, the slot of each row's view, or
+    the ring slot ``pos % Sc`` of a contiguous cache (a 0-d device
+    tensor, so a decode step reads no position on the host).  Keyed by
+    the cache form (one layer's), as ``apply_attention`` and
+    ``mla.apply_mla`` read them: a contiguous cache and the pools share
+    their key names and are told apart by ``block_tables is None``, as
+    the reference tells them apart by its ``"block_tables"`` leaf."""
     rope_dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
         else cfg.head_dim
     if cache is None:
@@ -122,6 +204,11 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
         if valid_len is not None:
             write = torch.where(valid_len > 0, write,
                                 torch.full_like(write, sview))
+    elif block_tables is None:
+        # contiguous cache, one token at the scalar pos: (B, Sc, ...)
+        positions = pos.long().reshape(1, 1)
+        sc = (cache["k"] if "k" in cache else cache["ckv"]).shape[1]
+        write = positions.reshape(1) % sc
     else:
         positions = pos[:, None] + torch.arange(x_len, device=device,
                                                 dtype=pos.dtype)[None]
@@ -132,12 +219,21 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
 
 
 def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
-                    cache=None, block_tables=None, pos=None):
+                    cache=None, block_tables=None, pos=None,
+                    make_cache: bool = False, cache_len: int = 0):
     """Returns (y, cache).  ``rope`` and ``write`` come from
     ``shared_inputs`` for the same cache form.
 
-    cache None: full-sequence causal attention over x (B,S,D) — the plain
-      path, used as the oracle by the tests and the chip check.
+    cache None: full-sequence causal attention over x (B,S,D) by
+      ``cfg.attn_impl``; with ``make_cache`` the returned cache is a
+      fresh contiguous {"k", "v"} of (B, Sc, KV, hd), Sc = ``cache_len``
+      (or S) cut to the window, position p at slot p % Sc (the last Sc
+      positions when S >= Sc).
+    cache {"k", "v"} without block_tables: the non-paged decode; x
+      (B,1,D), pos a 0-d int tensor on x's device; the token's K/V go to slot pos % Sc
+      (``write``), then it attends the cache — through the
+      ``flash_decode`` kernel with length pos + 1 under ``"pallas"``,
+      else ``decode_attention``.
     cache {"kview", "vview"}: the N-step loop; x (B,1,D), pos (B,), each
       row writes its token at its view slot ``write`` (inactive rows the
       trash slot S) and attends the view.
@@ -153,9 +249,18 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
     k = apply_rope(k, rope)
 
     if cache is None:
-        o = naive_attention(_group(q, kv), k, v, causal=True, window=window)
+        if cfg.attn_impl == "pallas":
+            o = flash_attention(q, k, v, causal=True, window=window)
+        elif cfg.attn_impl == "blocked":
+            o = blocked_attention(_group(q, kv), k, v, causal=True,
+                                  window=window, block_q=cfg.attn_block_q,
+                                  block_kv=cfg.attn_block_kv)
+        else:
+            o = naive_attention(_group(q, kv), k, v, causal=True,
+                                window=window)
         y = o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype)
-        return y, None
+        return y, (_contiguous_cache(k, v, cache_len, window)
+                   if make_cache else None)
 
     if "kview" in cache:
         kc, vc = cache["kview"], cache["vview"]
@@ -167,6 +272,23 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
         y = o.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype)
         return y, cache
 
+    if block_tables is None:
+        kc, vc = cache["k"], cache["v"]
+        kc.index_copy_(1, write, k.to(kc.dtype))
+        vc.index_copy_(1, write, v.to(vc.dtype))
+        if cfg.attn_impl == "pallas":
+            # The reference attends here in jnp (decode_attention); the
+            # port uses kernel 7, which computes the same function:
+            # slots j < pos + 1 valid, every slot once a ring is full
+            # (tests/test_kernels.py pins ops.flash_decode(q, k, v,
+            # pos + 1) == decode_attention(q, k, v, pos)).
+            o = flash_decode(q[:, 0].contiguous(), kc, vc,
+                             (pos + 1).to(torch.int32))
+        else:
+            o = decode_attention(_group(q, kv), kc, vc, pos, window=window)
+        y = o.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype)
+        return y, cache
+
     kpool, vpool = cache["k"], cache["v"]
     kpool.index_put_(write, k.to(kpool.dtype))
     vpool.index_put_(write, v.to(vpool.dtype))
@@ -174,3 +296,21 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
                            window=window)
     y = o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype)
     return y, cache
+
+
+def _contiguous_cache(k, v, cache_len: int, window: int):
+    """The non-paged cache a prefill leaves: Sc = cache_len (or S) cut to
+    the window; position p at slot p % Sc, so when S >= Sc the last Sc
+    positions, rolled (the reference's ring invariant)."""
+    b, s, kvh, hd = k.shape
+    sc = cache_len or s
+    sc = min(sc, window) if window else sc
+    if s >= sc:
+        shift = s % sc
+        return {"k": torch.roll(k[:, -sc:], shift, dims=1),
+                "v": torch.roll(v[:, -sc:], shift, dims=1)}
+    kc = torch.zeros((b, sc, kvh, hd), dtype=k.dtype, device=k.device)
+    vc = torch.zeros_like(kc)
+    kc[:, :s] = k
+    vc[:, :s] = v
+    return {"k": kc, "v": vc}

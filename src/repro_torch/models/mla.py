@@ -8,19 +8,23 @@ absorbed formulation: q_nope is pushed through W^{UK} so the scores are
 taken against the latents directly, and the attention output (in latent
 space) is expanded through W^{UV} afterwards.
 
-Three forms, as ``apply_attention``'s:
+Four forms, as ``apply_attention``'s:
 
   cache None               the full sequence with keys and values
-                           expanded from the latent (training form; the
-                           plain oracle of the tests and the chip check)
+                           expanded from the latent (training form and
+                           the non-paged prefill, which can also build a
+                           contiguous latent cache; the plain oracle of
+                           the tests and the chip check)
+  {"ckv", "krope"}         the non-paged decode over that contiguous
+                           cache (plain PyTorch, as the reference's jnp)
   {"ckv_view", "kr_view"}  the N-step loop's per-row latent views
                            (kernel ``mla_decode_views``)
   {"ckv", "krope"} + tables  the fused step's latent block pools
                            (kernel ``mla_decode_paged``)
 
-Both cache forms update their latent storage in place.  The reference's
-contiguous-cache decode belongs to the non-paged ``prefill`` /
-``decode_step`` entry point, which the port does not have yet.
+The cache forms update their latent storage in place; the contiguous
+cache and the pools share their key names and are told apart by
+``block_tables is None``.
 """
 from __future__ import annotations
 
@@ -85,12 +89,20 @@ def _wkv_b_split(params, cfg):
 
 
 def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
-              block_tables=None, pos=None):
+              block_tables=None, pos=None, make_cache: bool = False,
+              cache_len: int = 0):
     """Returns (y, cache).  ``rope`` is the table of the query positions
     at ``qk_rope_head_dim`` and ``write`` the latent write targets, both
     from ``attention.shared_inputs`` for the same cache form.
 
-    cache None: causal attention over the full sequence x (B,S,D).
+    cache None: causal attention over the full sequence x (B,S,D); with
+      ``make_cache`` the returned cache is a fresh contiguous {"ckv":
+      (B,Sc,r), "krope": (B,Sc,rope)}, Sc = ``cache_len`` (or S), holding
+      the last min(S, Sc) latents from slot 0 (the reference's rule).
+    cache {"ckv", "krope"} without block_tables: the non-paged decode; x
+      (B,1,D), pos a 0-d int tensor; the token's latent goes to slot
+      pos % Sc (``write``), then the absorbed query attends slots
+      j <= pos of the cache.
     cache {"ckv_view", "kr_view"}: x (B,1,D), pos (B,); each row writes
       its latent at its view slot ``write`` (inactive rows the trash slot
       S), then attends its view.
@@ -124,13 +136,19 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
         probs = torch.softmax(logits, dim=-1).to(dt)
         o = torch.einsum("bhqs,bshv->bqhv", probs, v)
         y = o.reshape(b, s, h * a.v_head_dim) @ params["wo"].to(dt)
-        return y, None
+        new_cache = None
+        if make_cache:
+            sc = cache_len or s
+            n = min(s, sc)
+            new_cache = {
+                "ckv": torch.zeros((b, sc, a.kv_lora_rank), dtype=dt,
+                                   device=x.device),
+                "krope": torch.zeros((b, sc, a.qk_rope_head_dim), dtype=dt,
+                                     device=x.device)}
+            new_cache["ckv"][:, :n] = c[:, -n:]
+            new_cache["krope"][:, :n] = k_rope[:, -n:]
+        return y, new_cache
 
-    if block_tables is None and "ckv_view" not in cache:
-        raise NotImplementedError(
-            "MLA's contiguous-cache decode belongs to the non-paged "
-            "prefill/decode_step entry point, queued in ROADMAP.md "
-            "('Next' item 1)")
     # absorb q_nope through W^{UK}: scores against the latents directly
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, wk).contiguous()
     q_rope = q_rope.contiguous()
@@ -141,6 +159,19 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
         kr_c.index_put_((rows, write), k_rope[:, 0].to(kr_c.dtype))
         o_lat = mla_decode_views(q_lat, q_rope, ckv_c, kr_c, pos,
                                  scale=scale)
+    elif block_tables is None:
+        ckv_c, kr_c = cache["ckv"], cache["krope"]
+        ckv_c.index_copy_(1, write, c.to(ckv_c.dtype))
+        kr_c.index_copy_(1, write, k_rope.to(kr_c.dtype))
+        logits = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(),
+                               ckv_c.float())
+                  + torch.einsum("bqhn,bsn->bhqs", q_rope.float(),
+                                 kr_c.float())) * scale
+        valid = torch.arange(ckv_c.shape[1], device=x.device) <= pos
+        logits = torch.where(valid, logits,
+                             torch.full((), NEG_INF, device=x.device))
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv_c.to(dt))
     else:
         ckv_pool, kr_pool = cache["ckv"], cache["krope"]
         ckv_pool.index_put_(write, c.to(ckv_pool.dtype))

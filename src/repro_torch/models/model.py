@@ -4,6 +4,9 @@ whose members are plain functions over a nested dict of tensors.
 
   init(seed, device)                        -> params
   forward(params, tokens, ...)              -> (logits, cache, h)
+  init_cache(batch, cache_len, device=...)  -> contiguous decode state
+  prefill(params, tokens, cache_len)        -> (logits, cache)
+  decode_step(params, cache, tokens, pos)   -> (logits (B,V), cache)
   init_paged_cache(num_blocks, block_size, num_state_slots=...,
                    device=...)              -> K/V or slot-state pools
   paged_step(params, cache, slot_buf, tokens, block_tables, meta)
@@ -57,6 +60,9 @@ class Model:
     cfg: ModelConfig
     init: Callable
     forward: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
     init_paged_cache: Callable
     paged_step: Callable
     paged_decode_loop: Callable
@@ -93,6 +99,9 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=functools.partial(_init, cfg=cfg),
         forward=functools.partial(transformer.forward, cfg=cfg),
+        init_cache=functools.partial(transformer.init_cache, cfg),
+        prefill=functools.partial(transformer.prefill, cfg=cfg),
+        decode_step=functools.partial(transformer.decode_step, cfg=cfg),
         init_paged_cache=functools.partial(transformer.init_paged_cache, cfg),
         paged_step=functools.partial(transformer.paged_step, cfg=cfg),
         paged_decode_loop=functools.partial(transformer.paged_decode_loop,

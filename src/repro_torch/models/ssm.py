@@ -201,8 +201,12 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
               valid_len=None, state_slots=None):
     """Mamba-2 mixer.  x (B, S, D).  Returns (y, cache).
 
-    cache None / {"conv": (B,K-1,convdim), "state": (B,H,P,N)}: the plain
-      form; a new cache comes back when one was given or ``make_cache``.
+    cache None: the full sequence; with ``make_cache`` a fresh cache
+      {"conv": (B,K-1,convdim), "state": (B,H,P,N)} comes back, the
+      state in float32 (see ``init_ssm_cache``).
+    cache {"conv", "state"} without ``state_slots`` (the non-paged
+      decode's contiguous cache): continued from it and updated in
+      place.
     cache {"conv_view", "state_view"} (the N-step loop's per-row views):
       updated in place after ``valid_len`` tokens (0 leaves a row as it
       was: its dt is masked to 0).
@@ -281,10 +285,13 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
         slot_state_scatter(cache["state"], state_slots, valid_len,
                            final_state)
         return out, cache
-    new_cache = None
-    if cache is not None or make_cache:
-        new_cache = {"conv": new_conv.to(dt_), "state": final_state}
-    return out, new_cache
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(final_state)
+        return out, cache
+    if make_cache:
+        return out, {"conv": new_conv.to(dt_), "state": final_state.float()}
+    return out, None
 
 
 def init_ssm_cache(cfg, batch: int, dtype, device=None):

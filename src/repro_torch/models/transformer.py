@@ -1,7 +1,9 @@
 """Decoder-only stacks of the port (``repro/models/transformer.py``): the
 dense GQA family, the Mamba-2 (ssm) family and the MLA + MoE family
-(deepseek-v3).  Params, forward in three cache modes, the fused serving
-step, the N-step on-device decode loop and the language-model loss.
+(deepseek-v3).  Params, forward in four cache modes, the non-paged
+``prefill`` / ``decode_step`` entry point over contiguous caches, the
+fused serving step, the N-step on-device decode loop and the
+language-model loss.
 
 Layers are grouped into runs of identical (mixer, ffn) kinds, each
 parameter-stacked with a leading layer axis (``params["layers"]["run_0"]
@@ -9,6 +11,10 @@ parameter-stacked with a leading layer axis (``params["layers"]["run_0"]
 them 1:1.  A run executes as a Python loop over that axis (the
 reference's ``lax.scan``).
 
+The contiguous cache (``init_cache``, ``prefill``) holds, per run, K/V
+``{"k", "v"}`` of (L, B, Sc, KV, hd), MLA latents ``{"ckv", "krope"}``
+of (L, B, Sc, r) / (L, B, Sc, rope), or mamba state ``{"conv",
+"state"}`` of (L, B, ...), and ``decode_step`` updates it in place.
 The paged cache holds, per run, K/V block pools ``{"k", "v"}`` of (L,
 nb, bs, KV, hd) for attention, latent block pools ``{"ckv", "krope"}``
 of (L, nb, bs, r) / (L, nb, bs, rope) for MLA, or slot-state pools
@@ -183,51 +189,67 @@ def embed_tokens(params, tokens, cfg):
 
 def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
                 cache=None, block_tables=None, pos=None, valid_len=None,
-                state_slots=None, dropless=False):
+                state_slots=None, dropless=False, make_cache=False,
+                cache_len=0):
     """One layer: the mixer (GQA or MLA attention, or mamba) and the FFN
-    (dense MLP or MoE), each pre-normed and residual.  The layer's cache
-    is updated in place.  The MoE runs dropless whenever there is a cache
-    (a token's output must not depend on the step it shares) or when
-    ``dropless`` asks for it."""
+    (dense MLP or MoE), each pre-normed and residual.  Returns (h, the
+    layer's cache): the given cache, updated in place, or with
+    ``make_cache`` a fresh contiguous one of ``cache_len`` slots (the
+    window's at most).  The MoE runs dropless whenever there is a cache
+    or one is made (a token's output must not depend on the step it
+    shares) or when ``dropless`` asks for it."""
     x = apply_norm(lp["ln1"], h, cfg)
     if kind == "attn" and cfg.mla is not None:
-        y, _ = mla_mod.apply_mla(lp["attn"], x, cfg, rope=rope, write=write,
+        y, c = mla_mod.apply_mla(lp["attn"], x, cfg, rope=rope, write=write,
                                  cache=cache, block_tables=block_tables,
-                                 pos=pos)
+                                 pos=pos, make_cache=make_cache,
+                                 cache_len=cache_len)
     elif kind == "attn":
-        y, _ = attn_mod.apply_attention(
+        y, c = attn_mod.apply_attention(
             lp["attn"], x, cfg, rope=rope, write=write,
             window=cfg.sliding_window, cache=cache,
-            block_tables=block_tables, pos=pos)
+            block_tables=block_tables, pos=pos, make_cache=make_cache,
+            cache_len=cache_len)
     else:
-        y, _ = ssm_mod.apply_ssm(lp["ssm"], x, cfg, cache=cache, pos=pos,
+        y, c = ssm_mod.apply_ssm(lp["ssm"], x, cfg, cache=cache,
+                                 make_cache=make_cache, pos=pos,
                                  valid_len=valid_len,
                                  state_slots=state_slots)
     h = h + y
     if ffn == "dense":
         h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
     elif ffn == "moe":
-        y, _ = moe_mod.apply_moe(lp["moe"], apply_norm(lp["ln2"], h, cfg),
-                                 cfg, dropless=cache is not None or dropless)
+        y, _ = moe_mod.apply_moe(
+            lp["moe"], apply_norm(lp["ln2"], h, cfg), cfg,
+            dropless=cache is not None or make_cache or dropless)
         h = h + y
-    return h
+    return h, c
 
 
 def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
             valid_len=None, state_slots=None, need_logits=True,
-            dropless=False):
+            dropless=False, make_cache=False, cache_len=0):
     """Returns (logits, cache, h).
 
-    tokens (B,S).  cache None: full-sequence forward (plain attention,
-    chunked SSD from a zero state; MoE at the training capacity unless
-    ``dropless``, the form the reference's prefill runs).
+    tokens (B,S).  cache None: full-sequence forward (attention by
+    ``cfg.attn_impl``, chunked SSD from a zero state; MoE at the training
+    capacity unless ``dropless`` or ``make_cache``, the form the
+    reference's training forward runs); with ``make_cache`` the returned
+    cache is a fresh contiguous one of ``cache_len`` slots (the non-paged
+    prefill).
+    cache contiguous ("k"/"v", "ckv"/"krope", "conv"/"state", no
+    block_tables or state_slots): one non-paged decode step, tokens
+    (B,1), pos a scalar (an int or a 0-d tensor).
     cache with pools ("k"/"v" or "ckv"/"krope" + block_tables;
     "conv"/"state" + state_slots): paged step, pos (B,).
     cache with views ("kview"/"vview", "ckv_view"/"kr_view";
     "conv_view"/"state_view"): one decode-loop step, pos (B,).
     """
     h = embed_tokens(params, tokens, cfg)
+    if pos is not None:
+        pos = torch.as_tensor(pos, device=h.device)
     rope = write = None
+    new_cache = {} if make_cache else cache
     for ri, (kind, ffn, n) in enumerate(runs_of(cfg)):
         rp = params["layers"][f"run_{ri}"]
         rc = cache[f"run_{ri}"] if cache is not None else None
@@ -241,22 +263,80 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
             return apply_layer(lp, h, cfg, kind, ffn, rope=rope, write=write,
                                cache=lc, block_tables=block_tables, pos=pos,
                                valid_len=valid_len, state_slots=state_slots,
-                               dropless=dropless)
+                               dropless=dropless, make_cache=make_cache,
+                               cache_len=cache_len)
 
         # the training forward recomputes each layer in the backward pass
         # (the reference's jax.checkpoint around the scanned layer); only
-        # the full-sequence form, which writes no cache in place, is
-        # checkpointed
-        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        # the full-sequence form, which writes no cache, is checkpointed
+        remat = (cfg.remat and cache is None and not make_cache
+                 and torch.is_grad_enabled())
+        made = []
         for i, lp in enumerate(_unstack(rp, n)):
             lc = _layer(rc, i) if rc is not None else None
             if remat:
-                h = checkpoint(block, h, lp, lc, use_reentrant=False)
+                h, _ = checkpoint(block, h, lp, lc, use_reentrant=False)
             else:
-                h = block(h, lp, lc)
+                h, c = block(h, lp, lc)
+                made.append(c)
+        if make_cache:
+            new_cache[f"run_{ri}"] = _stack(made)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = _logits(params, h, cfg) if need_logits else None
-    return logits, cache, h
+    return logits, new_cache, h
+
+
+def init_layer_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
+                     device):
+    """One layer's zero contiguous cache (the reference's
+    ``init_layer_cache``): K/V of (batch, Sc, KV, hd), Sc = cache_len cut
+    to the window; MLA latents of (batch, cache_len, r) and (...,
+    rope); mamba's conv window and float32 SSD state
+    (``ssm.init_ssm_cache``)."""
+    if kind == "attn" and cfg.mla is not None:
+        a = cfg.mla
+        return {name: torch.zeros((batch, cache_len, width), dtype=dtype,
+                                  device=device)
+                for name, width in (("ckv", a.kv_lora_rank),
+                                    ("krope", a.qk_rope_head_dim))}
+    if kind == "attn":
+        window = cfg.sliding_window
+        sc = min(cache_len, window) if window else cache_len
+        shape = (batch, sc, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=None,
+               device="cuda") -> Dict[str, Any]:
+    """Zero contiguous decode state, per run stacked over its layers (the
+    reference's ``init_cache``)."""
+    dtype = dtype or cfg.cdtype
+    out = {}
+    for i, (kind, _, n) in enumerate(runs_of(cfg)):
+        single = init_layer_cache(cfg, kind, batch, cache_len, dtype, "meta")
+        out[f"run_{i}"] = {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                          device=device)
+                           for k, v in single.items()}
+    return out
+
+
+def prefill(params, tokens, cfg, cache_len: int):
+    """The non-paged prefill: tokens (B,S) -> (logits (B,S,V), a fresh
+    contiguous cache of ``cache_len`` slots holding the S positions)."""
+    logits, cache, _ = forward(params, tokens, cfg, make_cache=True,
+                               cache_len=cache_len)
+    return logits, cache
+
+
+def decode_step(params, cache, tokens, pos, cfg):
+    """One non-paged decode step: tokens (B,1) int; pos the position of
+    this token, shared by every row (an int or, to keep the host out of
+    the loop, a 0-d int tensor on the device).  Returns (logits (B,V),
+    cache), the cache updated in place."""
+    logits, cache, _ = forward(params, tokens, cfg, cache=cache, pos=pos)
+    return logits[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

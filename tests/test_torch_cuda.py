@@ -19,13 +19,14 @@ too where the destinations are distinct); the SSD block within
 |kernel - plain| <= a * max|plain| + r * |plain|, a = r = 1e-4 for
 float32 outputs (f32 sums over up to 256 keys and 256 state columns in
 another order) and a = 1e-3, r = 1e-2 for bfloat16 y (one bf16 ulp);
-the MLA attends as the other attention kernels.
+the MLA attends, the flash attention (kernel 6) and the contiguous-cache
+decode (kernel 7) as the other attention kernels.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (decode_view, flash_decode,
+from repro_torch.kernels import (decode_view, flash_attention, flash_decode,
                                  fused_update, mla_decode, prng, sampling,
                                  slot_state, ssd_chunk)
 from repro_torch.kernels._common import sm_count
@@ -468,3 +469,85 @@ def test_mla_kernels_reject_unbuilt_widths(dev):
         mla_decode.mla_decode_views(q, qr, torch.zeros((1, 9, 32), device=dev),
                                     torch.zeros((1, 9, 16), device=dev), pos,
                                     scale=0.1)
+
+
+# kernel 6 at the CPU tests' shapes (head dims the kernel is built for)
+# and qwen2-1.5b's static prefill shapes
+FLASH = [
+    # b, sq, sk, h, kv, hd, causal, window
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 128, 128, 8, 8, 128, True, 0),
+    (2, 200, 200, 2, 1, 64, False, 0),
+    (1, 384, 384, 4, 2, 64, True, 128),
+    (1, 64, 320, 2, 2, 64, False, 0),
+    (2, 100, 130, 12, 2, 128, True, 0),
+    (8, 448, 448, 12, 2, 128, True, 0),
+    (2, 512, 512, 12, 2, 128, True, 128),
+    (1, 77, 77, 6, 1, 128, True, 33),
+]
+
+
+@pytest.mark.parametrize("case", FLASH)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, case, dt):
+    b, sq, sk, h, kv, hd, causal, window = case
+    gen = torch.Generator(device=dev).manual_seed(sum(case))
+    q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, sk, kv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, sk, kv, hd), generator=gen, device=dev).to(dt)
+    before = flash_attention.flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    want = flash_attention.flash_attention_bhsd_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)
+    assert flash_attention.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+def test_flash_attention_rejects_what_it_was_not_built_for(dev):
+    q = torch.zeros((1, 8, 2, 96), device=dev)
+    kv = torch.zeros((1, 8, 1, 96), device=dev)
+    with pytest.raises(ValueError, match="not built"):
+        flash_attention.flash_attention(q, kv, kv)
+    q = torch.zeros((1, 40, 2, 64), device=dev)
+    kv = torch.zeros((1, 8, 1, 64), device=dev)
+    with pytest.raises(ValueError, match="without a key"):
+        flash_attention.flash_attention(q, kv, kv, window=16)
+
+
+# kernel 7 at the CPU tests' shapes and qwen2's static decode; the last
+# two run unsplit (a short cache, many rows), the others split their keys
+DECODE = [
+    # b, s, h, kv, hd, length
+    (2, 512, 8, 2, 64, 300),
+    (1, 1024, 4, 4, 128, 1024),
+    (3, 700, 2, 1, 64, 13),
+    (8, 570, 12, 2, 128, 1),
+    (8, 570, 12, 2, 128, 570),
+    (8, 627, 12, 2, 128, 700),          # a full ring: every slot valid
+    (8, 128, 12, 2, 128, 100),
+    (160, 256, 12, 2, 128, 200),
+]
+
+
+@pytest.mark.parametrize("case", DECODE)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(dev, case, dt):
+    b, s, h, kv, hd, length = case
+    gen = torch.Generator(device=dev).manual_seed(sum(case))
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
+    k[:, length:], v[:, length:] = 1e3, -1e3       # past the valid slots
+    ln = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = flash_decode.flash_decode(q, k, v, ln)
+    want = flash_decode.flash_decode_bhd_plain(q, k, v, ln)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+def test_flash_decode_cases_reach_both_epilogues(dev):
+    from repro_torch.kernels._common import launch_splits
+    splits = {launch_splits(b, 1, h, kv, s, sms=sm_count(dev)) > 1
+              for b, s, h, kv, _, _ in DECODE}
+    assert splits == {False, True}

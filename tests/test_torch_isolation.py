@@ -19,6 +19,8 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.kernels.fused_update",
            "repro_torch.kernels.slot_state", "repro_torch.kernels.ssd_chunk",
            "repro_torch.kernels.mla_decode",
+           "repro_torch.kernels.flash_decode",
+           "repro_torch.kernels.flash_attention",
            "repro_torch.models.layers", "repro_torch.models.attention",
            "repro_torch.models.ssm", "repro_torch.models.mla",
            "repro_torch.models.moe",

@@ -13,7 +13,8 @@ import torch
 
 from repro.kernels import ops, ref
 from repro.models import attention as jattn
-from repro_torch.kernels import decode_view, flash_decode, sampling
+from repro_torch.kernels import (decode_view, flash_attention, flash_decode,
+                                 sampling)
 
 TOL = dict(atol=3e-5, rtol=2e-5)
 
@@ -219,6 +220,9 @@ def test_wrappers_route_cpu_to_plain_without_counting():
                              torch.zeros((3, 4, 4)),
                              torch.tensor([[1, 2]], dtype=torch.int32), pos,
                              scale=0.5)
+    kv = torch.zeros((1, 5, 1, 16))
+    flash_attention.flash_attention(torch.zeros((1, 5, 2, 16)), kv, kv)
+    flash_decode.flash_decode(q, kv, kv, torch.tensor(3, dtype=torch.int32))
     assert kernels.launch_counts() == {"flash_decode_paged": 0,
                                        "decode_view_attend": 0,
                                        "greedy_sample": 0,
@@ -228,7 +232,9 @@ def test_wrappers_route_cpu_to_plain_without_counting():
                                        "slot_scatter": 0,
                                        "ssd_chunk_bchp": 0,
                                        "mla_decode_views": 0,
-                                       "mla_decode_paged": 0}
+                                       "mla_decode_paged": 0,
+                                       "flash_attention": 0,
+                                       "flash_decode": 0}
 
 
 def test_wrappers_raise_off_cpu_without_cuda():
@@ -267,6 +273,14 @@ def test_wrappers_raise_off_cpu_without_cuda():
             torch.zeros((3, 4, 64), device="meta"),
             torch.zeros((1, 2), dtype=torch.int32, device="meta"), pos,
             scale=0.1)
+    q = torch.zeros((1, 8, 2, 64), device="meta")
+    kv = torch.zeros((1, 8, 1, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode.flash_decode(q[:, 0], kv, kv,
+                                  torch.zeros((), dtype=torch.int32,
+                                              device="meta"))
 
 
 def test_profiler_groups_every_port_kernel():
@@ -279,7 +293,8 @@ def test_profiler_groups_every_port_kernel():
     assert {"flash_decode_paged_kernel", "decode_view_kernel",
             "combine_splits", "argmax_chunk_kernel", "argmax_merge_kernel",
             "topk_hist_kernel", "fused_sgd_kernel", "slot_gather_kernel",
-            "slot_scatter_kernel", "ssd_chunk_kernel"} <= set(names)
+            "slot_scatter_kernel", "ssd_chunk_kernel",
+            "flash_attention_kernel", "flash_decode_bhd_kernel"} <= set(names)
     for name in names:
         assert _group(f"void rt::{name}<float>(float const*, int)") == \
             "port kernels"

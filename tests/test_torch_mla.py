@@ -1,8 +1,9 @@
 """The port's MLA attention against the JAX package on the CPU: the plain
 versions of the two absorbed attends against ``repro.kernels.ref`` and
 against the Pallas kernels (interpret mode, through ``ops``), and
-``apply_mla``'s three forms (full sequence, per-row latent views, latent
-block pools) on carried-across weights.
+``apply_mla``'s four forms (full sequence, also building a contiguous
+latent cache; one-token decode over that cache; per-row latent views;
+latent block pools) on carried-across weights.
 
 Tolerances: float32 throughout; the attends within atol 3e-5 / rtol 2e-5
 (two f32 softmax implementations summing in other orders), apply_mla's
@@ -136,7 +137,7 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
 
 
 # ---------------------------------------------------------------------------
-# apply_mla's three forms
+# apply_mla's four forms
 # ---------------------------------------------------------------------------
 
 
@@ -240,11 +241,27 @@ def test_apply_mla_paged_matches(layer):
 
 
 def test_contiguous_cache_decode_is_not_ported(layer):
-    _, _, tcfg, tparams = layer
-    a = tcfg.mla
-    cache = {"ckv": torch.zeros((1, 8, a.kv_lora_rank)),
-             "krope": torch.zeros((1, 8, a.qk_rope_head_dim))}
-    rope, _ = tattn.shared_inputs(tcfg, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmla.apply_mla(tparams, torch.zeros((1, 1, tcfg.d_model)), tcfg,
-                       rope=rope, cache=cache, pos=torch.zeros(1).int())
+    """The contiguous-cache decode of the non-paged entry point: a prefill
+    with ``make_cache`` into 9 slots, then one token at pos 7 and one at
+    pos 11, past the cache's end (slot 11 % 9), against the reference."""
+    jcfg, jparams, tcfg, tparams = layer
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 7, jcfg.d_model)).astype(np.float32)
+    yj, cj = jmla.apply_mla(jparams, jnp.asarray(x), jcfg, make_cache=True,
+                            cache_len=9)
+    rope, _ = tattn.shared_inputs(tcfg, 7, "cpu")
+    yt, ct = tmla.apply_mla(tparams, _t(x), tcfg, rope=rope, make_cache=True,
+                            cache_len=9)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+    for p in (7, 11):
+        xt = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+        yj, cj = jmla.apply_mla(jparams, jnp.asarray(xt), jcfg, cache=cj,
+                                pos=jnp.int32(p))
+        pos = torch.tensor(p)
+        rope, write = tattn.shared_inputs(tcfg, 1, "cpu", cache=ct, pos=pos)
+        yt, ct = tmla.apply_mla(tparams, _t(xt), tcfg, rope=rope,
+                                write=write, cache=ct, pos=pos)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
+        for name in ("ckv", "krope"):
+            np.testing.assert_allclose(ct[name].numpy(),
+                                       np.asarray(cj[name]), **TOL)

@@ -231,8 +231,11 @@ def test_kernel_spec_names_the_port_kernels(models):
                             deepseek.paged_spec)
              for _, ops in spec.kernel_spec for n in ops.split("/")}
     # every kernel but the optimizer update, which runs on the training
-    # path, and the SSD block, which (as in the reference) only
-    # ``ssd_chunked_pallas`` reaches, serves a layer kind's hot path of
-    # the dense, the mamba or the MLA family
+    # path, the SSD block, which (as in the reference) only
+    # ``ssd_chunked_pallas`` reaches, and the two attention kernels of
+    # the non-paged prefill / decode_step, serves a layer kind's paged
+    # hot path of the dense, the mamba or the MLA family
     assert named == {fn.__name__ for fn in kernels.KERNELS} - {
-        kernels.fused_sgd_update.__name__, kernels.ssd_chunk_bchp.__name__}
+        kernels.fused_sgd_update.__name__, kernels.ssd_chunk_bchp.__name__,
+        kernels.flash_attention.flash_attention.__name__,
+        kernels.flash_decode.flash_decode.__name__}
