@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py               # needs one CUDA card
 
-1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a).
+1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
+   printing ``ptxas -v``, and counts the flash-attention templates'
+   tensor-core instructions in the library's SASS (``cuobjdump``).
 2. One phase per kernel at the shapes its main path gives it: the
    attention and sampling kernels at every row layout the serving
    engine dispatches (plus a 2048-key extra), the fused update at every
@@ -17,7 +19,10 @@
    twice per depth, then twice at temperature 0.8 with top-k 50, which
    must repeat its streams.  Every emitted token is checked against a
    teacher-forced f32 forward of the plain model over the emitted
-   stream.
+   stream.  Then the same model in float32 (weights and compute, TF32
+   off) serves the requests at depths 1 and 8, greedy and sampled, and
+   depth 1 must equal depth 8 token for token (in bf16 the depths part,
+   printed and not gated: their kernels sum in other orders).
 4. Trains full-width qwen2-1.5b for 8 LSGD steps with the fused SGD
    update through ``repro_torch.launch.train``, then runs the virtual
    CSGD and LSGD (4 workers, groups of 2) from one set of weights and
@@ -25,8 +30,9 @@
 5. The static-batch path (the non-paged ``prefill`` / ``decode_step``,
    as benchmarks/serve_bench.py's ``run_static``): the flash-attention
    kernel at the static prefill's shapes (B=8, qwen2's heads, Sq = Sk =
-   each batch's padded prompt, bf16 and f32) and at a window, a
-   non-causal Sq != Sk and an hd-64 case; the contiguous-cache decode
+   each batch's padded prompt, bf16 on tensor cores and f32) and at a
+   window, a window with rows that see no key, a non-causal Sq != Sk
+   and an hd-64 case; the contiguous-cache decode
    kernel at the static decode's shape with length 1, S/2 and S, split
    and unsplit; then full-width qwen2-1.5b under attn_impl="pallas"
    serves the same 16 requests as two static batches of 8, twice (the
@@ -42,7 +48,8 @@
    plain chunked SSD; then full-width mamba2-370m (bf16, random weights
    from a seed) serves the same 16 requests at steps_per_dispatch 1 and 8,
    greedy twice and sampled once per depth, each token checked against a
-   teacher-forced f32 forward, every state slot free at the end.
+   teacher-forced f32 forward, every state slot free at the end; then
+   its float32 depth-1 == depth-8 check, as qwen2's.
 7. The MLA + MoE path: the absorbed MLA attends over latent views and
    latent block pools at every row layout the engine dispatches, at
    deepseek-v3's widths (128 heads, latent rank 512, rope 64, 640 keys),
@@ -53,7 +60,9 @@
    greedy and sampled once each, each token checked against a
    teacher-forced f32 forward of the plain model in its dropless form,
    routed as the served run routed (the router's top-8 choice is
-   discontinuous; the count of bf16-vs-f32 routing flips is printed).
+   discontinuous; the count of bf16-vs-f32 routing flips is printed);
+   then its float32 depth-1 == depth-8 check at the same 4-layer cut
+   (63.2 GB of f32 weights: 5 layers would need 109 GB).
 8. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
@@ -183,6 +192,41 @@ class Timer:
         torch.cuda.synchronize()
         times = sorted(s.elapsed_time(e) for s, e in zip(starts, ends))
         return times[len(times) // 2]
+
+
+def sass_counts(so: Path) -> None:
+    """Tensor-core MMA (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+    instructions of each flash-attention template in the built library,
+    from ``cuobjdump -sass``; fails unless the bf16 templates issue HMMA
+    and the f32 ones do not."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode:
+        fail(f"cuobjdump: {out.stderr.strip()}")
+    ops = ("HMMA", "LDSM", "LDGSTS")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        fn = re.search(r"Function : \S*(flash_attention_\w+?)ILi(\d+)E",
+                       line)
+        if fn:
+            cur = f"{fn.group(1)}<{fn.group(2)}>"
+            counts[cur] = dict.fromkeys(ops, 0)
+        elif "Function :" in line:
+            cur = None
+        elif cur:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    for name, c in sorted(counts.items()):
+        print(f"[sass] {name}: "
+              + " ".join(f"{op} {n}" for op, n in c.items()), flush=True)
+    tc = [c["HMMA"] for n, c in counts.items() if "_tc<" in n]
+    f32 = [c["HMMA"] for n, c in counts.items() if "_f32<" in n]
+    if len(tc) != 2 or min(tc) == 0 or len(f32) != 2 or max(f32):
+        fail(f"flash_attention SASS: HMMA counts {counts}")
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -708,6 +752,67 @@ def phase_serve(torch, cfg):
     return launches
 
 
+def phase_depth_f32(torch, cfg):
+    """Depth 1 against depth 8 in float32 on the card's kernels: ``cfg``
+    (full width; deepseek at its depth cut) with f32 weights from SEED
+    and f32 compute, TF32 off, serves the workload through the paged
+    Engine at steps_per_dispatch 1 and 8, greedy and at SAMPLE_T /
+    SAMPLE_TOP_K.  Depth 1 must equal depth 8 token for token, as the
+    reference pins it in f32 (tests/test_serve_decode_loop.py).  In bf16
+    the serving phases print the two depths parting, ungated: the two
+    depths attend with other kernels, whose sums run in other orders."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    print(f"[depth_f32] {cfg.name} {cfg.num_layers} layers, "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f}B params "
+          f"float32 ({torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+          f"card), init {time.perf_counter() - t0:.1f}s", flush=True)
+    if cfg.family == "ssm":
+        need = {1: ["slot_gather"], 8: ["slot_gather"]}
+    elif cfg.mla is not None:
+        need = {1: ["mla_decode_paged"], 8: ["mla_decode_views"]}
+    else:
+        need = {1: ["flash_decode_paged"], 8: ["decode_view_attend"]}
+    work = workload(cfg32.vocab_size, SEED)
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+    streams = {}
+    for mode, kw in (("greedy", {}), ("sampled", sample)):
+        for depth in (1, 8):
+            stream, counts, _, line = _serve_once(torch, model, params, work,
+                                                  depth, **kw)
+            print(f"[depth_f32] {cfg.name} depth={depth} {mode} {line}",
+                  flush=True)
+            for name in need[depth]:
+                if counts[name] <= 0:
+                    fail(f"{cfg.name} f32 depth {depth}: {name} never "
+                         "launched")
+            streams[mode, depth] = stream
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = {mode: streams[mode, 1] == streams[mode, 8]
+            for mode in ("greedy", "sampled")}
+    print(f"[depth_f32] {cfg.name}: depth 1 == depth 8 in float32: greedy "
+          f"{same['greedy']}, sampled {same['sampled']}; peak memory "
+          f"{peak:.2f} GB", flush=True)
+    for mode in ("greedy", "sampled"):
+        if not same[mode]:
+            one, eight = streams[mode, 1], streams[mode, 8]
+            rid, t = next((r, i) for r in sorted(one)
+                          for i, (a, b) in enumerate(zip(one[r], eight[r]))
+                          if a != b)
+            fail(f"{cfg.name} f32 {mode}: depth 1 and depth 8 part at "
+                 f"request {rid} token {t} ({one[rid][t]} against "
+                 f"{eight[rid][t]})")
+    del params
+
+
 # ---------------------------------------------------------------------------
 # training phases
 # ---------------------------------------------------------------------------
@@ -820,10 +925,13 @@ def phase_flash_attention(torch, timer, cfg, work):
     """Kernel 6 at the static prefill's shapes (B = 8 rows, qwen2's 12
     heads over 2 kv heads, hd 128, causal, Sq = Sk = each static batch's
     padded prompt) in bfloat16 and float32, plus a 512-token window-128
-    case, a non-causal Sq 64 / Sk 320 case and an hd-64 case, each held
-    to the plain version within ATTN_ATOL + ATTN_RTOL |plain|.  Library
-    yardstick: scaled_dot_product_attention (is_causal, enable_gqa; a
-    boolean mask for the window)."""
+    case, a window case whose rows past Sk + window - 1 see no key (bf16
+    and f32: they must get the plain version's mean of v), a non-causal
+    Sq 64 / Sk 320 case and an hd-64 case, each held to the plain version
+    within ATTN_ATOL + ATTN_RTOL |plain|; each prints the share of the
+    bf16 tensor-core rate and of the byte bound its time reaches.
+    Library yardstick: scaled_dot_product_attention (is_causal,
+    enable_gqa; a boolean mask for the windows)."""
     from repro_torch.kernels import flash_attention as fa
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -833,7 +941,11 @@ def phase_flash_attention(torch, timer, cfg, work):
             cases.append((f"prefill S={pmax} {str(dt)[6:]}", STATIC_BATCH,
                           pmax, pmax, H, KV, HD, True, 0, dt))
     cases += [("window S=512 w=128", STATIC_BATCH, 512, 512, H, KV, HD,
-               True, 128, torch.bfloat16),
+               True, 128, torch.bfloat16)]
+    cases += [(f"no-key Sq=512 Sk=384 w=64 {str(dt)[6:]}", STATIC_BATCH,
+               512, 384, H, KV, HD, True, 64, dt)
+              for dt in (torch.bfloat16, torch.float32)]
+    cases += [
               ("cross Sq=64 Sk=320", STATIC_BATCH, 64, 320, H, KV, HD,
                False, 0, torch.bfloat16),
               ("hd64 S=512", STATIC_BATCH, 512, 512, H, KV, 64, True, 0,
@@ -872,11 +984,16 @@ def phase_flash_attention(torch, timer, cfg, work):
         results.append(dict(label=label, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                             library_ms=lib_ms))
+        # shares of the card's peaks this time reaches
+        tc_share = ops / (ms * 1e-3) / BF16_OPS_PER_S
+        byte_share = nbytes / HBM_BYTES_PER_S * 1e3 / ms
         print(f"[flash_attention] {label} B={b} Sq={sq} Sk={sk} H={h} "
               f"KV={kv} hd={hd} causal={causal} window={window} "
               f"err={err:.3g} (x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-              f"library_ms(sdpa)={lib_ms:.4f}", flush=True)
+              f"library_ms(sdpa)={lib_ms:.4f} bf16_tc_rate_share="
+              f"{tc_share:.4f} byte_bound_share={byte_share:.4f}",
+              flush=True)
         del q, k, v, qt, kt, vt, got
     return results
 
@@ -1774,6 +1891,7 @@ def main() -> int:
     print(f"[build] {so.name} in {time.perf_counter() - t0:.1f}s "
           f"(torch {torch.__version__}, CUDA {torch.version.cuda})",
           flush=True)
+    sass_counts(so)
     card = nvidia_smi()
     print(f"[card] {card}", flush=True)
 
@@ -1797,6 +1915,7 @@ def main() -> int:
     gb = phase(phase_gumbel, torch, timer, cfg, ec)
     fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
     launches = phase(phase_serve, torch, cfg)
+    phase(phase_depth_f32, torch, cfg)
     tr = phase(phase_train, torch)
     launches["fused_sgd_update"] = tr["launches"]["fused_sgd_update"]
     phase(phase_virtual, torch, cfg)
@@ -1811,6 +1930,7 @@ def main() -> int:
     st = phase(phase_slot_state, torch, timer, mcfg, ec)
     ssd, ssd_launches = phase(phase_ssd_chunk, torch, timer, mcfg, ec)
     m_launches = phase(phase_serve_mamba, torch, mcfg)
+    phase(phase_depth_f32, torch, mcfg)
     for name in ("slot_gather", "slot_scatter"):
         launches[name] = m_launches[name]
     launches["ssd_chunk_bchp"] = ssd_launches
@@ -1819,6 +1939,7 @@ def main() -> int:
     mv = phase(phase_mla, torch, timer, dcfg, ec, False)
     mp = phase(phase_mla, torch, timer, dcfg, ec, True)
     d_launches = phase(phase_serve_deepseek, torch, dcfg)
+    phase(phase_depth_f32, torch, dcfg)
     for name in ("mla_decode_views", "mla_decode_paged"):
         launches[name] = d_launches[name]
 

@@ -6,28 +6,415 @@
 // written in that layout (no transpose, no pad of the head dim or of S:
 // the ragged tails are masked).  Query position i and key position j
 // both count from 0; j is visible to i when (not causal or j <= i) and
-// (window == 0 or j > i - window).  Softmax in f32, online.
+// (window == 0 or j > i - window).  Softmax in f32, online.  A query
+// row that sees no key (window > 0 and i >= Sk + window - 1) gets what
+// the reference's softmax over all -1e30 logits gives it: the mean of v
+// over [0, Sk), summed in f32 by the CTA that owns the row, in the same
+// launch.
 //
-// One CTA = one (row b, kv head, tile of kRows query rows).  The Sq*G
-// query rows that share a kv head (row index = i*G + g, G = H/KV heads
-// per kv head) are cut into tiles of kRows = 64, so one K/V chunk staged
-// in shared memory serves 64 query rows — all G heads of ~64/G query
-// positions — where the decode kernels' tiles serve 8.  The queries of
-// the tile sit in shared memory as f32; the keys the tile can see go in
-// chunks of 32 (16-byte vector loads, all issued before any is stored,
-// into shared memory as f32).  Each warp owns 8 query rows: a lane
-// scores one key of the chunk against the warp's rows (the key read
-// once from shared memory for all 8, four head-dim lanes a load), the
-// online softmax runs across the warp, and each lane accumulates HD/32
-// columns of the 8 output rows in registers.  Chunks past the last key
-// any query of the tile sees (causal) or before the first (window) are
-// never read; a warp skips a chunk none of its rows sees.  Tiles are
-// launched heaviest first (the causal tiles near the end of the
-// sequence see the most keys), two CTAs an SM.  CUDA cores in f32;
-// tensor cores (mma.sync / wgmma) and TMA are later work.
+// Both templates pack the Sq*G query rows that share a kv head as row
+// index i*G + g (G = H/KV heads per kv head) and cut them into tiles of
+// 64 rows, so one K/V chunk staged in shared memory serves all G heads
+// of ~64/G query positions (the TPU grid gave each query head its own
+// pass over K/V).  Keys past the last position any row of a tile sees
+// (causal) or before the first (window) are never read.  Tiles launch
+// heaviest first.
+//
+// bfloat16: tensor cores (flash_attention_tc).  At qwen2-1.5b's static
+// prefill (B=8, S=448, 12/2 heads, hd 128, causal) the work is 4.9 GFLOP
+// against 26 MB of q/k/v/o: 0.0050 ms at the 989 TFLOP/s bf16 rate and
+// 0.0077 ms at 3.35 TB/s, so bytes bind, and the design keeps the MMA
+// units fed rather than chasing their last factor.  A CTA is 4 warps,
+// each owning 16 query rows: one m16n8k16 A tile.  The Q tile is copied
+// to shared memory once (cp.async) and moved by ldmatrix into A
+// fragments that stay in registers for the whole key loop.  K and V go
+// in 64-key chunks through a 2-stage ring of shared memory, filled by
+// 16-byte cp.async.cg copies into an XOR-swizzled layout (16-byte chunk
+// c of row r sits at c ^ (r & 7)), so ldmatrix (K) and ldmatrix.trans
+// (V) read without bank conflicts.  Chunk n+1's K is issued before the
+// Q·Kᵀ of chunk n and its V before the P·V of chunk n, so each copy
+// overlaps a product.  S = Q·Kᵀ is mma.sync bf16 -> f32; the scale is
+// folded with log2(e) and the online softmax runs in registers (row max
+// and sum across each quad by shuffles, exp2f); the mask is applied only
+// on chunks that cross the causal diagonal, the window edge or Sk.  P
+// goes from the S accumulators straight into the A fragments of P·V,
+// as two bf16 terms (hi = bf16(p), lo = bf16(p - hi)): one bf16 P errs
+// up to 2^-8 of each term, more than the one-ulp tolerance against the
+// f32 plain version allows on rows that see few keys; hi + lo keeps
+// about 16 bits of p for one more MMA per P·V step, on units that are
+// not the bound.  O accumulates in f32 registers (64 a thread at hd
+// 128); the epilogue divides by l, rounds to bf16 and stores through
+// shared memory as 16-byte rows.  Shared memory at hd 128: Q 16 KB +
+// 2 x (K 16 KB + V 16 KB) = 80 KB, two CTAs an SM.
+//
+// float32: CUDA cores (flash_attention_f32).  Tensor cores on f32 would
+// be TF32 and change the numbers against the f32 plain version, so f32
+// keeps a CUDA-core design: the tile's queries sit in shared memory as
+// f32; the keys go in chunks of 32 (16-byte vector loads, all issued
+// before any is stored); each warp owns 8 query rows, a lane scores one
+// key of the chunk against the warp's rows and accumulates HD/32 columns
+// of the 8 output rows; 256 threads, two CTAs an SM.  Operations bind it
+// (67 TFLOP/s f32).
 #include "attend.cuh"
 
 namespace {
+
+// Column means of v over keys [0, Sk) of one (row, kv head), in f32, into
+// shared memory: the output of every query row that sees no key.
+template <typename T, int HD, int THREADS>
+__device__ void v_mean(const T* __restrict__ vb, long long kv_stride, int Sk,
+                       float* out) {
+  for (int d = threadIdx.x; d < HD; d += THREADS) {
+    float s = 0.f;
+    for (int j = 0; j < Sk; ++j) s += rt::to_f(vb[j * kv_stride + d]);
+    out[d] = s / (float)Sk;
+  }
+}
+
+// the launch order of both templates: tile index from blockIdx.x, the
+// heaviest (the last, under a causal mask) for every (row, kv head) first
+struct TileIndex {
+  int b, kv, tile;
+  __device__ TileIndex(int B, int KV, int tiles) {
+    const int bkv = blockIdx.x % (B * KV);
+    tile = tiles - 1 - blockIdx.x / (B * KV);
+    b = bkv / KV;
+    kv = bkv % KV;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bfloat16 on tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;   // one m16n8k16 A tile a warp
+constexpr int kKeys = 64;            // keys a chunk
+
+template <int HD>
+constexpr int smem_bytes() {
+  return (kRows + 4 * kKeys) * HD * (int)sizeof(bf16);   // Q, 2 x (K, V)
+}
+
+// element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile
+template <int HD>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * HD + ((c ^ (r & 7)) << 3);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as two bf16 pairs whose sum keeps ~16 bits of each
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack(h);
+  lo = pack(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// K/V rows [k0, k0 + kKeys) of one (row, kv head) into a swizzled stage;
+// keys at and past Sk are zero-filled (never read from device memory)
+template <int HD>
+__device__ __forceinline__ void load_keys(bf16* dst, const bf16* src,
+                                          long long kv_stride, int k0,
+                                          int Sk) {
+  constexpr int CH = HD / 8;
+  static_assert(kKeys * CH % kThreads == 0, "chunk tiling");
+#pragma unroll
+  for (int it = 0; it < kKeys * CH / kThreads; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    const int r = idx / CH, c = idx % CH, key = k0 + r;
+    const bool ok = key < Sk;
+    cp_async16(smem_u32(dst + swz<HD>(r, c)),
+               src + (long long)(ok ? key : 0) * kv_stride + c * 8, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out, int B,
+                   int Sq, int Sk, int H, int KV, int causal, int window,
+                   float scale_log2) {
+  constexpr int CH = HD / 8;       // 16-byte chunks a row
+  constexpr int KSTEPS = HD / 16;  // k-steps of Q·Kᵀ
+  constexpr int NT = kKeys / 8;    // n-tiles of S
+  constexpr int OT = HD / 8;       // n-tiles of O
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kRows][HD], then O
+  bf16* ks = qs + kRows * HD;                 // [2][kKeys][HD]
+  bf16* vs = ks + 2 * kKeys * HD;             // [2][kKeys][HD]
+  __shared__ float vmean[HD];
+
+  const int G = H / KV, n_rows = Sq * G;
+  const TileIndex t(B, KV, (n_rows + kRows - 1) / kRows);
+  const int b = t.b, kv = t.kv, row0 = t.tile * kRows;
+  const int row_last = min(row0 + kRows, n_rows) - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long kv_stride = (long long)KV * HD;   // between positions
+  const bf16* kb = k + (long long)b * Sk * kv_stride + (long long)kv * HD;
+  const bf16* vb = v + (long long)b * Sk * kv_stride + (long long)kv * HD;
+
+  // keys any row of the tile sees
+  const int q_lo = row0 / G, q_hi = row_last / G;
+  const int k_end = causal ? min(q_hi + 1, Sk) : Sk;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int n_chunks = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys
+                                       : 0;
+
+  // the Q tile (rows past the last zero-filled), then chunk 0's K, one
+  // copy group; chunk 0's V a second
+#pragma unroll
+  for (int it = 0; it < kRows * CH / kThreads; ++it) {
+    const int idx = tid + it * kThreads;
+    const int r = idx / CH, c = idx % CH, gr = row0 + r;
+    const bool ok = gr < n_rows;
+    const int qr = ok ? gr : row0;
+    const int qi = qr / G, head = kv * G + qr % G;
+    cp_async16(smem_u32(qs + swz<HD>(r, c)),
+               q + (((long long)b * Sq + qi) * H + head) * HD + c * 8, ok);
+  }
+  if (n_chunks > 0) load_keys<HD>(ks, kb, kv_stride, k_begin, Sk);
+  cp_async_commit();
+  if (n_chunks > 0) load_keys<HD>(vs, vb, kv_stride, k_begin, Sk);
+  cp_async_commit();
+
+  // this thread's two rows of the warp's 16: lane / 4 and lane / 4 + 8
+  const int wrow = warp * 16 + (lane >> 2);
+  const int pos[2] = {(row0 + wrow) / G, (row0 + wrow + 8) / G};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  cp_async_wait<1>();   // Q and K of chunk 0
+  __syncthreads();
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int s = 0; s < KSTEPS; ++s)
+    ldsm_x4(smem_u32(qs + swz<HD>(warp * 16 + (lane & 15), 2 * s + (lane >> 4))),
+            qf[s]);
+
+  for (int n = 0; n < n_chunks; ++n) {
+    const int k0 = k_begin + n * kKeys;
+    const int st = n & 1;
+    const bf16* kst = ks + st * kKeys * HD;
+    const bf16* vst = vs + st * kKeys * HD;
+    if (n > 0) {
+      cp_async_wait<1>();   // K of chunk n (its V may be in flight)
+      __syncthreads();      // and every warp is done with chunk n - 1
+    }
+    if (n + 1 < n_chunks)
+      load_keys<HD>(ks + (st ^ 1) * kKeys * HD, kb, kv_stride, k0 + kKeys, Sk);
+    cp_async_commit();
+
+    // S = Q Kᵀ: 16 rows x 64 keys a warp
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < KSTEPS / 2; ++kp) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t kf[4];
+        ldsm_x4(smem_u32(kst + swz<HD>(j * 8 + (lane & 7), 4 * kp + (lane >> 3))),
+                kf);
+        mma(s[j], qf[2 * kp], kf[0], kf[1]);
+        mma(s[j], qf[2 * kp + 1], kf[2], kf[3]);
+      }
+    }
+
+    // scale (in log2 units), mask where the chunk crosses an edge
+    const bool edge = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > q_lo) ||
+                      (window > 0 && k0 <= q_hi - window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int i = pos[e >> 1];
+          if (key >= Sk || (causal && key > i) ||
+              (window > 0 && key <= i - window))
+            x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax of the thread's two rows (a quad shares a row)
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mu[r] = mx == -INFINITY ? 0.f : mx;   // no visible key yet
+      alpha[r] = exp2f(m[r] - mu[r]);
+      m[r] = mx;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - mu[e >> 1]);
+        l[e >> 1] += p;   // this thread's share; the quad sums at the end
+        s[j][e] = p;
+      }
+
+    cp_async_wait<1>();   // V of chunk n (chunk n + 1's K may be in flight)
+    __syncthreads();      // and every warp is done with chunk n - 1's V
+    if (n + 1 < n_chunks)
+      load_keys<HD>(vs + (st ^ 1) * kKeys * HD, vb, kv_stride, k0 + kKeys, Sk);
+    cp_async_commit();
+
+    // O += P V, P from the S accumulators as A fragments (hi + lo)
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int jp = 0; jp < OT / 2; ++jp) {
+        uint32_t vf[4];
+        ldsm_x4_t(smem_u32(vst + swz<HD>(16 * kk + (lane & 15),
+                                         2 * jp + (lane >> 4))),
+                  vf);
+        mma(o[2 * jp], ph, vf[0], vf[1]);
+        mma(o[2 * jp], pl, vf[0], vf[1]);
+        mma(o[2 * jp + 1], ph, vf[2], vf[3]);
+        mma(o[2 * jp + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int empty_from = Sk + window - 1;   // first position without a key
+  if (window > 0 && q_hi >= empty_from) {   // CTA-uniform
+    v_mean<bf16, HD, kThreads>(vb, kv_stride, Sk, vmean);
+    __syncthreads();
+  }
+
+  // O -> the warp's own 16 rows of the Q tile's shared memory -> device
+  bf16* os = qs;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = wrow + 8 * r;
+    const bool empty = window > 0 && pos[r] >= empty_from;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+      const float x0 = empty ? vmean[col] : o[j][2 * r] * inv;
+      const float x1 = empty ? vmean[col + 1] : o[j][2 * r + 1] * inv;
+      *reinterpret_cast<__nv_bfloat162*>(os + swz<HD>(rr, j) + (lane & 3) * 2) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 16 * CH / 32; ++it) {
+    const int idx = lane + it * 32;
+    const int rr = warp * 16 + idx / CH, c = idx % CH, gr = row0 + rr;
+    if (gr < n_rows) {
+      const int qi = gr / G, head = kv * G + gr % G;
+      *reinterpret_cast<uint4*>(out + (((long long)b * Sq + qi) * H + head) * HD +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(os + swz<HD>(rr, c));
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Sk, int H, int KV, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Sq * (H / KV) + kRows - 1) / kRows;
+  flash_attention_tc<HD><<<tiles * KV * B, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Sk, H, KV,
+      causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// float32 on CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace f32 {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -45,12 +432,12 @@ constexpr int smem_floats() {
 
 // two CTAs an SM (at most 128 registers a thread): while one waits at
 // its barrier for a K/V chunk from device memory, the other computes
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int KV, int causal, int window,
-                       float scale) {
+flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    int B, int Sq, int Sk, int H, int KV, int causal,
+                    int window, float scale) {
   constexpr int PER_LANE = HD / 32;
   constexpr int KS = HD + 4;
   extern __shared__ float4 smem4[];
@@ -58,12 +445,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ks = qs + kRows * HD;                   // [kChunk][KS]
   float* vs = ks + kChunk * KS;                  // [kChunk][HD]
 
-  const int tiles = gridDim.x;
-  const int tile = tiles - 1 - blockIdx.x;       // heaviest first
-  const int kv = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
   const int n_rows = Sq * G;
-  const int row0 = tile * kRows;
+  const TileIndex t(B, KV, (n_rows + kRows - 1) / kRows);
+  const int kv = t.kv, b = t.b;
+  const int row0 = t.tile * kRows;
   const int row_end = min(row0 + kRows, n_rows);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -72,7 +458,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float x = 0.f;
     if (gr < n_rows) {
       const int qi = gr / G, head = kv * G + gr % G;
-      x = rt::to_f(q[(((long long)b * Sq + qi) * H + head) * HD + d]);
+      x = q[(((long long)b * Sq + qi) * H + head) * HD + d];
     }
     qs[i] = x;
   }
@@ -96,42 +482,37 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < PER_LANE; ++j) acc[rr][j] = 0.f;
   }
 
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;
   constexpr int PER_TOKEN = HD / VEC;
   constexpr int NLOAD = kChunk * PER_TOKEN / kThreads;
   static_assert(NLOAD * kThreads == kChunk * PER_TOKEN, "chunk tiling");
   const long long kv_stride = (long long)KV * HD;   // between positions
-  const T* kb = k + (long long)b * Sk * kv_stride + (long long)kv * HD;
-  const T* vb = v + (long long)b * Sk * kv_stride + (long long)kv * HD;
+  const float* kb = k + (long long)b * Sk * kv_stride + (long long)kv * HD;
+  const float* vb = v + (long long)b * Sk * kv_stride + (long long)kv * HD;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
     __syncthreads();  // previous chunk consumed (and qs written, first time)
     {
-      uint4 kr[NLOAD], vr[NLOAD];
+      float4 kr[NLOAD], vr[NLOAD];
 #pragma unroll
       for (int i = 0; i < NLOAD; ++i) {
         const int idx = tid + i * kThreads;
-        const int t = idx / PER_TOKEN, key = k0 + t;
+        const int tok = idx / PER_TOKEN, key = k0 + tok;
         if (key < k_end) {
           const long long off = key * kv_stride + (idx % PER_TOKEN) * VEC;
-          kr[i] = __ldg(reinterpret_cast<const uint4*>(kb + off));
-          vr[i] = __ldg(reinterpret_cast<const uint4*>(vb + off));
+          kr[i] = __ldg(reinterpret_cast<const float4*>(kb + off));
+          vr[i] = __ldg(reinterpret_cast<const float4*>(vb + off));
         } else {
-          kr[i] = make_uint4(0, 0, 0, 0);
-          vr[i] = make_uint4(0, 0, 0, 0);
+          kr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+          vr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         }
       }
 #pragma unroll
       for (int i = 0; i < NLOAD; ++i) {
         const int idx = tid + i * kThreads;
-        const int t = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
-        const T* kx = reinterpret_cast<const T*>(&kr[i]);
-        const T* vx = reinterpret_cast<const T*>(&vr[i]);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          ks[t * KS + d0 + j] = rt::to_f(kx[j]);
-          vs[t * HD + d0 + j] = rt::to_f(vx[j]);
-        }
+        const int tok = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
+        *reinterpret_cast<float4*>(ks + tok * KS + d0) = kr[i];
+        *reinterpret_cast<float4*>(vs + tok * HD + d0) = vr[i];
       }
     }
     __syncthreads();
@@ -185,13 +566,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j) acc[rr][j] *= alpha[rr];
 #pragma unroll 4
-    for (int t = 0; t < kChunk; ++t) {
+    for (int tk = 0; tk < kChunk; ++tk) {
       float vv[PER_LANE];
 #pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) vv[j] = vs[t * HD + lane + 32 * j];
+      for (int j = 0; j < PER_LANE; ++j) vv[j] = vs[tk * HD + lane + 32 * j];
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float pt = __shfl_sync(0xffffffffu, p[rr], t);
+        const float pt = __shfl_sync(0xffffffffu, p[rr], tk);
 #pragma unroll
         for (int j = 0; j < PER_LANE; ++j)
           acc[rr][j] = fmaf(pt, vv[j], acc[rr][j]);
@@ -199,52 +580,54 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  // rows without a key take the mean of v (vs is free: reuse it)
+  const int empty_from = Sk + window - 1;
+  if (window > 0 && q_hi >= empty_from) {   // CTA-uniform
+    __syncthreads();
+    v_mean<float, HD, kThreads>(vb, kv_stride, Sk, vs);
+    __syncthreads();
+  }
+
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int gr = wr0 + rr;
     if (gr >= row_end) continue;
     const int qi = gr / G, head = kv * G + gr % G;
-    const float inv = 1.f / fmaxf(l[rr], 1e-30f);
-    T* o = out + (((long long)b * Sq + qi) * H + head) * HD;
+    float* o = out + (((long long)b * Sq + qi) * H + head) * HD;
+    if (window > 0 && qi >= empty_from) {
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j)
-      o[lane + 32 * j] = rt::from_f<T>(acc[rr][j] * inv);
+      for (int j = 0; j < PER_LANE; ++j) o[lane + 32 * j] = vs[lane + 32 * j];
+      continue;
+    }
+    const float inv = 1.f / fmaxf(l[rr], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) o[lane + 32 * j] = acc[rr][j] * inv;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Sk, int H, int KV, int causal,
                    int window, float scale, cudaStream_t stream) {
   const int bytes = smem_floats<HD>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_attention_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (Sq * (H / KV) + kRows - 1) / kRows;
-  dim3 grid(tiles, KV, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, causal,
-      window, scale);
+  flash_attention_f32<HD><<<tiles * KV * B, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), B, Sq, Sk, H,
+      KV, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
-                  void* out, int B, int Sq, int Sk, int H, int KV,
-                  int causal, int window, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
+}  // namespace f32
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after
-// the launch (0 = launched).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int rt_flash_attention(const void* q, const void* k,
                                   const void* v, void* out, int B, int Sq,
                                   int Sk, int H, int KV, int hd, int causal,
@@ -253,9 +636,13 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || window < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_hd<float>(hd, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
-  if (dtype == 1)
-    return by_hd<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 0 && hd == 64)
+    return f32::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 0 && hd == 128)
+    return f32::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 1 && hd == 64)
+    return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 1 && hd == 128)
+    return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -3,24 +3,30 @@ non-paged entry point (``Model.prefill`` under ``attn_impl="pallas"``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 ``flash_attention_bhsd`` (reached through ``ops.flash_attention``).
-CUDA source: ``csrc/flash_attention.cu``.
+CUDA source: ``csrc/flash_attention.cu``, two templates behind one entry.
 
-Bound on the H100: at qwen2-1.5b's prefill (8 x 512 tokens, 12 heads
-over 2 kv heads, hd 128, causal, bf16) about 29 MB of q/k/v/o against
-6.4 GFLOP: 0.0088 ms of bytes and 0.0065 ms of bf16 tensor-core work,
-so bytes bind at the card's peaks.  This kernel runs on CUDA cores in
-f32 (67 TFLOP/s), where the same work takes at least 0.1 ms: operations
-bind it.
+Bound on the H100: at qwen2-1.5b's static prefill (8 x 448 tokens, 12
+heads over 2 kv heads, hd 128, causal, bf16) 26 MB of q/k/v/o against
+4.9 GFLOP: 0.0077 ms of bytes and 0.0050 ms of bf16 tensor-core work,
+so bytes bind at the card's peaks.
 
-Design against that: one CTA owns 64 query rows of one (row, kv head) —
-all G query heads of ~64/G positions — so every K/V chunk it stages in
-shared memory serves 64 dot products a key (the TPU kernel's grid gave
-each query head its own pass over K/V); the TPU wrapper's padding of
-the head dim to 128 and of S to the block, and its transposes to
-(B,H,S,hd), are gone: the kernel reads (B,S,H,hd) and (B,S,KV,hd) in
-place and masks the ragged tails; causal and window tiles outside a
-query tile's range are never read.  Forward only, as the reference:
-it has no backward, and its configs train through ``blocked``.
+bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulate): a CTA of 4 warps owns 64 query rows of one (row, kv head)
+— all G query heads of ~64/G positions, 16 rows a warp — with its Q
+fragments in registers; K and V stream in 64-key chunks through a
+2-stage ``cp.async`` ring in swizzled shared memory read by
+``ldmatrix``; the online softmax runs in registers, and P feeds P·V
+from registers as two bf16 terms (hi + lo), which keeps P·V within one
+bf16 ulp of the f32 plain version.  float32 keeps a CUDA-core design
+(tensor cores would mean TF32): 8 warps of 8 rows, a lane a key, where
+the 67 TFLOP/s f32 rate binds.  Both read (B,S,H,hd) and (B,S,KV,hd) in
+place and mask the ragged tails (the TPU wrapper padded hd to 128 and S
+to the block and transposed); causal and window tiles outside a query
+tile's range are never read.  A query row that sees no key (window > 0
+and position >= Sk + window - 1) gets the reference's answer, the mean
+of v over all Sk keys, computed in f32 inside the same launch.  Forward
+only, as the reference: it has no backward, and its configs train
+through ``blocked``.
 """
 from __future__ import annotations
 
@@ -41,7 +47,10 @@ def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True,
     ``flash_attention_bhsd``): q (B,H,Sq,hd); k, v (B,KV,Sk,hd); exact
     softmax attention in f32.  Query and key positions both count from
     0; ``causal`` keeps kpos <= qpos, ``window`` kpos > qpos - window.
-    Returns (B,H,Sq,hd) in q's dtype."""
+    A row that sees no key gets a uniform softmax over its -1e30 logits,
+    the mean of v over all Sk keys, as ``ref.py`` gives it (the Pallas
+    path of ``ops.flash_attention`` averages over Sk padded to a
+    multiple of 128 instead).  Returns (B,H,Sq,hd) in q's dtype."""
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
@@ -91,12 +100,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          "(64, 128)")
     if not (k.dtype == v.dtype == q.dtype):
         raise ValueError("flash_attention: q, k and v must share a dtype")
-    if window < 0 or (window and sq >= sk + window):
-        # a query row past sk + window - 1 would see no key: the plain
-        # version gives it the mean of v (a uniform softmax over -1e30),
-        # the kernel zeros; no caller builds such a row
-        raise ValueError(f"flash_attention: window {window} with Sq {sq} "
-                         f"and Sk {sk} leaves query rows without a key")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     out = torch.empty_like(q)
     rc = _build.library().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,

@@ -484,6 +484,15 @@ FLASH = [
     (8, 448, 448, 12, 2, 128, True, 0),
     (2, 512, 512, 12, 2, 128, True, 128),
     (1, 77, 77, 6, 1, 128, True, 33),
+    # the bf16 tensor-core path's edges: rows without a key (positions
+    # >= Sk + window - 1) mixed with rows that see keys, and whole tiles
+    # of them; Sq and Sk not multiples of the 64-row tile or the 64-key
+    # chunk; G = 1 and G = 6; hd 64
+    (2, 150, 100, 6, 1, 128, True, 20),
+    (1, 90, 70, 2, 2, 64, False, 16),
+    (3, 131, 131, 6, 1, 64, True, 0),
+    (2, 65, 193, 4, 4, 128, False, 0),
+    (2, 193, 193, 1, 1, 128, True, 70),
 ]
 
 
@@ -510,10 +519,18 @@ def test_flash_attention_rejects_what_it_was_not_built_for(dev):
     kv = torch.zeros((1, 8, 1, 96), device=dev)
     with pytest.raises(ValueError, match="not built"):
         flash_attention.flash_attention(q, kv, kv)
-    q = torch.zeros((1, 40, 2, 64), device=dev)
-    kv = torch.zeros((1, 8, 1, 64), device=dev)
-    with pytest.raises(ValueError, match="without a key"):
-        flash_attention.flash_attention(q, kv, kv, window=16)
+    # Sq 40 >= Sk 8 + window 16: rows 23-39 see no key and get the plain
+    # version's value, the mean of v over all 8 keys
+    gen = torch.Generator(device=dev).manual_seed(40)
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 40, 2, 64), generator=gen, device=dev).to(dt)
+        k = torch.randn((1, 8, 1, 64), generator=gen, device=dev).to(dt)
+        v = torch.randn((1, 8, 1, 64), generator=gen, device=dev).to(dt)
+        got = flash_attention.flash_attention(q, k, v, window=16)
+        want = flash_attention.flash_attention_bhsd_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            window=16).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
 
 
 # kernel 7 at the CPU tests' shapes and qwen2's static decode; the last

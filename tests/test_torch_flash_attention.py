@@ -2,7 +2,10 @@
 package on the CPU: the plain versions of kernel 6 (flash attention) and
 kernel 7 (one-token decode over a contiguous cache) against
 ``repro.kernels.ref`` at every shape of ``tests/test_kernels.py``'s
-sweeps and against the Pallas kernels (interpret mode, through ``ops``);
+sweeps and against the Pallas kernels (interpret mode, through ``ops``),
+and at shapes with query rows that see no key, which get ``ref.py``'s
+mean of v (the Pallas path's padded keys shift that mean where Sk is
+not a multiple of 128: a deliberate deviation, pinned here);
 ``blocked_attention`` and ``decode_attention`` against the reference's;
 ``apply_attention``'s cache-building prefill and its contiguous decode,
 plain and ring, on carried-across weights.
@@ -49,6 +52,14 @@ DECODE_SHAPES = [
     (1, 1024, 4, 4, 128, 1024),
     (3, 700, 2, 1, 96, 13),
 ]
+# rows that see no key: window > 0 and Sq >= Sk + window, so positions
+# Sk + window - 1 .. Sq - 1 see none; Sk a multiple of 128 and not
+NO_KEY_SHAPES = [
+    # b, sq, sk, h, kv, hd, causal, window
+    (1, 160, 128, 4, 2, 64, True, 16),
+    (2, 100, 70, 2, 1, 32, False, 8),
+    (1, 300, 256, 6, 1, 64, True, 40),
+]
 DTYPES = {"float32": (jnp.float32, torch.float32, F32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
 
@@ -80,7 +91,7 @@ def _normal(seed, *shapes):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", SHAPES, ids=str)
+@pytest.mark.parametrize("case", SHAPES + NO_KEY_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_plain_matches_ref(case, dtype):
     b, sq, sk, h, kv, hd, causal, window = case
@@ -94,10 +105,13 @@ def test_flash_attention_plain_matches_ref(case, dtype):
     _close(got, want, DTYPES[dtype][2])
 
 
-@pytest.mark.parametrize("case", [SHAPES[0], SHAPES[4]], ids=str)
+@pytest.mark.parametrize("case", [SHAPES[0], SHAPES[4]] + [
+    c for c in NO_KEY_SHAPES if c[2] % 128 == 0], ids=str)
 def test_flash_attention_wrapper_matches_pallas_kernel(case):
     """The wrapper's (B,S,H,hd) layout on the CPU against the Pallas
-    kernel through ``ops.flash_attention`` (interpret mode)."""
+    kernel through ``ops.flash_attention`` (interpret mode); with rows
+    that see no key only where Sk is a multiple of 128, so that the
+    Pallas path pads no key."""
     b, sq, sk, h, kv, hd, causal, window = case
     q, k, v = _normal(7, (b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))
     want = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
@@ -105,6 +119,30 @@ def test_flash_attention_wrapper_matches_pallas_kernel(case):
     got = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal,
                              window=window)
     _close(got, want, KTOL)
+
+
+def test_flash_attention_rows_without_a_key_follow_ref_not_padding():
+    """A deliberate deviation: at Sk = 70 the Pallas path pads the keys to
+    128 with zero v, so a row without a key gets sum(v[:Sk]) / 128; the
+    port follows ref.py's mean over Sk."""
+    b, sq, sk, h, kv, hd, causal, window = NO_KEY_SHAPES[1]
+    q, k, v = _normal(13, (b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))
+    got = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                             window=window)
+    want = ref.flash_attention_bhsd(*(jnp.swapaxes(jnp.asarray(x), 1, 2)
+                                      for x in (q, k, v)),
+                                    causal=causal, window=window)
+    _close(got, jnp.swapaxes(want, 1, 2), F32)
+    empty = slice(sk + window - 1, None)
+    mean = v.mean(1).repeat(h // kv, axis=1)                    # (b, h, hd)
+    _close(got[:, empty], np.broadcast_to(mean[:, None], got[:, empty].shape),
+           F32)
+    padded = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal, window=window)
+    np.testing.assert_allclose(np.asarray(padded)[:, empty],
+                               np.broadcast_to((mean * sk / 128)[:, None],
+                                               padded[:, empty].shape),
+                               **KTOL)
 
 
 def test_flash_attention_refuses_a_gradient():

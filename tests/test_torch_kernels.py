@@ -293,8 +293,8 @@ def test_profiler_groups_every_port_kernel():
     assert {"flash_decode_paged_kernel", "decode_view_kernel",
             "combine_splits", "argmax_chunk_kernel", "argmax_merge_kernel",
             "topk_hist_kernel", "fused_sgd_kernel", "slot_gather_kernel",
-            "slot_scatter_kernel", "ssd_chunk_kernel",
-            "flash_attention_kernel", "flash_decode_bhd_kernel"} <= set(names)
+            "slot_scatter_kernel", "ssd_chunk_kernel", "flash_attention_tc",
+            "flash_attention_f32", "flash_decode_bhd_kernel"} <= set(names)
     for name in names:
         assert _group(f"void rt::{name}<float>(float const*, int)") == \
             "port kernels"
