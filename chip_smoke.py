@@ -4,8 +4,9 @@
     python3 chip_smoke.py               # needs one CUDA card
 
 1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-   printing ``ptxas -v``, and counts the flash-attention templates'
-   tensor-core instructions in the library's SASS (``cuobjdump``).
+   printing ``ptxas -v``, and counts the flash-attention and MLA-attend
+   templates' tensor-core instructions in the library's SASS
+   (``cuobjdump``).
 2. One phase per kernel at the shapes its main path gives it: the
    attention and sampling kernels at every row layout the serving
    engine dispatches (plus a 2048-key extra), the fused update at every
@@ -53,7 +54,8 @@
 7. The MLA + MoE path: the absorbed MLA attends over latent views and
    latent block pools at every row layout the engine dispatches, at
    deepseek-v3's widths (128 heads, latent rank 512, rope 64, 640 keys),
-   held to their plain versions within one bf16 ulp; then full-width
+   held to their plain versions within one bf16 ulp, each printing its
+   share of the bf16 MMA rate and of its bound; then full-width
    deepseek-v3 cut to 4 layers (3 dense, the first MoE layer with its
    256 experts; bf16, random weights from a seed) serves the same 16
    requests, depth 1 greedy twice (the streams must repeat), depth 8
@@ -196,9 +198,9 @@ class Timer:
 
 def sass_counts(so: Path) -> None:
     """Tensor-core MMA (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-    instructions of each flash-attention template in the built library,
-    from ``cuobjdump -sass``; fails unless the bf16 templates issue HMMA
-    and the f32 ones do not."""
+    instructions of each flash-attention and MLA-attend template in the
+    built library, from ``cuobjdump -sass``; fails unless the bf16
+    templates (``_tc``) issue HMMA and the f32 ones do not."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -207,10 +209,12 @@ def sass_counts(so: Path) -> None:
     if out.returncode:
         fail(f"cuobjdump: {out.stderr.strip()}")
     ops = ("HMMA", "LDSM", "LDGSTS")
+    templates = (r"Function : \S*(flash_attention_\w+?)ILi(\d+)E",
+                 r"Function : \S*(mla_attend_(?:tc|f32))I\S*?(View|Paged)Latents")
     counts, cur = {}, None
     for line in out.stdout.splitlines():
-        fn = re.search(r"Function : \S*(flash_attention_\w+?)ILi(\d+)E",
-                       line)
+        fn = next(filter(None, (re.search(t, line) for t in templates)),
+                  None)
         if fn:
             cur = f"{fn.group(1)}<{fn.group(2)}>"
             counts[cur] = dict.fromkeys(ops, 0)
@@ -223,10 +227,13 @@ def sass_counts(so: Path) -> None:
     for name, c in sorted(counts.items()):
         print(f"[sass] {name}: "
               + " ".join(f"{op} {n}" for op, n in c.items()), flush=True)
-    tc = [c["HMMA"] for n, c in counts.items() if "_tc<" in n]
-    f32 = [c["HMMA"] for n, c in counts.items() if "_f32<" in n]
-    if len(tc) != 2 or min(tc) == 0 or len(f32) != 2 or max(f32):
-        fail(f"flash_attention SASS: HMMA counts {counts}")
+    for family in ("flash_attention_", "mla_attend_"):
+        tc = [c["HMMA"] for n, c in counts.items()
+              if n.startswith(family + "tc<")]
+        f32 = [c["HMMA"] for n, c in counts.items()
+               if n.startswith(family + "f32<")]
+        if len(tc) != 2 or min(tc) == 0 or len(f32) != 2 or max(f32):
+            fail(f"{family.rstrip('_')} SASS: HMMA counts {counts}")
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -1517,7 +1524,7 @@ def phase_mla(torch, timer, dcfg, ec, paged):
     The decode rows split their keys over CTAs and the wide layouts run
     unsplit: the phase fails unless both epilogues are compared."""
     from repro_torch.kernels import mla_decode as md
-    from repro_torch.kernels._common import attention_splits, sm_count
+    from repro_torch.kernels._common import sm_count
     name = "mla_decode_paged" if paged else "mla_decode_views"
     a, H = dcfg.mla, dcfg.num_heads
     r, rd = a.kv_lora_rank, a.qk_rope_head_dim
@@ -1551,8 +1558,8 @@ def phase_mla(torch, timer, dcfg, ec, paged):
                                                  pos, scale=scale)
             keys += 1
             vckv, vkr = ckv, kr
-        tiles = -(-(c * H) // md.TILE_ROWS)
-        nsplit = attention_splits(b * tiles, keys, sm_count(0))
+        tiles, nsplit = md.launch_splits(b, c, H, keys, q_lat.dtype,
+                                         sm_count(0))
         err, ratio = compare_bf16(kern(), plain())
         if not (math.isfinite(err) and ratio <= 1.0):
             fail(f"{name} {label}: max |kernel - plain| = {err}, "
@@ -1565,8 +1572,8 @@ def phase_mla(torch, timer, dcfg, ec, paged):
         nbytes = (read * (r + rd) * 2 + q_lat.numel() * 2 * 2
                   + q_rope.numel() * 2 + b * 4
                   + (bt.numel() * 4 if paged else 0))
-        bnd, by = bound_ms(nbytes, vis * H * (2 * (r + rd) + 2 * r),
-                           BF16_OPS_PER_S)
+        ops = vis * H * (2 * (r + rd) + 2 * r)
+        bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
         ms = timer(kern)
         plain_ms = timer(plain)
         lib, why = mla_sdpa(torch, q_lat, q_rope, vckv, vkr, pos, scale)
@@ -1575,11 +1582,14 @@ def phase_mla(torch, timer, dcfg, ec, paged):
                             ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                             bound_by=by, library_ms=lib_ms))
         lib_txt = f"{lib_ms:.4f}" if lib is not None else f"none ({why})"
-        print(f"[{name}] {label} keys={keys} nsplit={nsplit} H={H} r={r} "
-              f"rd={rd} err={err:.3g} (x{ratio:.3f} of bound) "
+        # shares of the card's peaks this time reaches: the bf16 MMA rate
+        # on useful work, and the bound
+        print(f"[{name}] {label} keys={keys} tiles={tiles} nsplit={nsplit} "
+              f"H={H} r={r} rd={rd} err={err:.3g} (x{ratio:.3f} of bound) "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bnd:.4f} ({by}) library_ms(sdpa)={lib_txt}",
-              flush=True)
+              f"bound_ms={bnd:.4f} ({by}) library_ms(sdpa)={lib_txt} "
+              f"bf16_tc_rate_share={ops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} "
+              f"bound_share={bnd / ms:.4f}", flush=True)
         del q_lat, q_rope, ckv, kr, vckv, vkr, lib
     if {r["nsplit"] > 1 for r in results} != {False, True}:
         fail(f"{name}: the engine's shapes did not reach both the split and "

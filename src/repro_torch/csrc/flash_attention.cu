@@ -56,6 +56,7 @@
 // of the 8 output rows; 256 threads, two CTAs an SM.  Operations bind it
 // (67 TFLOP/s f32).
 #include "attend.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -89,6 +90,7 @@ struct TileIndex {
 
 namespace tc {
 
+using namespace rt;   // the tensor-core helpers of mma.cuh
 using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -98,66 +100,6 @@ constexpr int kKeys = 64;            // keys a chunk
 template <int HD>
 constexpr int smem_bytes() {
   return (kRows + 4 * kKeys) * HD * (int)sizeof(bf16);   // Q, 2 x (K, V)
-}
-
-// element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile
-template <int HD>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * HD + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as two bf16 pairs whose sum keeps ~16 bits of each
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = pack(h);
-  lo = pack(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // K/V rows [k0, k0 + kKeys) of one (row, kv head) into a swizzled stage;

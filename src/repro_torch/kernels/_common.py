@@ -80,7 +80,9 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def require_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The attention kernels read K/V as 16-byte vectors."""
+    """The attention kernels read K/V (and the MLA attends Q) as 16-byte
+    vectors."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: K/V must be 16-byte aligned")
+            raise ValueError(f"{name}: tensors read as 16-byte vectors "
+                             "must be 16-byte aligned")

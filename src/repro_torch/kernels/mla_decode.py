@@ -15,19 +15,28 @@ space and is expanded through W^{UV} outside.
 Bound on the H100: at decode, bytes (each row's visible latents read
 once, 1,152 bytes a key, for 128 heads x 2 x 1,088 flops — about 240
 flops a byte, under the ~295 where bf16 tensor cores would bind); at
-prefill and wide mixed steps, operations.
+prefill chunks and wide mixed steps, operations (B=2, C=128: 22.8
+GFLOP, which f32 CUDA cores could not do in less than 0.34 ms).
 
 Design: the (C*H, r) f32 accumulator of a row (256 KB at H = 128,
-r = 512) fits no CTA, so a CTA owns 16 query rows (heads) of one batch
-row, each warp two of them with its lanes holding 16 accumulator columns
-a row in registers; the row's latents stream through shared memory in
-32-key chunks as f32 (the sibling CTAs of a row re-read them from L2),
-a lane scores one key against the warp's two rows, and the online
-softmax runs across the warp.  Nothing is padded: r and rd are native,
-the ragged view edge (S + 1 slots) and the table tail are masked by
-position.  At small batch the keys of a tile are split over CTAs and
-merged by ``combine_splits`` (split-K).  f32 FMA on CUDA cores; tensor
-cores (``wgmma``) and TMA are later work.
+r = 512) fits no CTA, so a CTA owns a tile of query rows (c, head) of
+one batch row; the heads fold into the tile's rows, and each staged
+chunk of 32 latent keys serves every row of the tile as both key
+(576 columns) and value (the first 512).  bfloat16 runs on the tensor
+cores: 64 rows a CTA, 8 warps of 16 rows x 256 output columns, Q
+staged once in shared memory and read by ``ldmatrix``, the latents
+through a 3-stage ``cp.async`` ring in bf16, S = Q·Kᵀ by ``mma.sync``
+split over the two warps of a row group by columns, P·V with P as bf16
+hi + lo (one bf16 P would break the one-ulp tolerance on rows that see
+few keys); one CTA an SM.  At the wide layouts it reaches about an
+eighth of the bf16 MMA rate; suspects (not measured): ``ldmatrix``
+traffic, since every warp loads its own MMA fragments, and two warps
+per scheduler to hide it.  float32 keeps the CUDA-core template (16
+rows a CTA, latents staged as f32; tensor cores would be TF32).  Nothing
+is padded: r and rd are native, the ragged view edge (S + 1 slots), the
+table tail and a ragged last tile are masked.  At small batch the keys
+of a tile are split over CTAs and merged by ``combine_splits`` (split-K;
+``launch_splits``).
 """
 from __future__ import annotations
 
@@ -40,10 +49,21 @@ from repro_torch.kernels._common import (attention_splits, dtype_code,
 
 NEG_INF = -1e30
 # the kernel's build: latent rank and rope width (deepseek-v3's), and
-# the query rows (c, head) of one batch row a CTA owns
+# the query rows (c, head) of one batch row a CTA owns in each template
+# (both stage ``_common.KEY_CHUNK`` latent keys at a time)
 KERNEL_R = 512
 KERNEL_RD = 64
-TILE_ROWS = 16
+TILE_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+
+
+def launch_splits(b: int, c: int, h: int, keys: int, dtype, sms: int):
+    """(tiles, nsplit) of a launch over ``b`` rows of ``c`` queries of
+    ``h`` heads, ``keys`` addressable latent positions a row (view or
+    table length), for the template ``dtype`` selects, on a card of
+    ``sms`` SMs: ``tiles`` CTAs of query rows per batch row, each split
+    over ``nsplit`` key ranges (1 takes the direct epilogue)."""
+    tiles = -(-(c * h) // TILE_ROWS[dtype])
+    return tiles, attention_splits(b * tiles, keys, sms)
 
 
 def mla_decode_views_plain(q_lat, q_rope, ckv, kr, pos, *, scale: float):
@@ -102,14 +122,15 @@ def _check(name, q_lat, q_rope, ckv, kr, pos):
 def _launch(fn, name, q_lat, q_rope, ckv, kr, pos, keys, extra, scale):
     """Shared launch: splits, scratch, the C call, the error check."""
     b, c, h, r = q_lat.shape
+    code = dtype_code(q_lat.dtype)
     out = torch.empty_like(q_lat)
-    tiles = -(-(c * h) // TILE_ROWS)
-    nsplit = attention_splits(b * tiles, keys, sm_count(q_lat.device))
+    _, nsplit = launch_splits(b, c, h, keys, q_lat.dtype,
+                              sm_count(q_lat.device))
     part_acc, part_ml = split_scratch(b * c * h, nsplit, r, q_lat.device)
     rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
             kr.data_ptr(), *extra, pos.data_ptr(), out.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), b, c, h,
-            float(scale), nsplit, dtype_code(q_lat.dtype),
+            float(scale), nsplit, code,
             torch.cuda.current_stream(q_lat.device).cuda_stream)
     _build.check(rc, name)
     return out
@@ -125,7 +146,7 @@ def mla_decode_views(q_lat, q_rope, ckv, kr, pos, *, scale: float):
                                       scale=scale)
     name = "mla_decode_views"
     require_cuda(name, q_lat, q_rope, ckv, kr, pos)
-    require_aligned(name, ckv, kr)
+    require_aligned(name, q_lat, q_rope, ckv, kr)
     _check(name, q_lat, q_rope, ckv, kr, pos)
     if ckv.shape[0] != q_lat.shape[0]:
         raise ValueError(f"{name}: one view per row")
@@ -148,7 +169,7 @@ def mla_decode_paged(q_lat, q_rope, ckv_pool, kr_pool, block_tables, pos,
                                       block_tables, pos, scale=scale)
     name = "mla_decode_paged"
     require_cuda(name, q_lat, q_rope, ckv_pool, kr_pool, block_tables, pos)
-    require_aligned(name, ckv_pool, kr_pool)
+    require_aligned(name, q_lat, q_rope, ckv_pool, kr_pool)
     _check(name, q_lat, q_rope, ckv_pool, kr_pool, pos)
     if (block_tables.dim() != 2 or block_tables.shape[0] != q_lat.shape[0]
             or block_tables.dtype != torch.int32):

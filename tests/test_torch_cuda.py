@@ -398,8 +398,11 @@ def test_ssd_chunked_pallas_on_card_matches_plain_route(dev):
 
 
 # the MLA attends at deepseek-v3's widths (r 512, rd 64): decode rows
-# with their keys split over CTAs, query chunks whose 16-row tiles span
-# two positions (H = 12) or one (H = 128), views of an odd length
+# with their keys split over CTAs, query chunks whose tiles (64 rows in
+# bf16, 16 in f32) span several positions (H = 12, 16, 40) or one
+# (H = 128), a ragged last tile (3 x 40 rows), a full-width prefill
+# chunk, views of an odd length; every first row at position 0 (one
+# visible key)
 MLA = [
     # b, c, h, s1 (view slots), bs, nb_seq
     (8, 1, 128, 641, 16, 40),
@@ -407,6 +410,8 @@ MLA = [
     (3, 5, 12, 33, 8, 4),
     (2, 64, 16, 129, 16, 8),
     (1, 3, 128, 17, 4, 4),
+    (2, 3, 40, 97, 16, 7),
+    (2, 128, 128, 641, 16, 40),
 ]
 
 

@@ -25,7 +25,7 @@ from repro.configs.base import smoke_variant as jax_smoke_variant
 from repro.kernels import ops, ref
 from repro.models import mla as jmla
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.kernels import mla_decode
+from repro_torch.kernels import _common, mla_decode
 from repro_torch.models import attention as tattn
 from repro_torch.models import mla as tmla
 
@@ -134,6 +134,33 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
         *map(_t, (q_lat, q_rope, ckv_pool, kr_pool, bt, ppos)), scale=scale)
     assert (mla_decode.mla_decode_views.launches,
             mla_decode.mla_decode_paged.launches) == before
+
+
+# the launch geometry at deepseek-v3's widths (128 heads) for the row
+# layouts the engine dispatches (decode buckets 8/4/2, prefill 2 x 128,
+# mixed 136/264 rows) on a 132-SM card: (b, c) -> tiles a batch row and
+# the key splits over a 640-slot table and a 641-slot view, per template
+LAUNCHES = {
+    torch.bfloat16: {(8, 1): (2, 5, 6), (4, 1): (2, 5, 6), (2, 1): (2, 5, 6),
+                     (2, 128): (256, 1, 1), (136, 1): (2, 1, 1),
+                     (264, 1): (2, 1, 1)},
+    torch.float32: {(8, 1): (8, 5, 5), (4, 1): (8, 5, 6), (2, 1): (8, 5, 6),
+                    (2, 128): (1024, 1, 1), (136, 1): (8, 1, 1),
+                    (264, 1): (8, 1, 1)},
+}
+
+
+@pytest.mark.parametrize("dtype", list(LAUNCHES))
+@pytest.mark.parametrize("b,c", list(LAUNCHES[torch.bfloat16]))
+def test_launch_splits_at_the_engine_layouts(b, c, dtype):
+    tiles, paged, views = LAUNCHES[dtype][(b, c)]
+    assert mla_decode.launch_splits(b, c, 128, 640, dtype, 132) == (tiles,
+                                                                    paged)
+    assert mla_decode.launch_splits(b, c, 128, 641, dtype, 132) == (tiles,
+                                                                    views)
+    # split at the decode buckets only, each split keeping four chunks
+    assert (paged > 1) == (views > 1) == (c == 1 and b <= 8)
+    assert (views - 1) * 4 * _common.KEY_CHUNK < 641
 
 
 # ---------------------------------------------------------------------------
