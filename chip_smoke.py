@@ -4,17 +4,18 @@
     python3 chip_smoke.py               # needs one CUDA card
 
 1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-   printing ``ptxas -v``, and counts the flash-attention and MLA-attend
-   templates' tensor-core instructions in the library's SASS
-   (``cuobjdump``).
+   printing ``ptxas -v``, and counts the flash-attention, MLA-attend and
+   flash-decode templates' tensor-core instructions in the library's
+   SASS (``cuobjdump``).
 2. One phase per kernel at the shapes its main path gives it: the
    attention and sampling kernels at every row layout the serving
    engine dispatches (plus a 2048-key extra), the fused update at every
    leaf shape of full-width qwen2-1.5b.  Each kernel is held against its
-   plain PyTorch version on the same card inputs and timed with CUDA
-   events (L2 flushed and the card spun before every launch), beside its
-   bound and a one-call PyTorch yardstick (``library_ms``, never used by
-   the port) where one exists.
+   plain PyTorch version on the same card inputs (kernels 1 and 7 in
+   both templates, bf16 and f32) and timed with CUDA events (L2 flushed
+   and the card spun before every launch), beside its bound and a
+   one-call PyTorch yardstick (``library_ms``, never used by the port)
+   where one exists.
 3. Serves full-width qwen2-1.5b (bf16, random weights from a seed)
    through the port's ``Engine`` at steps_per_dispatch 1 and 8: greedy
    twice per depth, then twice at temperature 0.8 with top-k 50, which
@@ -196,11 +197,26 @@ class Timer:
         return times[len(times) // 2]
 
 
+# the attention templates sass_counts reads: mangled-name pattern ->
+# "family_{tc|f32}<template arguments>"
+SASS_TEMPLATES = (
+    (r"(flash_attention_\w+?)ILi(\d+)E", "{0}<{1}>"),
+    (r"(mla_attend_(?:tc|f32))I\S*?(View|Paged)Latents", "{0}<{1}>"),
+    (r"flash_decode_tcILi(\d+)ELb([01])EN2rt\d+(Paged|View)Keys",
+     "flash_decode_tc<{0},{1},{2}>"),      # <hd, narrow, keys>
+    (r"flash_decode_(paged|bhd)_kernelILi(\d+)E", "flash_decode_f32<{0},{1}>"),
+)
+# bf16 (tensor-core) and f32 templates each family must have
+SASS_FAMILIES = {"flash_attention_": (2, 2), "mla_attend_": (2, 2),
+                 "flash_decode_": (8, 4)}
+
+
 def sass_counts(so: Path) -> None:
     """Tensor-core MMA (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-    instructions of each flash-attention and MLA-attend template in the
-    built library, from ``cuobjdump -sass``; fails unless the bf16
-    templates (``_tc``) issue HMMA and the f32 ones do not."""
+    instructions of each flash-attention, MLA-attend and flash-decode
+    template in the built library, from ``cuobjdump -sass``; fails
+    unless the bf16 templates (``_tc``) issue HMMA and the f32 ones do
+    not."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -209,17 +225,16 @@ def sass_counts(so: Path) -> None:
     if out.returncode:
         fail(f"cuobjdump: {out.stderr.strip()}")
     ops = ("HMMA", "LDSM", "LDGSTS")
-    templates = (r"Function : \S*(flash_attention_\w+?)ILi(\d+)E",
-                 r"Function : \S*(mla_attend_(?:tc|f32))I\S*?(View|Paged)Latents")
     counts, cur = {}, None
     for line in out.stdout.splitlines():
-        fn = next(filter(None, (re.search(t, line) for t in templates)),
-                  None)
-        if fn:
-            cur = f"{fn.group(1)}<{fn.group(2)}>"
-            counts[cur] = dict.fromkeys(ops, 0)
-        elif "Function :" in line:
+        if "Function :" in line:
             cur = None
+            for pat, fmt in SASS_TEMPLATES:
+                m = re.search(r"Function : \S*" + pat, line)
+                if m:
+                    cur = fmt.format(*m.groups())
+                    counts[cur] = dict.fromkeys(ops, 0)
+                    break
         elif cur:
             for op in ops:
                 if re.search(rf"\b{op}\b", line):
@@ -227,12 +242,12 @@ def sass_counts(so: Path) -> None:
     for name, c in sorted(counts.items()):
         print(f"[sass] {name}: "
               + " ".join(f"{op} {n}" for op, n in c.items()), flush=True)
-    for family in ("flash_attention_", "mla_attend_"):
+    for family, (n_tc, n_f32) in SASS_FAMILIES.items():
         tc = [c["HMMA"] for n, c in counts.items()
               if n.startswith(family + "tc<")]
         f32 = [c["HMMA"] for n, c in counts.items()
                if n.startswith(family + "f32<")]
-        if len(tc) != 2 or min(tc) == 0 or len(f32) != 2 or max(f32):
+        if len(tc) != n_tc or min(tc) == 0 or len(f32) != n_f32 or max(f32):
             fail(f"{family.rstrip('_')} SASS: HMMA counts {counts}")
 
 
@@ -337,12 +352,14 @@ def paged_case(torch, g, rng, ctx, c, nb_seq, H, KV, HD, BS):
 
 def phase_flash_decode(torch, timer, cfg, ec):
     """Kernel 1 at every (rows, width) the engine dispatches, tables of
-    blocks_per_seq blocks, plus two 2048-key extras.  The engine's
-    decode rows split their keys over CTAs; its prefill and mixed steps
-    have enough CTAs to run unsplit, the kernel's direct epilogue: the
-    phase fails unless both are compared."""
+    blocks_per_seq blocks, plus two 2048-key extras: bf16 (tensor cores)
+    timed beside its bound, plain version and SDPA, with its share of
+    the bf16 MMA rate; f32 (CUDA cores) on the same inputs, checked.
+    The engine's decode rows split their keys over CTAs; its mixed steps
+    fill the card unsplit, the kernel's direct epilogue: the phase fails
+    unless each template compares both."""
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels._common import launch_splits, sm_count
+    from repro_torch.kernels._common import sm_count
     H, KV, HD, BS = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
         ec.block_size
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -356,23 +373,33 @@ def phase_flash_decode(torch, timer, cfg, ec):
         ctx = first_positions(rng, b, nb_seq * BS - c + 1)
         q, kp, vp, bt, pos = paged_case(torch, g, rng, ctx, c, nb_seq, H,
                                         KV, HD, BS)
-        nsplit = launch_splits(b, c, H, KV, nb_seq * BS, sms=sm_count(0))
-        got = fd.flash_decode_paged(q, kp, vp, bt, pos)
-        want = fd.flash_decode_paged_plain(q, kp, vp, bt, pos)
-        err, ratio = compare_bf16(got, want)
-        if not (math.isfinite(err) and ratio <= 1.0):
-            fail(f"flash_decode_paged {label} keys {nb_seq * BS}: max "
-                 f"|kernel - plain| = {err}, {ratio:.3g}x the bound "
-                 f"{ATTN_ATOL} + {ATTN_RTOL}|plain|")
+        s = nb_seq * BS
+        checked = {}
+        for dt in (torch.bfloat16, torch.float32):
+            args = [x.to(dt) for x in (q, kp, vp)] + [bt, pos]
+            tiles, nsplit = fd.launch_splits(b, c, H, KV, s, dtype=dt,
+                                             sms=sm_count(0))
+            err, ratio = compare_bf16(fd.flash_decode_paged(*args),
+                                      fd.flash_decode_paged_plain(*args))
+            if not (math.isfinite(err) and ratio <= 1.0):
+                fail(f"flash_decode_paged {label} {dt} keys {s}: max "
+                     f"|kernel - plain| = {err}, {ratio:.3g}x the bound "
+                     f"{ATTN_ATOL} + {ATTN_RTOL}|plain|")
+            checked[dt] = (tiles, nsplit, err, ratio)
+        tiles, nsplit, err, ratio = checked[torch.bfloat16]
+        f32_tiles, f32_nsplit, f32_err, f32_ratio = checked[torch.float32]
+        print(f"[flash_decode_paged] {label} float32 keys={s} "
+              f"tiles={f32_tiles} nsplit={f32_nsplit} err={f32_err:.3g} "
+              f"(x{f32_ratio:.3f} of bound)", flush=True)
         keys_read = int((ctx + c).sum())                 # per kv head
         vis = int(sum(p + i + 1 for p in ctx for i in range(c)))
         nbytes = (2 * keys_read * KV * HD * 2 + 2 * q.numel() * 2
                   + bt.numel() * 4 + pos.numel() * 4)
-        bnd, by = bound_ms(nbytes, 4 * vis * H * HD, BF16_OPS_PER_S)
+        ops = 4 * vis * H * HD
+        bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
         ms = timer(lambda: fd.flash_decode_paged(q, kp, vp, bt, pos))
         plain_ms = timer(lambda: fd.flash_decode_paged_plain(q, kp, vp, bt,
                                                              pos))
-        s = nb_seq * BS
         kg = kp[bt.long()].reshape(b, s, KV, HD).transpose(1, 2).contiguous()
         vg = vp[bt.long()].reshape(b, s, KV, HD).transpose(1, 2).contiguous()
         qpos = pos[:, None].long() + torch.arange(c, device="cuda")[None]
@@ -381,19 +408,24 @@ def phase_flash_decode(torch, timer, cfg, ec):
         lib_ms = timer(sdpa(torch, q.transpose(1, 2).contiguous(), kg, vg,
                             mask))
         results.append(dict(label=label, b=b, c=c, keys=s, nsplit=nsplit,
+                            f32_nsplit=f32_nsplit,
                             engine=not label.startswith("extra"),
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bnd, bound_by=by, library_ms=lib_ms))
-        print(f"[flash_decode_paged] {label} keys={s} nsplit={nsplit} "
-              f"H={H} KV={KV} hd={HD} bs={BS} err={err:.3g} "
+                            max_abs_err=max(err, f32_err), ms=ms,
+                            plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                            library_ms=lib_ms))
+        print(f"[flash_decode_paged] {label} bfloat16 keys={s} tiles={tiles} "
+              f"nsplit={nsplit} H={H} KV={KV} hd={HD} bs={BS} err={err:.3g} "
               f"(x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-              f"library_ms(sdpa)={lib_ms:.4f}", flush=True)
+              f"library_ms(sdpa)={lib_ms:.4f} "
+              f"bf16_tc_rate_share={ops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} "
+              f"bound_share={bnd / ms:.4f}", flush=True)
         del q, kp, vp, kg, vg
-    splits = {r["nsplit"] > 1 for r in results if r["engine"]}
-    if splits != {False, True}:
+    engine = [r for r in results if r["engine"]]
+    if ({r["nsplit"] > 1 for r in engine} != {False, True}
+            or {r["f32_nsplit"] > 1 for r in engine} != {False, True}):
         fail("flash_decode_paged: the engine's shapes did not reach both "
-             "the split and the unsplit epilogue")
+             "the split and the unsplit epilogue of each template")
     return results
 
 
@@ -1008,27 +1040,30 @@ def phase_flash_attention(torch, timer, cfg, work):
 def phase_flash_decode_bhd(torch, timer, cfg, work):
     """Kernel 7 at the static decode's shape (B = 8, S = each static
     batch's cache_len, qwen2's heads, hd 128) with ``length`` 1, S // 2
-    and S, in bfloat16 and float32, plus a 128-slot cache that runs
-    unsplit: the phase fails unless both the split-K merge and the
-    direct epilogue are compared.  Slots at and past ``length`` hold
-    large garbage, so a read past the mask shows.  Library yardstick:
-    scaled_dot_product_attention under a boolean mask."""
+    and S, in bfloat16 (tensor cores) and float32 (CUDA cores), plus a
+    case per template that runs unsplit (80 rows; 8 rows over 128
+    slots): the phase fails unless each template compares both the
+    split-K merge and the direct epilogue.  Slots at and past ``length``
+    hold large garbage, so a read past the mask shows.  Library
+    yardstick: scaled_dot_product_attention under a boolean mask."""
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels._common import launch_splits, sm_count
+    from repro_torch.kernels._common import sm_count
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    b = STATIC_BATCH
     cases = []
     for _, _, pmax, gmax in static_batches(work):
         s = pmax + gmax
         for dt in (torch.bfloat16, torch.float32):
             for length in (1, s // 2, s):
-                cases.append((f"S={s} length={length} {str(dt)[6:]}", s,
+                cases.append((f"S={s} length={length} {str(dt)[6:]}", b, s,
                               length, dt))
-    cases.append(("extra S=128 length=100 bfloat16", 128, 100,
-                  torch.bfloat16))
+    cases += [("extra B=80 S=256 length=200 bfloat16", 80, 256, 200,
+               torch.bfloat16),
+              ("extra S=128 length=100 float32", b, 128, 100,
+               torch.float32)]
     results = []
-    for label, s, length, dt in cases:
-        b = STATIC_BATCH
+    for label, b, s, length, dt in cases:
         q = torch.randn((b, H, HD), generator=g, device="cuda").to(dt)
         k = torch.randn((b, s, KV, HD), generator=g, device="cuda").to(dt)
         v = torch.randn((b, s, KV, HD), generator=g, device="cuda").to(dt)
@@ -1037,7 +1072,8 @@ def phase_flash_decode_bhd(torch, timer, cfg, work):
         k.masked_fill_(past, 60.0)
         v.masked_fill_(past, -60.0)
         ln = torch.tensor(length, dtype=torch.int32, device="cuda")
-        nsplit = launch_splits(b, 1, H, KV, s, sms=sm_count(0))
+        tiles, nsplit = fd.launch_splits(b, 1, H, KV, s, dtype=dt,
+                                         sms=sm_count(0))
         got = fd.flash_decode(q, k, v, ln)
         err, ratio = compare_bf16(got, fd.flash_decode_bhd_plain(q, k, v,
                                                                  ln))
@@ -1046,27 +1082,33 @@ def phase_flash_decode_bhd(torch, timer, cfg, work):
                  f"{ratio:.3g}x the bound {ATTN_ATOL} + {ATTN_RTOL}|plain|")
         esize = q.element_size()
         nbytes = (2 * b * length * KV * HD + 2 * q.numel()) * esize + 4
-        bnd, by = bound_ms(nbytes, 4 * b * H * HD * length,
-                           BF16_OPS_PER_S if dt == torch.bfloat16
-                           else F32_OPS_PER_S)
+        ops = 4 * b * H * HD * length
+        bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else F32_OPS_PER_S)
         ms = timer(lambda: fd.flash_decode(q, k, v, ln))
         plain_ms = timer(lambda: fd.flash_decode_bhd_plain(q, k, v, ln))
         mask = (torch.arange(s, device="cuda") < length)[None, None, None]
         lib_ms = timer(sdpa(torch, q[:, :, None],
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), mask))
-        results.append(dict(label=label, nsplit=nsplit, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                            bound_by=by, library_ms=lib_ms))
+        results.append(dict(label=label, dtype=dt, nsplit=nsplit,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd, bound_by=by, library_ms=lib_ms))
+        share = (f" bf16_tc_rate_share="
+                 f"{ops / (ms * 1e-3) / BF16_OPS_PER_S:.4f}"
+                 if dt == torch.bfloat16 else "")
         print(f"[flash_decode] {label} B={b} H={H} KV={KV} hd={HD} "
-              f"nsplit={nsplit} err={err:.3g} (x{ratio:.3f} of bound) "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bnd:.4f} ({by}) library_ms(sdpa)={lib_ms:.4f}",
-              flush=True)
+              f"tiles={tiles} nsplit={nsplit} err={err:.3g} "
+              f"(x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
+              f"library_ms(sdpa)={lib_ms:.4f}{share} "
+              f"bound_share={bnd / ms:.4f}", flush=True)
         del q, k, v, got
-    if {r["nsplit"] > 1 for r in results} != {False, True}:
-        fail("flash_decode: the cases did not reach both the split and "
-             "the unsplit epilogue")
+    for dt in (torch.bfloat16, torch.float32):
+        if {r["nsplit"] > 1 for r in results if r["dtype"] == dt} != {
+                False, True}:
+            fail(f"flash_decode: the {dt} cases did not reach both the "
+                 "split and the unsplit epilogue")
     return results
 
 

@@ -8,27 +8,54 @@ Replace the Pallas TPU kernels ``repro/kernels/flash_decode.py``
 ``ops.flash_decode_paged`` / ``ops.flash_decode``).  CUDA source:
 ``csrc/flash_decode.cu`` + ``csrc/attend.cuh``.
 
-Bound on the H100: bytes.  Per call it must read each row's visible K/V
-once (2 * tokens * KV * hd * itemsize) and does 4 * C * H * hd flops per
-visible key: at decode (C=1, G=6) that is about 6 flops per byte, far
-under the ~295 the card needs before compute binds.
+Bound on the H100: bytes at decode and in mixed steps (each row's
+visible K/V read once, 2 * tokens * KV * hd * itemsize, for 4 * C * H *
+hd flops a visible key: about 6 flops a byte at C = 1, G = 6, far under
+the ~295 where bf16 tensor cores would bind).  At the prefill chunk
+(C = 128) a byte of K/V feeds about 770 flops, and moving Q and O once
+takes about as long as the products at the bf16 MMA rate.
 
-Design against that bound: pools are read in place (no pad of the head
-dim, no copy of the pool — the TPU wrapper padded the whole pool to 128
-lanes on every call); each CTA owns one (row, kv head, 8-query tile),
-reads each physical block id from the block table itself, stops at the
-last key any of its queries can see, and keeps m/l/acc in registers, so
-K/V of a row is read once per query tile and never written back.  When
-(rows x kv heads x query tiles) would leave SMs idle — decode at small
-batch — each tile's keys are split over up to 264 / CTAs CTAs and a
-second kernel merges their partial softmax results (split-K).  K/V are
-read as 16-byte vectors.  The dot products run on CUDA cores in f32:
-tensor cores (``wgmma``) and TMA are a later step.
+Design.  Pools and caches are read in place (no pad of the head dim, no
+copy of the pool: the TPU wrapper padded the whole pool to 128 lanes on
+every call); a CTA reads each physical block id from the block table
+itself, stops at the last key any of its queries sees and starts at the
+first one a window leaves, and the C*G query rows of one (row, kv head)
+are packed as row c*G + g, so one staged K/V chunk serves all G heads.
+
+bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulate), the query rows as the MMA's rows, K/V in 64-key bf16 chunks
+through a 2-stage ``cp.async`` ring in swizzled shared memory, Q in
+registers (``ldmatrix``), P·V with P as bf16 hi + lo (one-ulp
+tolerance), softmax in f32.  Two layouts, chosen from C*G alone:
+
+- wide (C*G > 16, the prefill chunk): 64 rows a CTA, 16 a warp, every
+  warp over the whole chunk.  What bounded the CUDA-core kernel there
+  was re-reading: 8-row tiles read each (row, kv head)'s K/V 96 times at
+  C = 128, G = 6, and converted it to f32 in shared memory each time;
+  64-row tiles read it 12 times and hand bf16 to the MMA as it lands.
+  A split keeps at most two chunks: a CTA's chunks run in order, and
+  at the prefill chunk 5 splits measured faster than 4 or 10.
+- narrow (C*G <= 16: decode buckets, mixed steps, the contiguous
+  decode): one 16-row tile holding the G real rows; each of the 4 warps
+  scores its own 16 keys of every chunk with its own (m, l, O), merged
+  in warp order through shared memory at the end.  What bounds it is
+  latency: a handful of dependent device-memory trips (pos, block
+  table, K/V) and a second launch when split.  The Q copy is issued
+  before the position is read, a decode split keeps one chunk
+  (``launch_splits``) so a step's keys are in flight on all SMs at
+  once, and the next chunk's copy overlaps this one's products.
+
+float32 keeps the CUDA-core template (8 query rows a CTA, K/V staged as
+f32, one key a lane; tensor cores would be TF32 and change the numbers
+against the f32 plain version).  When (rows x kv heads x tiles) would
+leave SMs idle, each tile's keys are split over CTAs and
+``combine_splits`` merges their partial softmax results in split order
+(split-K; ``launch_splits`` per template, from static shapes only).
 
 The contiguous kernel is the same arithmetic over a (B, S, KV, hd) cache
 addressed in place (the TPU wrapper padded hd to 128 and S to 512 on
-every call); its ``length`` — the number of valid slots, shared by all
-rows — is an int32 scalar the kernel reads from device memory, so a
+every call); its ``length`` (the number of valid slots, shared by all
+rows) is an int32 scalar the kernel reads from device memory, so a
 decode step never waits on the host for the position.
 """
 from __future__ import annotations
@@ -37,12 +64,48 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels._common import (dtype_code, launch_splits,
-                                        require_aligned, require_cuda,
-                                        sm_count, split_scratch)
+from repro_torch.kernels import _build, _common
+from repro_torch.kernels._common import (dtype_code, require_aligned,
+                                        require_cuda, sm_count,
+                                        split_scratch)
 
 NEG_INF = -1e30
+# the bf16 template: query rows (c, head) of one kv head a CTA in each
+# layout (narrow when they all fit one 16-row MMA tile), and keys a
+# staged chunk
+NARROW_ROWS = 16
+WIDE_ROWS = 64
+TC_KEYS = 64
+# chunks a split of the wide bf16 layout keeps at most: each chunk is 64
+# rows' products, and a split's chunks run in order in one CTA
+WIDE_SPLIT_CHUNKS = 2
+
+
+def launch_splits(b: int, c: int, h: int, kvh: int, keys: int,
+                  window: int = 0, *, dtype, sms: int):
+    """(tiles, nsplit) of a launch over ``b`` rows of ``c`` queries of
+    ``h`` heads (``kvh`` kv heads), ``keys`` addressable key positions
+    a row (table or cache length), for the template ``dtype`` selects,
+    on a card of ``sms`` SMs: ``tiles`` CTAs of query rows per (row, kv
+    head), each split over ``nsplit`` key ranges (1 takes the direct
+    epilogue).  Static shapes only, so choosing needs no device value.
+
+    bfloat16: the splits that cut the chunks a tile can see (at most
+    ``keys``, or the window plus the chunk) into equal runs, about one
+    CTA an SM (one chunk a split at the decode buckets, none where the
+    rows alone fill the card), at most ``WIDE_SPLIT_CHUNKS`` chunks a
+    split in the wide layout.  float32: ``_common.launch_splits``."""
+    rows = c * (h // kvh)
+    if dtype == torch.float32:
+        tiles = -(-rows // _common.TILE_ROWS)
+        return tiles, _common.launch_splits(b, c, h, kvh, keys, window,
+                                            sms=sms)
+    tiles = 1 if rows <= NARROW_ROWS else -(-rows // WIDE_ROWS)
+    chunks = -(-min(keys, (window or keys) + c) // TC_KEYS)
+    per = max(1, chunks * b * kvh * tiles // sms)   # chunks a split
+    if rows > NARROW_ROWS:
+        per = min(per, WIDE_SPLIT_CHUNKS)
+    return tiles, -(-chunks // per)
 
 
 def flash_decode_paged_plain(q, k_pool, v_pool, block_tables, pos, *,
@@ -84,7 +147,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, pos, *,
         return flash_decode_paged_plain(q, k_pool, v_pool, block_tables, pos,
                                         window=window)
     require_cuda("flash_decode_paged", q, k_pool, v_pool, block_tables, pos)
-    require_aligned("flash_decode_paged", k_pool, v_pool)
+    require_aligned("flash_decode_paged", q, k_pool, v_pool)
     b, c, h, hd = q.shape
     nb, bs, kvh, hd_p = k_pool.shape
     if (v_pool.shape != k_pool.shape or hd_p != hd or h % kvh
@@ -104,8 +167,8 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, pos, *,
     q = q.contiguous()
     out = torch.empty_like(q)
     nb_seq = block_tables.shape[1]
-    nsplit = launch_splits(b, c, h, kvh, nb_seq * bs, window,
-                           sms=sm_count(q.device))
+    _, nsplit = launch_splits(b, c, h, kvh, nb_seq * bs, window,
+                              dtype=q.dtype, sms=sm_count(q.device))
     part_acc, part_ml = split_scratch(b * c * h, nsplit, hd, q.device)
     lib = _build.library()
     rc = lib.rt_flash_decode_paged(
@@ -151,7 +214,7 @@ def flash_decode(q, k, v, length):
     if q.device.type == "cpu":
         return flash_decode_bhd_plain(q, k, v, length)
     require_cuda("flash_decode", q, k, v, length)
-    require_aligned("flash_decode", k, v)
+    require_aligned("flash_decode", q, k, v)
     b, h, hd = q.shape
     bk, s, kvh, hd_k = k.shape
     if (v.shape != k.shape or bk != b or hd_k != hd or h % kvh
@@ -166,7 +229,8 @@ def flash_decode(q, k, v, length):
     if length.dtype != torch.int32:
         raise ValueError("flash_decode: length must be int32")
     out = torch.empty_like(q)
-    nsplit = launch_splits(b, 1, h, kvh, s, sms=sm_count(q.device))
+    _, nsplit = launch_splits(b, 1, h, kvh, s, dtype=q.dtype,
+                              sms=sm_count(q.device))
     part_acc, part_ml = split_scratch(b * h, nsplit, hd, q.device)
     rc = _build.library().rt_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),

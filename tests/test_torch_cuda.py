@@ -46,6 +46,13 @@ def _tol(dt):
             else dict(atol=1e-3, rtol=1e-2))
 
 
+# kernel 1: the bf16 template's narrow layout (C*G <= 16: one 16-row
+# tile, keys over the warps) and wide layout (64-row tiles), split and
+# unsplit; the engine's prefill chunk (B=2, C=128) and a mixed step
+# (B=136, C=1) at qwen2's G = 6, hd 128 over 40-block tables; wide tiles
+# whose last tile is ragged (C*G = 78, 100, 222; window 40 and 11), a
+# wide tile with only 24 live rows (G = 8, C = 3), G = 1 and G = 8, and
+# windows whose first key starts a split off a chunk edge (both layouts)
 PAGED = [
     # nb, bs, kv, g, hd, b, c, nb_seq, window
     (16, 8, 2, 2, 64, 3, 1, 4, 0),
@@ -53,12 +60,18 @@ PAGED = [
     (40, 16, 2, 6, 128, 3, 1, 12, 20),
     (16, 8, 2, 2, 64, 3, 5, 4, 0),
     (64, 16, 1, 6, 64, 2, 37, 12, 11),
+    (81, 16, 2, 6, 128, 2, 128, 40, 0),
+    (5441, 16, 2, 6, 128, 136, 1, 40, 0),
+    (40, 16, 2, 6, 128, 3, 13, 12, 40),
+    (30, 16, 2, 1, 128, 2, 100, 14, 0),
+    (40, 16, 1, 8, 128, 4, 1, 9, 0),
+    (40, 16, 1, 8, 64, 3, 3, 9, 25),
+    (81, 16, 2, 6, 128, 2, 128, 40, 300),
+    (120, 16, 2, 6, 128, 3, 1, 36, 300),
 ]
 
 
-@pytest.mark.parametrize("case", PAGED)
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_flash_decode_paged_kernel_matches_plain(dev, case, dt):
+def _paged_inputs(dev, case, dt):
     nb, bs, kv, g, hd, b, c, nb_seq, window = case
     gen = torch.Generator(device=dev).manual_seed(sum(case))
     q = torch.randn((b, c, kv * g, hd), generator=gen, device=dev).to(dt)
@@ -71,10 +84,45 @@ def test_flash_decode_paged_kernel_matches_plain(dev, case, dt):
     bt[0, -1] = 0                                   # a trash placeholder
     pos = torch.tensor(rng.integers(0, (nb_seq - 1) * bs - c + 1, (b,)),
                        dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, pos
+
+
+@pytest.mark.parametrize("case", PAGED)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_decode_paged_kernel_matches_plain(dev, case, dt):
+    window = case[-1]
+    q, kp, vp, bt, pos = _paged_inputs(dev, case, dt)
     got = flash_decode.flash_decode_paged(q, kp, vp, bt, pos, window=window)
     want = flash_decode.flash_decode_paged_plain(q, kp, vp, bt, pos,
                                                  window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+@pytest.mark.parametrize("case", [PAGED[5], PAGED[9]])
+def test_flash_decode_bf16_split_launches_repeat_bit_for_bit(dev, case):
+    """The split partials are merged in split order, never in arrival
+    order, so two launches of a split bf16 case (wide: the prefill
+    chunk; narrow: a decode row) agree bit for bit, paged and
+    contiguous."""
+    _, bs, kv, g, hd, b, c, nb_seq, window = case
+    _, nsplit = flash_decode.launch_splits(
+        b, c, kv * g, kv, nb_seq * bs, window, dtype=torch.bfloat16,
+        sms=sm_count(dev))
+    assert nsplit > 1
+    q, kp, vp, bt, pos = _paged_inputs(dev, case, torch.bfloat16)
+    first = flash_decode.flash_decode_paged(q, kp, vp, bt, pos, window=window)
+    again = flash_decode.flash_decode_paged(q, kp, vp, bt, pos, window=window)
+    assert torch.equal(first, again)
+    s = nb_seq * bs
+    kc = kp[bt.long()].reshape(b, s, kv, hd)
+    vc = vp[bt.long()].reshape(b, s, kv, hd)
+    ln = torch.tensor(s, dtype=torch.int32, device=dev)
+    qd = q[:, 0].contiguous()
+    assert flash_decode.launch_splits(b, 1, kv * g, kv, s,
+                                      dtype=torch.bfloat16,
+                                      sms=sm_count(dev))[1] > 1
+    assert torch.equal(flash_decode.flash_decode(qd, kc, vc, ln),
+                       flash_decode.flash_decode(qd, kc, vc, ln))
 
 
 VIEW = [(3, 41, 2, 3, 64, 0), (2, 129, 1, 6, 128, 0), (2, 65, 2, 2, 128, 20),
@@ -568,8 +616,13 @@ def test_flash_decode_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
 
 
-def test_flash_decode_cases_reach_both_epilogues(dev):
-    from repro_torch.kernels._common import launch_splits
-    splits = {launch_splits(b, 1, h, kv, s, sms=sm_count(dev)) > 1
-              for b, s, h, kv, _, _ in DECODE}
-    assert splits == {False, True}
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_decode_cases_reach_both_epilogues(dev, dt):
+    def split(*args):
+        return flash_decode.launch_splits(*args, dtype=dt,
+                                          sms=sm_count(dev))[1] > 1
+    assert {split(b, 1, h, kv, s) for b, s, h, kv, _, _ in DECODE} == {
+        False, True}
+    assert {split(b, c, kv * g, kv, nb_seq * bs, window)
+            for _, bs, kv, g, _, b, c, nb_seq, window in PAGED} == {
+        False, True}
