@@ -1,6 +1,9 @@
-// Shared body of the two decode-attention kernels (flash_decode.cu,
-// decode_view.cu): masked online-softmax attention of a tile of query
-// rows against the keys of one (row, kv head), in f32.
+// Body of the float32 decode-attention kernels (flash_decode.cu's f32
+// templates: paged, contiguous and view) and combine_splits, the split
+// merge every decode and MLA template shares: masked online-softmax
+// attention of a tile of query rows against the keys of one (row, kv
+// head), in f32 on CUDA cores.  The bfloat16 kernels run on tensor cores
+// (flash_decode.cu's flash_decode_tc, mla_decode.cu's mla_attend_tc).
 //
 // One CTA = one (row b, kv head, tile of kTileRows query rows, key
 // split).  The C*G query rows that share a kv head (C queries per row

@@ -1,4 +1,4 @@
-// Decode attention over K/V caches, two entry points:
+// Decode attention over K/V caches, three entry points:
 //
 // rt_flash_decode_paged: decode / prefill-chunk attention over shared
 // K/V block pools.  Replaces the Pallas kernel
@@ -22,7 +22,17 @@
 // at (b*S + t)*KV*HD), the query as position length - 1 against keys
 // up to it.
 //
-// Both pack the C*G query rows that share a kv head (G = H/KV) as row
+// rt_decode_view_attend: one query token per row over the N-step loop's
+// per-row views.  Replaces the Pallas kernel
+// repro/kernels/decode_view.py decode_view_attend_bhd.  q (B, H, HD),
+// views (B, S1, KV, HD) with slot j = position j (slot S1 - 1 is the
+// trash slot inactive rows write to), pos (B,) int32.  Row b sees slots
+// j <= pos[b] (and j > pos[b] - window when window > 0): kernel 1's
+// arithmetic with one query a row, over ViewKeys addressing, so on the
+// same keys as a view and as a pool, split alike, the two agree bit for
+// bit.
+//
+// All three pack the C*G query rows that share a kv head (G = H/KV) as row
 // c*G + g, at position pos + row / G, so one staged K/V chunk serves
 // all G heads.  With nsplit > 1 the keys a tile sees are cut into
 // nsplit ranges, one a CTA, whose partial (m, l, acc) combine_splits
@@ -35,7 +45,8 @@
 //     flash_attention.cu's flash_attention_tc.  At qwen2's prefill chunk
 //     (C = 128, G = 6) a (row, kv head) is 12 tiles, so its K/V is
 //     read 12 times (96 with 8-row CUDA-core tiles).
-//   narrow (C*G <= 16: decode and mixed steps): one 16-row tile (G = 6
+//   narrow (C*G <= 16: decode and mixed steps, every call of the view
+//     and contiguous entry points): one 16-row tile (G = 6
 //     real rows, the rest read zeros and are not stored); each warp
 //     scores its own 16 keys of every chunk and keeps its own (m, l, O);
 //     at the end the warps merge through shared memory, in warp order.
@@ -55,9 +66,9 @@
 // ticket) measured slower on the H100: one CTA's serial pass over the
 // partials took longer than the second launch.
 //
-// float32: CUDA cores (attend.cuh's attend_tile, 8 rows a CTA); tensor
-// cores would be TF32 and change the numbers against the f32 plain
-// version.
+// float32: CUDA cores (attend.cuh's attend_tile, 8 rows a CTA, one
+// kernel per entry point); tensor cores would be TF32 and change the
+// numbers against the f32 plain version.
 #include "attend.cuh"
 #include "mma.cuh"
 
@@ -111,6 +122,38 @@ flash_decode_bhd_kernel(const float* __restrict__ q,
 }
 
 template <int HD>
+__global__ void __launch_bounds__(rt::kThreads)
+decode_view_kernel(const float* __restrict__ q,
+                   const float* __restrict__ kview,
+                   const float* __restrict__ vview,
+                   const int* __restrict__ pos, float* __restrict__ out,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml,
+                   int H, int KV, int S1, int window, float scale,
+                   int nsplit) {
+  const int tile = blockIdx.x / nsplit, split = blockIdx.x % nsplit;
+  const int kv = blockIdx.y, b = blockIdx.z;
+  const long long row_off = (long long)b * H * HD;
+  const rt::ViewKeys keys{S1, KV, HD};
+  rt::attend_tile<float, HD>(q + row_off, kview, vview, out + row_off,
+                             part_acc, part_ml, keys, b, kv, 1, H, H / KV,
+                             tile * rt::kTileRows, split, nsplit, pos[b], S1,
+                             window, scale);
+}
+
+// After a launch: with nsplit > 1, the merge of its `rows` output rows.
+template <int HD>
+cudaError_t merge(void* pacc, void* pml, void* out, int rows, int nsplit,
+                  cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  rt::combine_splits<float, HD><<<(rows + rt::kWarps - 1) / rt::kWarps,
+                                  rt::kThreads, 0, stream>>>(
+      static_cast<const float*>(pacc), static_cast<const float*>(pml),
+      static_cast<float*>(out), rows, nsplit);
+  return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* bt, const void* pos, void* out, void* pacc,
                    void* pml, int B, int C, int H, int KV, int bs, int nb_seq,
@@ -123,13 +166,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       static_cast<const int*>(pos), static_cast<float*>(out),
       static_cast<float*>(pacc), static_cast<float*>(pml), C, H, KV, bs,
       nb_seq, window, scale, nsplit);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  rt::combine_splits<float, HD><<<(B * C * H + rt::kWarps - 1) / rt::kWarps,
-                                  rt::kThreads, 0, stream>>>(
-      static_cast<const float*>(pacc), static_cast<const float*>(pml),
-      static_cast<float*>(out), B * C * H, nsplit);
-  return cudaGetLastError();
+  return merge<HD>(pacc, pml, out, B * C * H, nsplit, stream);
 }
 
 template <int HD>
@@ -144,13 +181,22 @@ cudaError_t launch_bhd(const void* q, const void* k, const void* v,
       static_cast<const float*>(v), static_cast<const int*>(length),
       static_cast<float*>(out), static_cast<float*>(pacc),
       static_cast<float*>(pml), H, KV, S, scale, nsplit);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  rt::combine_splits<float, HD><<<(B * H + rt::kWarps - 1) / rt::kWarps,
-                                  rt::kThreads, 0, stream>>>(
-      static_cast<const float*>(pacc), static_cast<const float*>(pml),
-      static_cast<float*>(out), B * H, nsplit);
-  return cudaGetLastError();
+  return merge<HD>(pacc, pml, out, B * H, nsplit, stream);
+}
+
+template <int HD>
+cudaError_t launch_view(const void* q, const void* k, const void* v,
+                        const void* pos, void* out, void* pacc, void* pml,
+                        int B, int H, int KV, int S1, int window, float scale,
+                        int nsplit, cudaStream_t stream) {
+  const int tiles = (H / KV + rt::kTileRows - 1) / rt::kTileRows;
+  decode_view_kernel<HD><<<dim3(tiles * nsplit, KV, B), rt::kThreads, 0,
+                           stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(pos),
+      static_cast<float*>(out), static_cast<float*>(pacc),
+      static_cast<float*>(pml), H, KV, S1, window, scale, nsplit);
+  return merge<HD>(pacc, pml, out, B * H, nsplit, stream);
 }
 
 }  // namespace f32
@@ -620,5 +666,29 @@ extern "C" int rt_flash_decode(const void* q, const void* k, const void* v,
     return tc::launch<64>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
+  return cudaErrorInvalidValue;
+}
+
+// One-token decode over the N-step loop's per-row views.  dtype as
+// above; part_acc (B*H, nsplit, hd) and part_ml (B*H, nsplit, 2) are f32
+// scratch, unused when nsplit == 1.  pos (B,) int32 in device memory.
+extern "C" int rt_decode_view_attend(const void* q, const void* kview,
+                                     const void* vview, const void* pos,
+                                     void* out, void* part_acc, void* part_ml,
+                                     int B, int H, int KV, int hd, int S1,
+                                     int window, float scale, int nsplit,
+                                     int dtype, void* stream) {
+  if (B <= 0 || S1 <= 0 || KV <= 0 || H % KV != 0 || nsplit < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const rt::ViewKeys keys{S1, KV, hd};
+  if (dtype == 0 && hd == 64)
+    return f32::launch_view<64>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 0 && hd == 128)
+    return f32::launch_view<128>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 1 && hd == 64)
+    return tc::launch<64>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 1 && hd == 128)
+    return tc::launch<128>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
   return cudaErrorInvalidValue;
 }

@@ -7,12 +7,12 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the attention kernels split each tile's keys over CTAs until a launch
-# has about two CTAs per SM of the card, keeping at least four 32-key
-# chunks per split
+# the f32 attention templates (attend.cuh's CUDA-core tile, the f32 MLA
+# attend) split each tile's keys over CTAs until a launch has about two
+# CTAs per SM of the card, keeping at least four 32-key chunks per split
 ATTENTION_CTAS_PER_SM = 2
 KEY_CHUNK = 32
-TILE_ROWS = 8       # query rows (c, head) of one kv head per CTA
+TILE_ROWS = 8       # query rows (c, head) of one kv head per f32 CTA
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -80,8 +80,8 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def require_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The attention kernels read K/V (and the MLA attends Q) as 16-byte
-    vectors."""
+    """The attention kernels read K/V (and the decode attends Q) as
+    16-byte vectors."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors read as 16-byte vectors "

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_view.py``
 ``decode_view_attend_bhd`` (reached through ``ops.decode_view_attend``).
-CUDA source: ``csrc/decode_view.cu`` + ``csrc/attend.cuh``.
+CUDA source: ``csrc/flash_decode.cu`` (entry ``rt_decode_view_attend``)
++ ``csrc/attend.cuh``.
 
 Bound on the H100: bytes — one query per row, so the visible K/V slots
 are read once for G (= H/KV) dot products each, a few flops per byte.
@@ -10,11 +11,16 @@ are read once for G (= H/KV) dot products each, a few flops per byte.
 Design: the view is indexed in place at its true length S+1 (the TPU
 wrapper padded the head dim to 128 and S to the block multiple on every
 call); the ragged edge and the trash slot are masked in the kernel by
-``kpos <= pos``; the scale comes from the true head dim.  One CTA per
-(row, kv head) folds the G query heads of that kv head, stops at the
-row's position, and keeps m/l/acc in registers; at small batch the
-row's keys are split over several CTAs and merged by a second kernel
-(split-K), so the launch fills the card.  f32 on CUDA cores.
+``kpos <= pos``; the scale comes from the true head dim.  It is kernel
+1's decode with the keys addressed as a view and the position read per
+row: bfloat16 runs ``flash_decode_tc``'s narrow layout on the tensor
+cores (the G query heads of a kv head as one 16-row MMA tile, the keys
+of each 64-key chunk spread over the 4 warps, K/V through a 2-stage
+``cp.async`` ring), float32 the CUDA-core tile of ``attend.cuh`` (8
+rows a CTA; TF32 would change the numbers).  The split plan is kernel
+1's over the view's S visible slots (``launch_splits``: the trash slot
+is never a key a live row sees), so on the same keys a view and a pool
+give the same result bit for bit.
 """
 from __future__ import annotations
 
@@ -22,12 +28,21 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels._common import (dtype_code, launch_splits,
-                                        require_aligned, require_cuda,
-                                        sm_count, split_scratch)
+from repro_torch.kernels import _build, flash_decode
+from repro_torch.kernels._common import (dtype_code, require_aligned,
+                                        require_cuda, sm_count,
+                                        split_scratch)
 
 NEG_INF = -1e30
+
+
+def launch_splits(b: int, h: int, kvh: int, s1: int, window: int = 0, *,
+                  dtype, sms: int):
+    """(tiles, nsplit) of a launch over ``b`` rows of views of ``s1``
+    slots: kernel 1's plan for one query a row over the ``s1 - 1`` slots
+    a live row can see (slot ``s1 - 1`` is the trash slot)."""
+    return flash_decode.launch_splits(b, 1, h, kvh, s1 - 1, window,
+                                      dtype=dtype, sms=sms)
 
 
 def decode_view_attend_plain(q, k_view, v_view, pos, *, window: int = 0):
@@ -61,7 +76,7 @@ def decode_view_attend(q, k_view, v_view, pos, *, window: int = 0):
         return decode_view_attend_plain(q, k_view, v_view, pos,
                                         window=window)
     require_cuda("decode_view_attend", q, k_view, v_view, pos)
-    require_aligned("decode_view_attend", k_view, v_view)
+    require_aligned("decode_view_attend", q, k_view, v_view)
     b, h, hd = q.shape
     bv, s1, kvh, hd_v = k_view.shape
     if (v_view.shape != k_view.shape or bv != b or hd_v != hd or h % kvh
@@ -77,7 +92,8 @@ def decode_view_attend(q, k_view, v_view, pos, *, window: int = 0):
     if pos.dtype != torch.int32:
         raise ValueError("decode_view_attend: pos must be int32")
     out = torch.empty_like(q)
-    nsplit = launch_splits(b, 1, h, kvh, s1, window, sms=sm_count(q.device))
+    _, nsplit = launch_splits(b, h, kvh, s1, window, dtype=q.dtype,
+                              sms=sm_count(q.device))
     part_acc, part_ml = split_scratch(b * h, nsplit, hd, q.device)
     lib = _build.library()
     rc = lib.rt_decode_view_attend(

@@ -88,7 +88,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             causal=causal, window=window)
         return o.transpose(1, 2)
     require_cuda("flash_attention", q, k, v)
-    require_aligned("flash_attention", k, v)
+    require_aligned("flash_attention", q, k, v)
     b, sq, h, hd = q.shape
     bk, sk, kvh, hd_k = k.shape
     if (v.shape != k.shape or bk != b or hd_k != hd or h % kvh):

@@ -24,6 +24,15 @@ as the decode loop's entry and exit call it.  The reference instead
 rebuilt the whole (S, F) pool against an inverse map on the TPU; the
 port writes the B rows in place and leaves the other S - B alone.  No
 lane padding of F.
+
+The gather is one launch a call: the kernel reads the fresh mask in its
+own dtype (a bool mask, as the models pass it, needs no cast kernel
+first).  Its CTAs are ``GATHER_THREADS`` threads, and ``gather_plan``
+sizes the units a thread from B, L and the row so that a launch has
+about one CTA an SM: a conv-window row at B=2 is 14 CTAs of one unit a
+thread, not 2 of four.  The pool rows are read with evict-first loads
+(each is read once); plain loads and a fixed 4 or 8 units a thread were
+no faster on the H100 (PERF.md).
 """
 from __future__ import annotations
 
@@ -33,7 +42,38 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import require_cuda
+from repro_torch.kernels._common import require_cuda, sm_count
+
+# the gather's CTA (csrc/slot_state.cu kGatherThreads) and the units a
+# thread its plan chooses from, most first
+GATHER_THREADS = 128
+GATHER_PER_THREAD = (8, 4, 2, 1)
+# the fresh mask's element types, as the kernel reads them (1 or 4 bytes
+# an element; nonzero = fresh)
+_MASK_DTYPES = (torch.bool, torch.uint8, torch.int32)
+
+
+def gather_plan(units: int, b: int, layers: int, sms: int) -> int:
+    """Units a thread of the gather's launch over ``b`` rows of ``units``
+    copy units in each of ``layers`` layers on a card of ``sms`` SMs: the
+    most whose grid (ceil(units / (GATHER_THREADS x per)) row chunks x b
+    x layers, as the kernel's gather_grid makes it) still has a CTA for
+    every SM, else one."""
+    for per in GATHER_PER_THREAD:
+        chunks = -(-units // (GATHER_THREADS * per))
+        if chunks * b * layers >= sms or per == 1:
+            return per
+
+
+def mask_code(fresh: Optional[torch.Tensor]) -> int:
+    """The kernel's mask argument: the bytes of an element of ``fresh``
+    (1 for bool and uint8, 4 for int32), 0 for no mask."""
+    if fresh is None:
+        return 0
+    if fresh.dtype not in _MASK_DTYPES:
+        raise ValueError(f"slot_gather: fresh must be bool, uint8 or int32, "
+                         f"got {fresh.dtype}")
+    return fresh.element_size()
 
 
 def _flat_rows(pool: torch.Tensor, stacked: bool):
@@ -98,33 +138,34 @@ def slot_gather(pool: torch.Tensor, slots: torch.Tensor,
                 fresh: Optional[torch.Tensor] = None, *,
                 stacked: bool = False) -> torch.Tensor:
     """pool (S, *F), or (L, S, *F) with ``stacked``; slots (B,) int32 in
-    [0, S); fresh None or (B,) (nonzero rows read zeros).  Returns (B,
-    *F), or (L, B, *F), in the pool's dtype.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    [0, S); fresh None or (B,) bool, uint8 or int32 (nonzero rows read
+    zeros).  Returns (B, *F), or (L, B, *F), in the pool's dtype.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel once,
+    with ``gather_plan``'s units a thread."""
     if pool.device.type == "cpu":
         return slot_gather_plain(pool, slots, fresh, stacked=stacked)
     extra = () if fresh is None else (fresh,)
     layers, s, f = _check("slot_gather", pool, slots, stacked, *extra)
     b = slots.shape[0]
+    if fresh is not None and fresh.shape != (b,):
+        raise ValueError(f"slot_gather: fresh must be ({b},), got "
+                         f"{tuple(fresh.shape)}")
+    code = mask_code(fresh)
     lead = (layers, b) if stacked else (b,)
     feat = pool.shape[2:] if stacked else pool.shape[1:]
     out = torch.empty(lead + tuple(feat), dtype=pool.dtype,
                       device=pool.device)
     if b == 0 or f == 0:
         return out
-    fr = None
-    if fresh is not None:
-        if fresh.shape != (b,):
-            raise ValueError(f"slot_gather: fresh must be ({b},), got "
-                             f"{tuple(fresh.shape)}")
-        fr = fresh.to(torch.int32).contiguous()
     row_bytes = f * pool.element_size()
     unit = _unit(row_bytes, pool, out)
+    per = gather_plan(row_bytes // unit, b, layers, sm_count(pool.device))
     lib = _build.library()
     rc = lib.rt_slot_gather(
         pool.data_ptr(), slots.data_ptr(),
-        None if fr is None else fr.data_ptr(), out.data_ptr(), layers, s, b,
-        row_bytes, unit, torch.cuda.current_stream(pool.device).cuda_stream)
+        None if fresh is None else fresh.data_ptr(), code, out.data_ptr(),
+        layers, s, b, row_bytes, unit, per,
+        torch.cuda.current_stream(pool.device).cuda_stream)
     _build.check(rc, "slot_gather")
     slot_gather.launches += 1
     return out

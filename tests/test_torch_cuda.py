@@ -125,8 +125,12 @@ def test_flash_decode_bf16_split_launches_repeat_bit_for_bit(dev, case):
                        flash_decode.flash_decode(qd, kc, vc, ln))
 
 
+# kernel 2: b, S+1, kv, g, hd, window; the last two at qwen2's G = 6 over
+# views of 641 slots (split in bf16: 10 splits, a window's first key off
+# a chunk edge) and G = 8 at hd 64 with a window
 VIEW = [(3, 41, 2, 3, 64, 0), (2, 129, 1, 6, 128, 0), (2, 65, 2, 2, 128, 20),
-        (4, 33, 2, 1, 64, 7)]
+        (4, 33, 2, 1, 64, 7), (3, 641, 2, 6, 128, 300),
+        (2, 300, 1, 8, 64, 45)]
 
 
 @pytest.mark.parametrize("case", VIEW)
@@ -143,6 +147,119 @@ def test_decode_view_kernel_matches_plain(dev, case, dt):
     got = decode_view.decode_view_attend(q, k, v, pos, window=window)
     want = decode_view.decode_view_attend_plain(q, k, v, pos, window=window)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+def _view_as_pool(k, v, bs):
+    """The first (S+1) - 1 slots of views (B, S+1, KV, hd) as a block
+    pool of bs-slot blocks (block 0 the trash, holding garbage) and each
+    row's table: the same keys kernel 1 reads through its tables."""
+    b, s1, kv, hd = k.shape
+    nb_seq = (s1 - 1) // bs
+    def pool(x):
+        blocks = x[:, :nb_seq * bs].reshape(b * nb_seq, bs, kv, hd)
+        trash = torch.full((1, bs, kv, hd), 1e3, dtype=x.dtype,
+                           device=x.device)
+        return torch.cat([trash, blocks]).contiguous()
+    bt = (1 + torch.arange(b * nb_seq, dtype=torch.int32,
+                           device=k.device)).reshape(b, nb_seq)
+    return pool(k), pool(v), bt
+
+
+@pytest.mark.parametrize("b", [8, 4, 2])
+def test_decode_view_bf16_equals_kernel1_bit_for_bit(dev, b):
+    """At the engine's decode buckets (qwen2's heads, views of 40 blocks
+    of 16 plus the trash slot) kernel 2 in bf16 runs kernel 1's template,
+    arithmetic and split plan over the same keys, so a view and the pool
+    holding its keys give the same bits."""
+    h, kv, hd, bs, s1 = 12, 2, 128, 16, 641
+    gen = torch.Generator(device=dev).manual_seed(b)
+    dt = torch.bfloat16
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, s1, kv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, s1, kv, hd), generator=gen, device=dev).to(dt)
+    k[:, -1], v[:, -1] = 1e3, -1e3                  # trash slot garbage
+    pos = torch.randint(0, s1 - 1, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos[0] = s1 - 2                                 # a full view
+    kp, vp, bt = _view_as_pool(k, v, bs)
+    assert decode_view.launch_splits(b, h, kv, s1, dtype=dt,
+                                     sms=sm_count(dev)) == \
+        flash_decode.launch_splits(b, 1, h, kv, (s1 - 1), dtype=dt,
+                                   sms=sm_count(dev))
+    got = decode_view.decode_view_attend(q, k, v, pos)
+    want = flash_decode.flash_decode_paged(q[:, None].contiguous(), kp, vp,
+                                           bt, pos)[:, 0]
+    assert torch.equal(got, want)
+
+
+def test_decode_view_bf16_split_launches_repeat_bit_for_bit(dev):
+    b, s1, kv, g, hd, window = VIEW[4]
+    _, nsplit = decode_view.launch_splits(b, kv * g, kv, s1, window,
+                                          dtype=torch.bfloat16,
+                                          sms=sm_count(dev))
+    assert nsplit > 1
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dt = torch.bfloat16
+    q = torch.randn((b, kv * g, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, s1, kv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, s1, kv, hd), generator=gen, device=dev).to(dt)
+    pos = torch.tensor([s1 - 2, 17, 400], dtype=torch.int32, device=dev)
+    for w in (0, window):
+        first = decode_view.decode_view_attend(q, k, v, pos, window=w)
+        again = decode_view.decode_view_attend(q, k, v, pos, window=w)
+        assert torch.equal(first, again)
+
+
+def _off_boundary(x):
+    """x's values in a contiguous tensor one element past a 16-byte
+    boundary (an offset view of a flat buffer)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["decode_view_attend", "flash_decode",
+                                   "flash_decode_paged", "flash_attention"])
+def test_attention_wrappers_reject_misaligned_q(dev, entry):
+    """The bf16 templates copy Q with 16-byte cp.async, so a contiguous
+    but misaligned Q must raise in the wrapper, not fault on the card."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dt = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    b, h, kv, hd, s = 2, 4, 2, 64, 32
+    pos = torch.tensor([5, s - 1], dtype=torch.int32, device=dev)
+    if entry == "decode_view_attend":
+        k, v = rand(b, s + 1, kv, hd), rand(b, s + 1, kv, hd)
+        call = lambda q: decode_view.decode_view_attend(q, k, v, pos)
+        q = rand(b, h, hd)
+    elif entry == "flash_decode":
+        k, v = rand(b, s, kv, hd), rand(b, s, kv, hd)
+        ln = torch.tensor(s, dtype=torch.int32, device=dev)
+        call = lambda q: flash_decode.flash_decode(q, k, v, ln)
+        q = rand(b, h, hd)
+    elif entry == "flash_decode_paged":
+        bs = 16
+        kp, vp = rand(1 + 2 * b, bs, kv, hd), rand(1 + 2 * b, bs, kv, hd)
+        bt = (1 + torch.arange(2 * b, dtype=torch.int32,
+                               device=dev)).reshape(b, 2)
+        call = lambda q: flash_decode.flash_decode_paged(q, kp, vp, bt,
+                                                         pos - 1)
+        q = rand(b, 1, h, hd)
+    else:
+        k, v = rand(b, s, kv, hd), rand(b, s, kv, hd)
+        call = lambda q: flash_attention.flash_attention(q, k, v,
+                                                         causal=True)
+        q = rand(b, s, h, hd)
+    want = call(q)                       # the aligned call launches
+    assert want.shape == q.shape and torch.isfinite(want.float()).all()
+    bad = _off_boundary(q)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        call(bad)
+    torch.cuda.synchronize()             # nothing faulted on the card
 
 
 @pytest.mark.parametrize("b,v", [(5, 203), (3, 1000), (8, 4096), (2, 151936),
@@ -334,14 +451,68 @@ def test_slot_gather_kernel_bit_exact(dev, case, b, layers):
     pool, slots, _, _ = _slot_case(dev, s, feat, dt, b, layers, s * b)
     fresh = torch.tensor(np.arange(b) % 3 == 1, device=dev)
     stacked = bool(layers)
+    masks = [None] + [fresh.to(t) for t in (torch.bool, torch.uint8,
+                                            torch.int32)]
     before = slot_state.slot_gather.launches
-    for fr in (None, fresh):
+    for fr in masks:
         got = slot_state.slot_gather(pool, slots, fr, stacked=stacked)
         want = slot_state.slot_gather_plain(pool, slots, fr,
                                             stacked=stacked)
         assert got.dtype == pool.dtype and got.shape == want.shape
         assert torch.equal(got, want)
-    assert slot_state.slot_gather.launches == before + 2
+    assert slot_state.slot_gather.launches == before + len(masks)
+
+
+def _row_for_plan(per, b, layers, sms, esize):
+    """Elements of a row (a power of two) that ``gather_plan`` runs at
+    ``per`` units a thread for ``b`` rows in ``layers`` layers."""
+    for log2 in range(6, 21):
+        units = 1 << log2
+        if slot_state.gather_plan(units, b, layers, sms) == per:
+            return units * 16 // esize
+    raise AssertionError(f"no row length reaches {per} units a thread")
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("per", slot_state.GATHER_PER_THREAD)
+def test_slot_gather_every_plan_bit_exact(dev, dt, per):
+    """Every units-a-thread count the plan picks, at one layer and three,
+    covers each row exactly (a row of the length that makes the plan
+    pick it, plus a ragged tail of 8-byte units)."""
+    esize = torch.empty((), dtype=dt).element_size()
+    for layers in (0, 3):
+        f = _row_for_plan(per, 3, max(layers, 1), sm_count(dev), esize)
+        for feat in ((f,), (f + 8 // esize,)):
+            pool, slots, _, _ = _slot_case(dev, 7, feat, dt, 3, layers, per)
+            fresh = torch.tensor([False, True, False], device=dev)
+            got = slot_state.slot_gather(pool, slots, fresh,
+                                         stacked=bool(layers))
+            want = slot_state.slot_gather_plain(pool, slots, fresh,
+                                                stacked=bool(layers))
+            assert torch.equal(got, want)
+
+
+def test_slot_gather_bool_mask_is_one_kernel(dev):
+    """With a bool mask, as the models pass ``pos == 0``, one gather is
+    one kernel on the card: no cast of the mask first.  The profiler may
+    drop a short kernel's record, so a profile that saw nothing is
+    repeated; whatever it saw must be the one gather."""
+    pool, slots, _, _ = _slot_case(dev, 11, (3, 2304), torch.bfloat16, 2,
+                                   0, 5)
+    fresh = torch.tensor([True, False], device=dev)
+    slot_state.slot_gather(pool, slots, fresh)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            slot_state.slot_gather(pool, slots, fresh)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "slot_gather_kernel" in kernels[0][0], kernels
 
 
 @pytest.mark.parametrize("case", SLOT)

@@ -1,13 +1,14 @@
-"""The split plan of kernels 1 and 7 (``flash_decode.launch_splits``):
-tiles of query rows and key splits per template, from static shapes
-alone, pinned at the layouts the serving engine and the static path
-give them on a 132-SM card (an H100 SXM).  No card and no JAX needed."""
+"""The split plan of kernels 1, 2 and 7 (``flash_decode.launch_splits``,
+``decode_view.launch_splits``): tiles of query rows and key splits per
+template, from static shapes alone, pinned at the layouts the serving
+engine and the static path give them on a 132-SM card (an H100 SXM).
+No card and no JAX needed."""
 import math
 
 import pytest
 import torch
 
-from repro_torch.kernels import _common, flash_decode
+from repro_torch.kernels import _common, decode_view, flash_decode
 
 SMS = 132
 # qwen2-1.5b's attention: 12 heads over 2 kv heads (G = 6); the engine's
@@ -77,3 +78,27 @@ def test_launch_splits_windowed_and_unbuilt_shapes():
     assert flash_decode.launch_splits(3, 3, 8, 1, 144,
                                       dtype=torch.bfloat16,
                                       sms=SMS)[0] == 1
+
+
+# kernel 2 at the N-step loop's decode buckets: views of 40 blocks of 16
+# plus the trash slot
+VIEW_S1 = KEYS + 1
+VIEW = {torch.bfloat16: (1, 10), torch.float32: (1, 5)}
+
+
+@pytest.mark.parametrize("dtype", list(VIEW))
+@pytest.mark.parametrize("b", [8, 4, 2])
+def test_decode_view_launch_splits_at_the_decode_buckets(b, dtype):
+    """Kernel 2 takes kernel 1's plan over the S visible slots of its
+    S + 1 slot views: in bf16 the same (tiles, splits) as kernel 1 at 640
+    keys, the condition of their bit-for-bit agreement; in f32 5 splits
+    (6 when the trash slot counted)."""
+    plan = decode_view.launch_splits(b, H, KV, VIEW_S1, dtype=dtype,
+                                     sms=SMS)
+    assert plan == VIEW[dtype]
+    if dtype == torch.bfloat16:
+        assert plan == flash_decode.launch_splits(b, 1, H, KV, KEYS,
+                                                  dtype=dtype, sms=SMS)
+    else:
+        assert _common.launch_splits(b, 1, H, KV, VIEW_S1,
+                                     sms=SMS) == plan[1] + 1
