@@ -9,14 +9,16 @@
    SASS (``cuobjdump``).
 2. One phase per kernel at the shapes its main path gives it: the
    attention and sampling kernels at every row layout the serving
-   engine dispatches (plus a 2048-key extra), the fused update at every
-   leaf shape of full-width qwen2-1.5b.  Each kernel is held against its
-   plain PyTorch version on the same card inputs (kernels 1, 2 and 7 in
-   both templates, bf16 and f32; kernel 2 in bf16 also bit for bit
-   against kernel 1 on the same keys) and timed with CUDA events (L2 flushed
-   and the card spun before every launch), beside its bound and a
-   one-call PyTorch yardstick (``library_ms``, never used by the port)
-   where one exists.
+   engine dispatches (plus a 2048-key extra; the gumbel sampler, one
+   cluster launch a call at its plan's cluster size, its ties planted on
+   both sides of every slice edge of that size), the fused
+   update at every leaf shape of full-width qwen2-1.5b.  Each kernel is
+   held against its plain PyTorch version on the same card inputs
+   (kernels 1, 2 and 7 in both templates, bf16 and f32; kernel 2 in
+   bf16 also bit for bit against kernel 1 on the same keys) and timed
+   with CUDA events (L2 flushed and the card spun before every launch),
+   beside its bound and a one-call PyTorch yardstick (``library_ms``,
+   never used by the port) where one exists.
 3. Serves full-width qwen2-1.5b (bf16, random weights from a seed)
    through the port's ``Engine`` at steps_per_dispatch 1 and 8: greedy
    twice per depth, then twice at temperature 0.8 with top-k 50, which
@@ -45,7 +47,9 @@
 6. The mamba path: the slot-state gather and scatter at every row count
    the engine gives them, for one layer (the fused step) and for all 48
    layers at once (the decode loop's entry and exit), for both state
-   leaves, bit for bit against their plain versions; the SSD intra-chunk
+   leaves, bit for bit against their plain versions, the scatter also
+   with stale rows routed by valid_len inside the kernel and through
+   ``layers.slot_state_scatter`` (timed whole); the SSD intra-chunk
    block at the prefill rows x one 256-token chunk and at 4 x 512
    tokens, and ``ssm.ssd_chunked_pallas`` (its own path) against the
    plain chunked SSD; then full-width mamba2-370m (bf16, random weights
@@ -68,10 +72,11 @@
    then its float32 depth-1 == depth-8 check at the same 4-layer cut
    (63.2 GB of f32 weights: 5 layers would need 109 GB).
 8. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
-   1's tensor-core template over view keys and that a slot gather with
-   a bool mask runs the gather kernel alone, and from a captured CUDA
-   graph that it is one launch a call (last: the profiler leaves the
-   host slower for the rest of the process).
+   1's tensor-core template over view keys, that a slot gather with a
+   bool mask, a ``slot_state_scatter`` with an int32 valid_len and a
+   gumbel sample (with and without top-k) each run their kernel alone,
+   and from a captured CUDA graph that each is one launch a call (last:
+   the profiler leaves the host slower for the rest of the process).
 9. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
@@ -218,6 +223,9 @@ SASS_TEMPLATES = (
     (r"(flash_decode_paged|flash_decode_bhd|decode_view)_kernelILi(\d+)E",
      "flash_decode_f32<{0},{1}>"),
 )
+# kernels whose resource usage sass_counts prints (and fails on a spill)
+RES_KERNELS = ("gumbel_cluster_kernel", "slot_gather_kernel",
+               "slot_scatter_kernel")
 # bf16 (tensor-core) and f32 templates each family must have
 SASS_FAMILIES = {"flash_attention_": (2, 2), "mla_attend_": (2, 2),
                  "flash_decode_": (8, 6)}
@@ -228,7 +236,8 @@ def sass_counts(so: Path) -> None:
     instructions of each flash-attention, MLA-attend and flash-decode
     template in the built library, from ``cuobjdump -sass``; fails
     unless the bf16 templates (``_tc``) issue HMMA and the f32 ones do
-    not."""
+    not; then the registers, static shared memory and local memory of
+    ``RES_KERNELS`` (``cuobjdump -res-usage``), failing on a spill."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -261,6 +270,34 @@ def sass_counts(so: Path) -> None:
                if n.startswith(family + "f32<")]
         if len(tc) != n_tc or min(tc) == 0 or len(f32) != n_f32 or max(f32):
             fail(f"{family.rstrip('_')} SASS: HMMA counts {counts}")
+    # registers, static shared memory and local memory (spills) of the
+    # kernels the slot and sampling phases time, from the resource usage
+    res = subprocess.run([str(tool), "-res-usage", str(so)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        fail(f"cuobjdump -res-usage: {res.stderr.strip()}")
+    usage, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            cur = next((k for k in RES_KERNELS if k in m.group(1)), None)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                      line)
+        if cur and m:
+            usage.setdefault(cur, []).append(tuple(map(int, m.groups())))
+            cur = None
+    for name in RES_KERNELS:
+        rows = usage.get(name)
+        if not rows:
+            fail(f"cuobjdump -res-usage: no {name}")
+        regs = sorted({r[0] for r in rows})
+        print(f"[res] {name} ({len(rows)} instantiations): registers "
+              f"{regs[0]}-{regs[-1]}, stack {max(r[1] for r in rows)}, "
+              f"static shared {max(r[2] for r in rows)} bytes, local "
+              f"{max(r[3] for r in rows)}", flush=True)
+        if max(r[3] for r in rows):
+            fail(f"{name} spills to local memory: {rows}")
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -470,10 +507,11 @@ def device_kernels(torch, fn, calls=10, attempts=3):
 
 
 def graph_kernels(torch, fn, calls=10):
-    """Kernel launches that ``calls`` calls of ``fn`` make, counted by
-    the driver: one call runs first outside the capture, then the calls
-    are captured into a CUDA graph (never replayed) whose kernel nodes
-    are counted (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    """(kernel launches, graph nodes of any kind: memsets, copies) that
+    ``calls`` calls of ``fn`` make, counted by the CUDA driver: one call
+    runs first outside the capture, then the calls are captured into a CUDA
+    graph (never replayed) whose nodes are counted (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``)."""
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
     fn()
@@ -496,7 +534,7 @@ def graph_kernels(torch, fn, calls=10):
             fail("cuGraphNodeGetType failed")
         kernels += kind.value == 0           # CU_GRAPH_NODE_TYPE_KERNEL
     graph.reset()
-    return kernels
+    return kernels, n.value
 
 
 def view_as_pool(torch, k, v, bs):
@@ -646,32 +684,51 @@ def phase_greedy(torch, timer, cfg, ec):
     return out
 
 
-def phase_gumbel(torch, timer, cfg, ec):
+def _slice_edges(sp, v, cluster):
+    """Columns on both sides of every edge between kernel 4's cluster
+    slices (``gumbel_slice``) at ``cluster`` CTAs a row."""
+    sl = sp.gumbel_slice(v, cluster)
+    return sorted({c for r in range(1, cluster) if r * sl < v
+                   for c in (r * sl - 1, r * sl)})
+
+
+def phase_gumbel(torch, timer, cfg, mcfg, dcfg, ec):
     """Kernel 4 at every row count the engine samples and at 1 and 64
-    rows, V = vocab, T = SAMPLE_T, top_k in GUMBEL_TOP_KS, noise from the
-    reference's threefry draw as the engine makes it.  Planted: with
-    top-k, logits equal to the row's kth value at chunk edges, at a
-    thread-stride column and at the last column (all must stay in the
-    kept set); without, equal winning scores at those columns (the
-    lowest must win).  Exact token equality with the plain version."""
+    rows, V = qwen2's vocab, T = SAMPLE_T, top_k in GUMBEL_TOP_KS, noise
+    from the reference's threefry draw as the engine makes it; then
+    mamba2-370m's and deepseek-v3's vocabularies at 8, 64 and 136 rows.
+    Planted: with top-k, logits equal to the row's kth value on both
+    sides of every slice edge of the plan's cluster size
+    (``gumbel_plan``), at a thread-stride column and at the last column
+    (all must stay in the kept set); without, equal winning scores at
+    those columns (the lowest must win).  Exact token equality with the
+    plain version, the kernel timed, and kernel and graph nodes a call
+    from a captured CUDA graph (one kernel, nothing else).  Last, rows of
+    equal logits at each cluster size the plan takes for qwen2's vocab
+    with top-k (the select's fallback from its candidate list to the
+    whole slice), checked only."""
     from repro_torch.kernels import prng
     from repro_torch.kernels import sampling as sp
     from repro_torch.kernels._common import sm_count
-    V = cfg.vocab_size
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    qwen_rows = sorted({1, 64} | {rows for rows, _ in step_shapes(ec)})
+    cases = [(cfg.vocab_size, b, GUMBEL_TOP_KS, None) for b in qwen_rows]
+    for other in (mcfg, dcfg):
+        cases += [(other.vocab_size, b, (0, SAMPLE_TOP_K),
+                   f"V={other.vocab_size}") for b in (8, 64, 136)]
     out = {}
-    for b in sorted({1, 64} | {rows for rows, _ in step_shapes(ec)}):
-        base = torch.randn((b, V), generator=g, device="cuda") * 3
+    for v, b, top_ks, tag in cases:
+        base = torch.randn((b, v), generator=g, device="cuda") * 3
         keys = prng.sample_keys(SEED, torch.arange(b, device="cuda"),
                                 torch.full((b,), 100, device="cuda"))
-        noise0 = prng.gumbel(keys, V)
-        chunk = -(-V // sp.greedy_chunks(b, V, sm_count(0)))
+        noise0 = prng.gumbel(keys, v)
         rows = torch.arange(b, device="cuda")[:, None]
-        cols = torch.stack([torch.full((b,), min(chunk, V - 1)),
-                            torch.full((b,), min(chunk - 1, V - 1)),
-                            (7 + 256 * torch.arange(b)) % V,
-                            torch.full((b,), V - 1)], 1).cuda()
-        for top_k in GUMBEL_TOP_KS:
+        stride = ((7 + 256 * torch.arange(b, device="cuda")) % v)[:, None]
+        for top_k in top_ks:
+            plan = sp.gumbel_plan(b, v, sm_count(0), top_k)
+            cols = torch.tensor(_slice_edges(sp, v, plan) + [v - 1],
+                                device="cuda")
+            cols = torch.cat([cols[None].expand(b, -1), stride], 1)
             lg, noise = base.clone(), noise0.clone()
             if top_k:
                 kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
@@ -679,33 +736,69 @@ def phase_gumbel(torch, timer, cfg, ec):
             else:
                 lg[rows, cols] = lg.max() + 30.0
                 noise[rows, cols] = 0.0
-            got = sp.gumbel_sample(lg, noise, temperature=SAMPLE_T,
-                                   top_k=top_k)
             want = sp.gumbel_sample_plain(lg, noise, temperature=SAMPLE_T,
                                           top_k=top_k)
+            if not top_k and not torch.equal(want.long(),
+                                             cols.min(1).values):
+                fail(f"gumbel_sample_plain B={b} V={v}: a tie did not go "
+                     "to the lowest column")
+            label = f"B={b} V={v} T={SAMPLE_T} top_k={top_k}"
+
+            def call():
+                return sp.gumbel_sample(lg, noise, temperature=SAMPLE_T,
+                                        top_k=top_k)
+            got = call()
             if not torch.equal(got, want):
-                fail(f"gumbel_sample B={b} top_k={top_k}: kernel != plain "
-                     f"in {int((got != want).sum())} rows")
-            if not top_k and not torch.equal(got.long(), cols.min(1).values):
-                fail(f"gumbel_sample B={b}: a tie did not go to the lowest "
-                     "column")
-            ms = timer(lambda: sp.gumbel_sample(lg, noise,
-                                                temperature=SAMPLE_T,
-                                                top_k=top_k))
-            plain_ms = timer(lambda: sp.gumbel_sample_plain(
-                lg, noise, temperature=SAMPLE_T, top_k=top_k))
-            # each logit and noise value read once, one token written;
-            # a division, an add and a compare per column
-            bnd, by = bound_ms(2 * b * V * 4 + b * 4, 3 * b * V,
-                               F32_OPS_PER_S)
-            out[(b, top_k)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bnd, bound_by=by,
-                                   library_ms=None)
-            print(f"[gumbel_sample] B={b} V={V} T={SAMPLE_T} top_k={top_k} "
-                  f"chunks={sp.greedy_chunks(b, V, sm_count(0))} exact=yes "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bnd:.4f} ({by}) library_ms=none (no single "
-                  "PyTorch call)", flush=True)
+                fail(f"gumbel_sample {label} cluster={plan}: kernel != "
+                     f"plain in {int((got != want).sum())} rows")
+            ms = timer(call)
+
+            def plain():
+                return sp.gumbel_sample_plain(lg, noise,
+                                              temperature=SAMPLE_T,
+                                              top_k=top_k)
+            plain_ms = timer(plain)
+            kernels, nodes = graph_kernels(torch, call, 10)
+            if (kernels, nodes) != (10, 10):
+                fail(f"gumbel_sample {label}: {kernels} kernels, {nodes} "
+                     "graph nodes in 10 calls (want one kernel a call)")
+            # each logit read once and the noise of the columns that can
+            # win (with top-k the kept ones: lg >= kth, NaN kept), one
+            # token written; a compare per column, a division and an add
+            # per such column
+            kept = b * v
+            if top_k:
+                kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+                kept = int((~(lg < kth)).sum())
+            bnd, by = bound_ms(b * v * 4 + kept * 4 + b * 4,
+                               b * v + 2 * kept, F32_OPS_PER_S)
+            key = (b, top_k) if tag is None else (tag, b, top_k)
+            out[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd, bound_by=by, library_ms=None)
+            print(f"[gumbel_sample] {label} kept={kept} cluster={plan} "
+                  f"(slice {sp.gumbel_slice(v, plan)} columns, "
+                  f"{plan * b} CTAs) exact=yes kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
+                  f"bound_share={bnd / ms:.4f} graph={kernels / 10:g} "
+                  f"kernels {nodes / 10:g} nodes a call library_ms=none "
+                  "(no single PyTorch call)", flush=True)
+    # rows of equal logits: every column is a top-k candidate, so each
+    # CTA's candidate list overflows and its select reads the whole slice
+    v = cfg.vocab_size
+    for b in (ec.decode_buckets[0], 64):
+        lg = torch.full((b, v), 1.5, device="cuda")
+        noise = torch.randn((b, v), generator=g, device="cuda")
+        for top_k in GUMBEL_TOP_KS[1:]:
+            got = sp.gumbel_sample(lg, noise, temperature=SAMPLE_T,
+                                   top_k=top_k)
+            if not torch.equal(got, sp.gumbel_sample_plain(
+                    lg, noise, temperature=SAMPLE_T, top_k=top_k)):
+                fail(f"gumbel_sample B={b} equal logits top_k={top_k}: "
+                     "kernel != plain")
+        print(f"[gumbel_sample] B={b} V={v} equal logits (candidate lists "
+              f"overflow), top_k {GUMBEL_TOP_KS[1:]}, cluster "
+              f"{sp.gumbel_plan(b, v, sm_count(0), GUMBEL_TOP_KS[-1])}: "
+              "exact=yes", flush=True)
     return out
 
 
@@ -1342,14 +1435,20 @@ def phase_slot_state(torch, timer, mcfg, ec):
     all layers' at once (the decode loop's entry and exit), at every row
     count of ``slot_rows``.  Gathers with every third row fresh (it
     reads zeros); scatters to distinct live slots, then with every fourth
-    row routed to trash slot 0.  Bit for bit against the plain versions
-    (slot 0 left out where two rows write it).  The fresh mask is bool,
-    as the models pass ``pos == 0`` (``phase_census`` names the kernels
-    a gather then runs).  Library yardsticks, never used by the port:
-    ``index_select`` on the slot axis (it does not zero fresh rows) and
-    ``index_copy_``."""
+    row stale: routed to trash slot 0 by the caller, or by the kernel
+    from an int32 valid_len (and, at one layer, through
+    ``layers.slot_state_scatter``, the fused step's route).  Bit for bit
+    against the plain versions (slot 0 left out where two rows write
+    it).  The fresh mask is bool, as the models pass ``pos == 0``
+    (``phase_census`` names the kernels a gather then runs).  Timed: each
+    kernel alone, and at one layer the route whole (valid_len read by
+    the kernel) beside the parent's route (compare, zeros and select
+    kernels first, then the scatter).  Library yardsticks, never used by
+    the port: ``index_select`` on the slot axis (it does not zero fresh
+    rows) and ``index_copy_``."""
     from repro_torch.kernels import slot_state as ss
     from repro_torch.kernels._common import sm_count
+    from repro_torch.models.layers import slot_state_scatter
     from repro_torch.models.ssm import init_ssm_cache
     s = ec.num_slots + 1
     leaves = [(name, tuple(t.shape[1:]), t.dtype) for name, t in
@@ -1381,21 +1480,42 @@ def phase_slot_state(torch, timer, mcfg, ec):
                 if not torch.equal(got, want):
                     fail(f"slot_gather {label}: kernel != plain")
                 units = row_bytes // max(layers, 1) // 16
+                # each kernel's launch (16-byte units on these pools):
+                # (units a thread, CTAs); the gather's from its plan
                 per = ss.gather_plan(units, b, max(layers, 1), sm_count(0))
-                ctas = (-(-units // (ss.GATHER_THREADS * per)) * b
-                        * max(layers, 1))
+                plans = {kind: (per, -(-units // (threads * per)) * b
+                                * max(layers, 1))
+                         for kind, threads, per in (
+                             ("gather", ss.GATHER_THREADS, per),
+                             ("scatter", ss.SCATTER_THREADS,
+                              ss.SCATTER_PER_THREAD))}
                 stale = torch.tensor(np.arange(b) % 4 == 3, device="cuda")
                 routed = torch.where(stale, torch.zeros_like(slots), slots)
-                for dst, whole in ((slots, True), (routed, False)):
+                vl = torch.where(stale, 0, 1 + torch.arange(
+                    b, dtype=torch.int32, device="cuda") % 3).to(torch.int32)
+                calls = [(slots, None, ss.slot_scatter),
+                         (routed, None, ss.slot_scatter),
+                         (slots, vl, ss.slot_scatter)]
+                if not layers:
+                    calls.append((slots, vl, None))
+                for dst, valid, fn in calls:
                     k_pool, p_pool = pool.clone(), pool.clone()
-                    ss.slot_scatter(k_pool, dst, values, stacked=stacked)
+                    if fn is None:
+                        slot_state_scatter(k_pool, dst, valid, values)
+                    else:
+                        fn(k_pool, dst, values, valid_len=valid,
+                           stacked=stacked)
                     ss.slot_scatter_plain(p_pool, dst, values,
-                                          stacked=stacked)
+                                          valid_len=valid, stacked=stacked)
+                    whole = dst is slots and valid is None
                     body = ((slice(None),) if whole else
                             ((slice(None), slice(1, None)) if stacked
                              else (slice(1, None),)))
                     if not torch.equal(k_pool[body], p_pool[body]):
-                        fail(f"slot_scatter {label}: kernel != plain")
+                        fail(f"slot_scatter {label} (valid_len "
+                             f"{'none' if valid is None else 'int32'}"
+                             f"{', the route' if fn is None else ''}): "
+                             "kernel != plain")
                     del k_pool, p_pool
                 nfresh = int(fresh.sum())
                 slots_l = slots.long()
@@ -1426,17 +1546,34 @@ def phase_slot_state(torch, timer, mcfg, ec):
                                  plain_ms=times["scatter_plain"],
                                  bound_ms=sb, bound_by=sby,
                                  library_ms=times["scatter_lib"]))
+                route = ""
+                if not layers:
+                    # the fused step's call whole: valid_len read by the
+                    # kernel, against routing first as the parent did
+                    r_ms = timer(lambda: slot_state_scatter(
+                        pool, slots, vl, values))
+                    first_ms = timer(lambda: ss.slot_scatter(
+                        pool, torch.where(vl > 0, slots,
+                                          torch.zeros_like(slots)), values))
+                    out[(leaf, layers, b)]["route"] = dict(ms=r_ms)
+                    out[(leaf, layers, b)]["route_first"] = dict(
+                        ms=first_ms)
+                    route = (f" slot_state_scatter_ms={r_ms:.4f} "
+                             f"(routing first: {first_ms:.4f})")
                 print(f"[slot_state] {label} S={s} row_bytes="
                       f"{math.prod(feat) * esize} ({str(dtype)[6:]}) "
-                      f"fresh={nfresh} exact=yes per_thread={per} "
-                      f"ctas={ctas} "
+                      f"fresh={nfresh} stale={int(stale.sum())} exact=yes "
+                      f"gather per_thread={plans['gather'][0]} ctas="
+                      f"{plans['gather'][1]} scatter per_thread="
+                      f"{plans['scatter'][0]} ctas={plans['scatter'][1]}; "
                       f"gather kernel_ms={times['gather']:.4f} plain_ms="
                       f"{times['gather_plain']:.4f} bound_ms={gb:.4f} ({gby})"
                       f" library_ms(index_select)={times['gather_lib']:.4f};"
                       f" scatter kernel_ms={times['scatter']:.4f} plain_ms="
                       f"{times['scatter_plain']:.4f} bound_ms={sb:.4f} "
-                      f"({sby}) library_ms(index_copy_)="
-                      f"{times['scatter_lib']:.4f}", flush=True)
+                      f"({sby}) bound_share={sb / times['scatter']:.4f} "
+                      f"library_ms(index_copy_)="
+                      f"{times['scatter_lib']:.4f}{route}", flush=True)
                 del values
             del pool
     return out
@@ -2062,18 +2199,25 @@ def _cast(tree, dtype):
 
 
 def phase_census(torch, cfg, mcfg, ec):
-    """The kernels kernels 2 and 10 run on the card: their names from the
-    profiler (``device_kernels``), their launches a call from the driver
-    (``graph_kernels``).  Kernel 2 in bf16 at the first decode bucket
-    over the loop's views must run ``flash_decode_tc`` over ``ViewKeys``
-    (and its split merge); kernel 10 with a bool fresh mask, as the
-    models pass it, at the first decode bucket over each state leaf's
-    pool (one layer and all layers) must run the gather alone, one
-    launch a call.  Last of the phases: once ``torch.profiler`` has run
-    in a process, the host launches slower for the rest of it (mamba
-    depth-1 serving read about 10% fewer tok/s after it; PERF.md)."""
+    """The kernels kernels 2, 4, 10 and 11 run on the card: their names
+    from the profiler (``device_kernels``), their launches a call from
+    the CUDA driver (``graph_kernels``).  Kernel 2 in bf16 at the first
+    decode bucket over the loop's views must run ``flash_decode_tc`` over
+    ``ViewKeys`` (and its split merge); kernel 10 with a bool fresh
+    mask, as the models pass it, at the first decode bucket over each
+    state leaf's pool (one layer and all layers) must run the gather
+    alone, one launch a call; kernel 11 through
+    ``layers.slot_state_scatter`` with an int32 valid_len (the fused
+    step's call) over each leaf's one-layer pool must run the scatter
+    alone, one launch a call; kernel 4 at the first decode bucket, with
+    and without top-k, one cluster launch a call.  Last of the phases:
+    once ``torch.profiler`` has run in a process, the host launches
+    slower for the rest of it (mamba depth-1 serving read about 10%
+    fewer tok/s after it; PERF.md)."""
     from repro_torch.kernels import decode_view as dv
+    from repro_torch.kernels import sampling as sp
     from repro_torch.kernels import slot_state as ss
+    from repro_torch.models.layers import slot_state_scatter
     from repro_torch.models.ssm import init_ssm_cache
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -2086,36 +2230,53 @@ def phase_census(torch, cfg, mcfg, ec):
     def view():
         return dv.decode_view_attend(q, k, k, pos)
     ran, calls = device_kernels(torch, view)
-    per_call = graph_kernels(torch, view, 10) / 10
+    per_call = graph_kernels(torch, view, 10)[0] / 10
     print(f"[census] decode_view_attend B={b} S+1={s1} bfloat16: "
           f"{per_call} kernels a call (CUDA graph); kernels the profiler "
           f"saw over {calls - 1} calls: {ran}", flush=True)
     if not any("flash_decode_tc" in n and "ViewKeys" in n for n in ran):
         fail("decode_view_attend: the bf16 launch did not run "
              "flash_decode_tc over ViewKeys")
+
+    def alone(fn, kernel, label):
+        """``fn`` is one launch of ``kernel`` a call, and nothing else."""
+        ran, calls = device_kernels(torch, fn)
+        n, nodes = graph_kernels(torch, fn, 10)
+        print(f"[census] {label}: {n} kernels ({nodes} graph nodes) in 10 "
+              f"calls (CUDA graph); kernels the profiler saw over "
+              f"{calls - 1} calls: {ran}", flush=True)
+        if (n, nodes) != (10, 10) or any(kernel not in name for name in ran):
+            fail(f"{label}: a call ran other kernels than the one "
+                 f"{kernel}: {n} kernels, {nodes} nodes in 10 calls, {ran}")
+
     s = ec.num_slots + 1
     slots = torch.arange(1, b + 1, dtype=torch.int32, device="cuda") % s
     fresh = pos == 0
+    vl = torch.where(fresh, 0, 1).to(torch.int32)
     for leaf, t in init_ssm_cache(mcfg, 1, mcfg.cdtype, "meta").items():
         for layers in (0, mcfg.num_layers):
             lead = (layers, s) if layers else (s,)
             pool = torch.zeros(lead + tuple(t.shape[1:]), dtype=t.dtype,
                                device="cuda")
-
-            def gather():
-                return ss.slot_gather(pool, slots, fresh,
-                                      stacked=bool(layers))
-            ran, calls = device_kernels(torch, gather)
-            n = graph_kernels(torch, gather, 10)
             label = f"{leaf} {'L=%d' % layers if layers else 'layer'} B={b}"
-            print(f"[census] slot_gather {label} ({fresh.dtype} mask): {n} "
-                  f"kernels in 10 calls (CUDA graph); kernels the profiler "
-                  f"saw over {calls - 1} calls: {ran}", flush=True)
-            if n != 10 or any("slot_gather_kernel" not in name
-                              for name in ran):
-                fail(f"slot_gather {label}: a call ran other kernels than "
-                     f"the one gather: {n} in 10 calls, {ran}")
+            alone(lambda: ss.slot_gather(pool, slots, fresh,
+                                         stacked=bool(layers)),
+                  "slot_gather_kernel",
+                  f"slot_gather {label} ({fresh.dtype} mask)")
+            if not layers:
+                value = torch.ones((b,) + tuple(t.shape[1:]), dtype=t.dtype,
+                                   device="cuda")
+                alone(lambda: slot_state_scatter(pool, slots, vl, value),
+                      "slot_scatter_kernel",
+                      f"slot_state_scatter {label} ({vl.dtype} valid_len)")
             del pool
+    lg = torch.randn((b, cfg.vocab_size), generator=g, device="cuda")
+    noise = torch.randn(lg.shape, generator=g, device="cuda")
+    for top_k in (0, SAMPLE_TOP_K):
+        alone(lambda: sp.gumbel_sample(lg, noise, temperature=SAMPLE_T,
+                                       top_k=top_k),
+              "gumbel_cluster_kernel",
+              f"gumbel_sample B={b} V={cfg.vocab_size} top_k={top_k}")
 
 
 def main() -> int:
@@ -2150,7 +2311,9 @@ def main() -> int:
     fd = phase(phase_flash_decode, torch, timer, cfg, ec)
     dv = phase(phase_decode_view, torch, timer, cfg, ec)
     gs = phase(phase_greedy, torch, timer, cfg, ec)
-    gb = phase(phase_gumbel, torch, timer, cfg, ec)
+    from repro_torch.serve.profile_engine import served_config
+    mcfg, dcfg = get_config(MAMBA), served_config(DEEPSEEK)
+    gb = phase(phase_gumbel, torch, timer, cfg, mcfg, dcfg, ec)
     fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
     launches = phase(phase_serve, torch, cfg)
     phase(phase_depth_f32, torch, cfg)
@@ -2164,7 +2327,6 @@ def main() -> int:
     s_launches = phase(phase_serve_static, torch, cfg)
     for name in ("flash_attention", "flash_decode"):
         launches[name] = s_launches[name]
-    mcfg = get_config(MAMBA)
     st = phase(phase_slot_state, torch, timer, mcfg, ec)
     ssd, ssd_launches = phase(phase_ssd_chunk, torch, timer, mcfg, ec)
     m_launches = phase(phase_serve_mamba, torch, mcfg)
@@ -2172,8 +2334,6 @@ def main() -> int:
     for name in ("slot_gather", "slot_scatter"):
         launches[name] = m_launches[name]
     launches["ssd_chunk_bchp"] = ssd_launches
-    from repro_torch.serve.profile_engine import served_config
-    dcfg = served_config(DEEPSEEK)
     mv = phase(phase_mla, torch, timer, dcfg, ec, False)
     mp = phase(phase_mla, torch, timer, dcfg, ec, True)
     d_launches = phase(phase_serve_deepseek, torch, dcfg)

@@ -7,38 +7,60 @@
 //   gumbel  score = g + logit / T           (IEEE division)
 //           or, with top-k, -inf where logit < kth (the row's kth largest
 //           logit, duplicates counted, as lax.top_k gives it)
-// logits, g (B, V) float32 -> out (B,) int32.  Each row is cut into
-// `chunks` contiguous column ranges, one CTA of 256 threads each, so a
-// few rows still spread over the card's SMs: each thread scans columns
-// lo + tid, lo + tid + 256, ... < hi (the tail past V is simply not
-// visited), then a warp-shuffle and a shared-memory reduction give the
-// chunk's (score, column).  With one chunk the CTA writes the token;
-// otherwise it writes its partial result to `part` and a second kernel,
-// one warp per row, reduces a row's partials.  The tie rule is
+// logits, g (B, V) float32 -> out (B,) int32.  The tie rule is
 // jnp.argmax's, applied in every partial reduction: the larger value
 // wins, equal values go to the LOWER column, and NaN counts as larger
 // than any number (the first NaN wins).  A row of -inf gives column 0.
 //
-// Top-k: kth comes from a radix select over ordered(x), the uint32 image
-// of x that sorts as the floats do, one 8-bit digit per pass from the
-// top, over the same column chunks: pass p histograms digit p of the
-// elements whose higher digits equal the prefix chosen so far (per-warp
-// shared histograms, summed into a global (B, 256) histogram with one
-// atomic per CTA and bin), and the CTAs of pass p + 1 (and of the
-// argmax) first replay the choice of every earlier digit from those
-// histograms, so no separate select launch is needed.  After four
-// passes the prefix is ordered(kth) exactly.
+// Greedy: each row is cut into `chunks` contiguous column ranges, one CTA
+// of 256 threads each, so a few rows still spread over the card's SMs:
+// each thread scans columns lo + tid, lo + tid + 256, ... < hi (the tail
+// past V is simply not visited), then a warp-shuffle and a shared-memory
+// reduction give the chunk's (score, column).  With one chunk the CTA
+// writes the token; otherwise it writes its partial result to `part` and
+// a second kernel, one warp per row, reduces a row's partials.
+//
+// Gumbel: one launch, one thread-block cluster a row (cluster sizes 1-16,
+// from kernels/sampling.py gumbel_plan), CTA r of the cluster taking the
+// contiguous slice [r * slice, (r + 1) * slice) of the row; 512-thread
+// CTAs.  Without top-k each CTA streams its slice of logits and noise once
+// (16-byte evict-first loads where the row allows) into its argmax.  With
+// top-k each CTA copies its logits slice into shared memory (TMA bulk
+// copies where the row allows, else 4-byte cp.async), and kth comes from
+// a radix select over ordered(x), the uint32 image of x that sorts as the
+// floats do, in four 8-bit digits from the top, every pass over shared
+// memory (cluster_kth).  Each pass counts the digit of the CTA's elements
+// whose higher digits equal the prefix chosen so far into 256 bins (the
+// first pass counts the top 11 bits into 2048 local bins, so that the
+// shared atomics of the few sign-and-exponent bins most logits share
+// rarely collide, and folds them to 256), adds its nonzero bins into rank
+// 0's sums through distributed shared memory, and after a cluster barrier
+// every CTA reads rank 0's sums and chooses the same digit.  The second
+// pass also lists the CTA's candidates, the columns at or above the first
+// digit chosen (a few hundred for a top-k of 50), so that the last two
+// passes and the argmax read the list and not the slice (a list past 2048
+// columns falls back to the slice).  The argmax reads the noise of the
+// kept columns alone: a masked column scores -inf and cannot win (a row
+// whose scores are all -inf gives column 0, as jnp.argmax does).  Each
+// CTA writes its partial argmax into rank 0's shared memory; after a last
+// cluster barrier rank 0 merges the partials and writes the token.  No
+// global scratch, no memset, no second kernel: five cluster barriers with
+// top-k (four merges and the last), one without (and the start's, waited
+// for before the first remote access).  Bound: bytes (each logit read
+// once, and the noise of the columns that can win).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
 
+#include "mma.cuh"   // rt::cp_async16, cp_async_commit / wait, smem_u32
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;      // one 8-bit digit
-constexpr int kPasses = 4;
-static_assert(kBins == kThreads, "row_select: one bin per thread");
+constexpr int kThreads = 256;   // the greedy kernels' CTA
+constexpr int kMaxCluster = 16;   // kernels/sampling.py CLUSTER_SIZES
 
 __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   const bool an = isnan(a), bn = isnan(b);
@@ -66,74 +88,6 @@ __device__ __forceinline__ float from_ordered(unsigned u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
-struct Prefix {
-  unsigned value, mask;
-};
-
-// Called by every thread of a CTA: the digits of row b chosen by passes
-// 0 .. npass-1, from their histograms hist[p][b][bin].  Thread t owns
-// digit 255 - t, so an inclusive scan over t counts the elements at or
-// above each digit; the kth largest falls in the digit where that count
-// first reaches k.
-__device__ Prefix row_select(const unsigned* __restrict__ hist, int b,
-                             int B, int npass, int k) {
-  __shared__ unsigned s_warp[kWarps];
-  __shared__ unsigned s_prefix, s_krem;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int digit = kBins - 1 - (int)threadIdx.x;
-  Prefix pre{0u, 0u};
-  unsigned krem = (unsigned)k;
-  for (int p = 0; p < npass; ++p) {
-    const int shift = 24 - 8 * p;
-    const unsigned cnt = hist[((long long)p * B + b) * kBins + digit];
-    unsigned incl = cnt;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned n = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += n;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) incl += s_warp[w];
-    const unsigned above = incl - cnt;
-    if (above < krem && incl >= krem) {
-      s_prefix = pre.value | ((unsigned)digit << shift);
-      s_krem = krem - above;
-    }
-    __syncthreads();
-    pre.value = s_prefix;
-    pre.mask |= (unsigned)(kBins - 1) << shift;
-    krem = s_krem;
-    __syncthreads();
-  }
-  return pre;
-}
-
-// grid (chunks, B): pass `pass` of the radix select over each chunk.
-__global__ void __launch_bounds__(kThreads)
-topk_hist_kernel(const float* __restrict__ logits, unsigned* __restrict__ hist,
-                 int B, int V, int chunk, int pass, int k) {
-  __shared__ unsigned s_hist[kWarps][kBins];
-  const int b = blockIdx.y, c = blockIdx.x;
-  const Prefix pre = row_select(hist, b, B, pass, k);
-  for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads)
-    (&s_hist[0][0])[i] = 0;
-  __syncthreads();
-  const int shift = 24 - 8 * pass, warp = threadIdx.x >> 5;
-  const float* row = logits + (long long)b * V;
-  const int hi = min(V, (c + 1) * chunk);
-#pragma unroll 4
-  for (int i = c * chunk + threadIdx.x; i < hi; i += kThreads) {
-    const unsigned u = ordered(__ldg(row + i));
-    if ((u & pre.mask) == pre.value)
-      atomicAdd(&s_hist[warp][(u >> shift) & (kBins - 1)], 1u);
-  }
-  __syncthreads();
-  unsigned tot = 0;
-  for (int w = 0; w < kWarps; ++w) tot += s_hist[w][threadIdx.x];
-  if (tot)
-    atomicAdd(&hist[((long long)pass * B + b) * kBins + threadIdx.x], tot);
-}
-
 // the score of column i of one row
 struct GreedyRow {
   const float* lg;
@@ -142,38 +96,10 @@ struct GreedyRow {
   }
 };
 
-struct GumbelRow {
-  const float* lg;
-  const float* g;
-  float thr;     // -inf without top-k: every column kept
-  float t;
-  __device__ __forceinline__ float operator()(int i) const {
-    const float x = __ldg(lg + i);
-    if (x < thr) return -INFINITY;
-    return __fadd_rn(__ldg(g + i), __fdiv_rn(x, t));
-  }
-};
-
 struct Greedy {
   const float* logits;
   __device__ GreedyRow row(int b, int V) const {
     return GreedyRow{logits + (long long)b * V};
-  }
-};
-
-struct Gumbel {
-  const float* logits;
-  const float* g;
-  const unsigned* hist;   // the top-k histograms, or null
-  int B, k;
-  float t;
-  // called by every thread of the CTA (row_select synchronises it)
-  __device__ GumbelRow row(int b, int V) const {
-    const long long off = (long long)b * V;
-    const float thr = hist ? from_ordered(row_select(hist, b, B, kPasses,
-                                                     k).value)
-                           : -INFINITY;
-    return GumbelRow{logits + off, g + off, thr, t};
   }
 };
 
@@ -254,6 +180,363 @@ int launch_argmax(Score score, void* out, void* part, int B, int V,
   return cudaGetLastError();
 }
 
+constexpr int kGThreads = 512;   // the gumbel cluster kernel's CTA
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kChunk = 2048;      // bytes of one TMA bulk copy
+constexpr int kBins = 256;        // one 8-bit digit of the radix select
+constexpr int kFine = 2048;       // the first pass's local bins (11 bits)
+constexpr int kCap = 2048;        // a CTA's candidate list (columns)
+static_assert(kGThreads >= kBins, "gumbel select: a bin a thread");
+
+// 4 bytes global -> shared (a row that is not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// Waits for phase 0 of the mbarrier at shared address `bar`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar)
+      : "memory");
+}
+
+// The two halves of a cluster barrier: arrive releases this thread's
+// writes (shared memory included), wait acquires everyone's.  All threads
+// of every CTA take part (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Copies n floats of global src into shared dst, called by every thread;
+// returns when they have landed.  With vec (n, src 16-byte multiples)
+// warp 0 issues TMA bulk copies of kChunk bytes, completing on the
+// mbarrier `bar`; else every thread copies 4-byte elements with cp.async.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n,
+                                      bool vec, uint64_t* bar) {
+  const uint32_t b = rt::smem_u32(bar);
+  if (!vec) {
+    for (int i = threadIdx.x; i < n; i += kGThreads)
+      cp_async4(rt::smem_u32(dst + i), src + i);
+    rt::cp_async_commit();
+    rt::cp_async_wait<0>();
+    __syncthreads();
+    return;
+  }
+  if (threadIdx.x == 0)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 "fence.mbarrier_init.release.cluster;\n" ::"r"(b)
+                 : "memory");
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const unsigned bytes = 4u * n;
+    if (threadIdx.x == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   ::"r"(b), "r"(bytes)
+                   : "memory");
+    __syncwarp();
+    for (unsigned off = kChunk * threadIdx.x; off < bytes;
+         off += kChunk * 32) {
+      const unsigned len = min(bytes - off, (unsigned)kChunk);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(rt::smem_u32(dst) + off),
+          "l"(reinterpret_cast<const char*>(src) + off), "r"(len), "r"(b)
+          : "memory");
+    }
+  }
+  mbar_wait(b);
+}
+
+// f(column in the slice, value) for this thread's share of n floats of
+// shared memory: 16-byte reads, then the ragged tail.
+template <class F>
+__device__ __forceinline__ void each(const float* s, int n, F&& f) {
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+  const int n4 = n >> 2;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < n4; i += kGThreads) {
+    const float4 v = s4[i];
+    f(4 * i, v.x);
+    f(4 * i + 1, v.y);
+    f(4 * i + 2, v.z);
+    f(4 * i + 3, v.w);
+  }
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += kGThreads) f(i, s[i]);
+}
+
+// The select's shared state: this CTA's histograms, rank 0's sums of the
+// cluster's (one buffer a pass), the candidate list, scan words.
+struct Select {
+  unsigned fine[kFine];
+  unsigned hist[kBins];
+  unsigned sum[4][kBins];
+  int list[kCap];
+  unsigned warp[kBins / 32];
+  unsigned count, prefix, krem;
+};
+
+// Adds this CTA's counts (v for bin t < 256, thread t) into rank 0's sums
+// of pass p, then the cluster barrier after which every CTA's are in; then
+// every thread learns the digit (at `shift`) holding the krem-th largest
+// of the elements that match `prefix` above it (sel.prefix, sel.krem).
+// Thread t < 256 owns digit 255 - t (the sums read in that order), so an
+// inclusive scan over t counts the elements at or above each digit.
+__device__ __forceinline__ void merge_choose(unsigned* sum0, Select& sel,
+                                             int p, unsigned v,
+                                             unsigned prefix, int shift,
+                                             unsigned krem) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t < kBins && v) atomicAdd(sum0 + p * kBins + t, v);
+  cluster_sync();
+  if (t < kBins) {
+    const int digit = kBins - 1 - t;
+    const unsigned cnt = sum0[p * kBins + digit];
+    unsigned incl = cnt;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned m = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += m;
+    }
+    if (lane == 31) sel.warp[warp] = incl;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kBins) : "memory");
+    for (int w = 0; w < warp; ++w) incl += sel.warp[w];
+    const unsigned above = incl - cnt;
+    if (above < krem && incl >= krem) {
+      sel.prefix = prefix | ((unsigned)digit << shift);
+      sel.krem = krem - above;
+    }
+  }
+  __syncthreads();
+}
+
+// This CTA's count of bin t < 256 of sel.hist, which it zeroes for the
+// next pass.
+__device__ __forceinline__ unsigned take(Select& sel) {
+  __syncthreads();
+  unsigned v = 0;
+  if (threadIdx.x < kBins) {
+    v = sel.hist[threadIdx.x];
+    sel.hist[threadIdx.x] = 0;
+  }
+  return v;
+}
+
+// The kth largest logit of the cluster's row, duplicates counted, from its
+// slices in each CTA's shared memory (lg, n floats): four 8-bit radix
+// passes, each merged in rank 0's sums.  The first counts the top 11 bits
+// locally (2048 bins: most logits share a few sign-and-exponent bins of
+// the top 8, whose shared atomics would collide) and folds them to 8.  The
+// second also lists this CTA's candidates, the columns at or above the
+// first digit chosen (and NaN, which no mask drops): the last two passes,
+// and the argmax, read the list alone unless it overflowed kCap (then
+// *list is false and they read the slice).  Called by every thread; the
+// cluster barrier armed at the kernel's start is waited for here.
+__device__ float cluster_kth(cg::cluster_group& cluster, const float* lg,
+                             int n, int k, Select& sel, bool* list) {
+  const int lane = threadIdx.x & 31;
+  unsigned* sum0 = cluster.map_shared_rank(&sel.sum[0][0], 0);
+  each(lg, n,
+       [&](int, float x) { atomicAdd(&sel.fine[ordered(x) >> 21], 1u); });
+  __syncthreads();
+  unsigned v = 0;
+  if (threadIdx.x < kBins)
+    for (int j = 0; j < kFine / kBins; ++j)
+      v += sel.fine[threadIdx.x * (kFine / kBins) + j];
+  cluster_wait();                      // rank 0 runs, its sums are zero
+  merge_choose(sum0, sel, 0, v, 0u, 24, (unsigned)k);
+  unsigned prefix = sel.prefix, krem = sel.krem;
+  // pass 1: bits 23-16 of the elements in the chosen bin; every element
+  // at or above it joins the list (warp-aggregated appends)
+  const unsigned d0 = prefix >> 24;
+  each(lg, n, [&](int i, float x) {
+    const unsigned u = ordered(x), top = u >> 24;
+    if (top == d0) atomicAdd(&sel.hist[(u >> 16) & (kBins - 1)], 1u);
+    const bool cand = top >= d0 || isnan(x);
+    const unsigned active = __activemask();
+    const unsigned want = __ballot_sync(active, cand);
+    if (!want) return;
+    const int leader = __ffs(want) - 1;
+    unsigned base = 0;
+    if (lane == leader) base = atomicAdd(&sel.count, __popc(want));
+    base = __shfl_sync(active, base, leader);
+    const unsigned pos = base + __popc(want & ((1u << lane) - 1));
+    if (cand && pos < kCap) sel.list[pos] = i;
+  });
+  merge_choose(sum0, sel, 1, take(sel), prefix, 16, krem);
+  *list = sel.count <= kCap;
+  // passes 2-3: the next 8 bits of the elements matching the prefix
+  for (int p = 2; p < 4; ++p) {
+    prefix = sel.prefix;
+    krem = sel.krem;
+    const int shift = 24 - 8 * p;
+    const unsigned mask = ~0u << (shift + 8);
+    auto count = [&](float x) {
+      const unsigned u = ordered(x);
+      if ((u & mask) == prefix)
+        atomicAdd(&sel.hist[(u >> shift) & (kBins - 1)], 1u);
+    };
+    if (*list) {
+      for (int j = threadIdx.x; j < (int)sel.count; j += kGThreads)
+        count(lg[sel.list[j]]);
+    } else {
+      each(lg, n, [&](int, float x) { count(x); });
+    }
+    merge_choose(sum0, sel, p, take(sel), prefix, shift, krem);
+  }
+  return from_ordered(sel.prefix);
+}
+
+// grid (cluster, B), clusters of (cluster, 1, 1): row b's slices.  TOPK
+// (top_k > 0): dynamic shared memory holds the CTA's logits slice (`slice`
+// floats, a multiple of 4) and the noise of the kept columns is read from
+// device memory alone.  Without, logits and noise are streamed once from
+// device memory and nothing is staged (nor is the select's shared memory
+// allocated).
+template <bool TOPK>
+__global__ void __launch_bounds__(kGThreads)
+gumbel_cluster_kernel(const float* __restrict__ logits,
+                      const float* __restrict__ gumbel,
+                      int* __restrict__ out, int V, int slice, int top_k,
+                      float t, bool vec) {
+  __shared__ float s_val[kMaxCluster];           // rank 0's: the partials
+  __shared__ int s_idx[kMaxCluster];
+  __shared__ float s_wval[kGWarps];
+  __shared__ int s_widx[kGWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = rank * slice;
+  const int n = max(0, min(slice, V - lo));
+  const float* lg = logits + (long long)b * V + lo;
+  const float* g = gumbel + (long long)b * V + lo;
+  float best = -INFINITY;
+  int idx = INT_MAX;
+  auto consider = [&](int i, float sc) {
+    if (better(sc, lo + i, best, idx)) {
+      best = sc;
+      idx = lo + i;
+    }
+  };
+  if constexpr (TOPK) {
+    extern __shared__ __align__(16) float s_lg[];
+    __shared__ Select sel;
+    __shared__ __align__(8) uint64_t s_bar;      // the logits have landed
+    for (int i = threadIdx.x; i < 4 * kBins; i += kGThreads)
+      (&sel.sum[0][0])[i] = 0;
+    for (int i = threadIdx.x; i < kFine; i += kGThreads) sel.fine[i] = 0;
+    if (threadIdx.x < kBins) sel.hist[threadIdx.x] = 0;
+    if (threadIdx.x == 0) sel.count = 0;
+    cluster_arrive();            // this CTA runs, its sums are zero
+    stage(s_lg, lg, n, vec, &s_bar);
+    bool list;
+    const float thr = cluster_kth(cluster, s_lg, n, top_k, sel, &list);
+    // the kept columns (lg >= kth; NaN too) with their noise: a masked
+    // column scores -inf and never wins (a row whose scores are all -inf
+    // gives column 0 below)
+    auto keep = [&](int i, float x) {
+      if (!(x < thr)) consider(i, __fadd_rn(__ldg(g + i), __fdiv_rn(x, t)));
+    };
+    if (list) {
+      for (int j = threadIdx.x; j < (int)sel.count; j += kGThreads)
+        keep(sel.list[j], s_lg[sel.list[j]]);
+    } else {
+      each(s_lg, n, keep);
+    }
+  } else {
+    cluster_arrive();            // this CTA runs
+    if (vec) {
+      const float4* l4 = reinterpret_cast<const float4*>(lg);
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+#pragma unroll 4
+      for (int i = threadIdx.x; i < n >> 2; i += kGThreads) {
+        const float4 x = __ldcs(l4 + i), y = __ldcs(g4 + i);
+        consider(4 * i, __fadd_rn(y.x, __fdiv_rn(x.x, t)));
+        consider(4 * i + 1, __fadd_rn(y.y, __fdiv_rn(x.y, t)));
+        consider(4 * i + 2, __fadd_rn(y.z, __fdiv_rn(x.z, t)));
+        consider(4 * i + 3, __fadd_rn(y.w, __fdiv_rn(x.w, t)));
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += kGThreads)
+        consider(i, __fadd_rn(__ldcs(g + i), __fdiv_rn(__ldcs(lg + i), t)));
+    }
+    cluster_wait();              // rank 0 runs
+  }
+  warp_best(best, idx);
+  if (lane == 0) {
+    s_wval[warp] = best;
+    s_widx[warp] = idx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < kGWarps ? s_wval[lane] : -INFINITY;
+    idx = lane < kGWarps ? s_widx[lane] : INT_MAX;
+    warp_best(best, idx);
+    if (lane == 0) {
+      *cluster.map_shared_rank(&s_val[rank], 0) = best;
+      *cluster.map_shared_rank(&s_idx[rank], 0) = idx;
+    }
+  }
+  cluster_sync();                   // every partial is in rank 0
+  if (rank != 0 || warp != 0) return;
+  const int c = (int)cluster.num_blocks();
+  best = lane < c ? s_val[lane] : -INFINITY;
+  idx = lane < c ? s_idx[lane] : INT_MAX;
+  warp_best(best, idx);
+  // every score -inf (no NaN): jnp.argmax's first column
+  if (lane == 0) out[b] = best == -INFINITY ? 0 : idx;
+}
+
+// Columns of a CTA's slice (kernels/sampling.py gumbel_slice): the row
+// over `cluster` CTAs, rounded up to a multiple of 4.
+int gumbel_slice(int V, int cluster) {
+  return ((V + cluster - 1) / cluster + 3) / 4 * 4;
+}
+
+// Lets the TOPK kernel take `smem` bytes of dynamic shared memory and, for
+// more than 8 CTAs, a non-portable cluster size, on the current device.
+// Each attribute is set once a device (a later launch asking no more sets
+// nothing, so a launch under CUDA graph capture makes no such call).
+template <bool TOPK>
+cudaError_t allow(int smem, int cluster) {
+  constexpr int kDevices = 64;
+  static int smem_set[kDevices] = {};
+  static bool wide_set[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(gumbel_cluster_kernel<TOPK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = smem;
+  }
+  if (cluster > 8 && !wide_set[dev]) {
+    err = cudaFuncSetAttribute(gumbel_cluster_kernel<TOPK>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+    wide_set[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // part: int32 scratch of 2 * B * chunks (unused when chunks == 1).
@@ -266,32 +549,44 @@ extern "C" int rt_greedy_sample(const void* logits, void* out, void* part,
                        B, V, chunks, static_cast<cudaStream_t>(stream));
 }
 
-// hist: uint32 scratch of kPasses * B * 256 (unused when top_k == 0).
+// One cluster launch a call: grid (cluster, B), clusters of (cluster, 1,
+// 1), with top-k the logits slice's dynamic shared memory; cluster in [1,
+// 16], its slices within the shared memory a block may hold (the
+// wrapper's plan picks it).
 extern "C" int rt_gumbel_sample(const void* logits, const void* gumbel,
-                                void* out, void* part, void* hist, int B,
-                                int V, int chunks, int top_k,
-                                float temperature, void* stream) {
-  if (B <= 0 || V <= 0 || chunks < 1 || chunks > V || B > 65535 ||
-      top_k < 0 || top_k > V || !(temperature > 0.0f))
+                                void* out, int B, int V, int cluster,
+                                int top_k, float temperature, void* stream) {
+  if (B <= 0 || V <= 0 || B > 65535 || cluster < 1 ||
+      cluster > kMaxCluster || top_k < 0 || top_k > V ||
+      !(temperature > 0.0f))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int slice = gumbel_slice(V, cluster);
+  const int smem = top_k ? slice * (int)sizeof(float) : 0;
+  cudaError_t err = top_k ? allow<true>(smem, cluster)
+                          : allow<false>(smem, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B, 1);
+  cfg.blockDim = dim3(kGThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   const float* lg = static_cast<const float*>(logits);
-  unsigned* h = nullptr;
-  if (top_k > 0) {
-    h = static_cast<unsigned*>(hist);
-    cudaError_t err = cudaMemsetAsync(
-        h, 0, sizeof(unsigned) * kPasses * B * kBins, s);
-    if (err != cudaSuccess) return err;
-    const int chunk = (V + chunks - 1) / chunks;
-    for (int p = 0; p < kPasses; ++p) {
-      topk_hist_kernel<<<dim3(chunks, B), kThreads, 0, s>>>(lg, h, B, V,
-                                                            chunk, p, top_k);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-  }
-  return launch_argmax(
-      Gumbel{lg, static_cast<const float*>(gumbel), h, B, top_k,
-             temperature},
-      out, part, B, V, chunks, s);
+  const float* g = static_cast<const float*>(gumbel);
+  const bool vec = V % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(lg) |
+                     reinterpret_cast<uintptr_t>(g)) & 15) == 0;
+  int* o = static_cast<int*>(out);
+  err = top_k ? cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<true>, lg, g,
+                                   o, V, slice, top_k, temperature, vec)
+              : cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<false>, lg, g,
+                                   o, V, slice, top_k, temperature, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }

@@ -130,12 +130,11 @@ def slot_state_scatter(pool: torch.Tensor, state_slots: torch.Tensor,
     """Write each row's recurrent state to its slot of ``pool`` (S, *F),
     in place; rows with ``valid_len == 0`` (padding, stale rows) write
     trash slot 0 instead, so they can never advance a live slot's state.
-    Goes through the ``slot_scatter`` kernel on the card."""
-    wslot = (state_slots if valid_len is None
-             else torch.where(valid_len > 0, state_slots,
-                              torch.zeros_like(state_slots)))
-    return slot_scatter(pool, wslot.to(torch.int32).contiguous(),
-                        value.to(pool.dtype).contiguous())
+    On the card one ``slot_scatter`` launch, which routes those rows
+    itself from ``valid_len`` (int32 or int64) as it comes."""
+    return slot_scatter(pool, state_slots.to(torch.int32).contiguous(),
+                        value.to(pool.dtype).contiguous(),
+                        valid_len=valid_len)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -11,11 +11,13 @@ Tolerances: float32 within atol/rtol 1e-4 (two f32 softmax orders);
 bfloat16 within atol 1e-3 + rtol 1e-2 (kernel and plain version both
 round an f32 result to bf16, so they may differ by one bf16 ulp, at
 most 2^-7 = 0.0078 of the value); greedy and gumbel sampling exactly
-equal; the fused update within one bf16 ulp for bf16 w and 1e-6
-relative for f32 state (kernel and plain version round each operation
-alike, so they agree exactly in practice); the slot gather and scatter
-bit for bit (the scatter on every slot but trash slot 0, and on slot 0
-too where the destinations are distinct); the SSD block within
+equal (gumbel at every cluster size the plan takes for a vocabulary);
+the fused update within one bf16 ulp for bf16 w and 1e-6 relative for
+f32 state (kernel
+and plain version round each operation alike, so they agree exactly in
+practice); the slot gather and scatter bit for bit (the scatter on
+every slot but trash slot 0, and on slot 0 too where the destinations
+are distinct); the SSD block within
 |kernel - plain| <= a * max|plain| + r * |plain|, a = r = 1e-4 for
 float32 outputs (f32 sums over up to 256 keys and 256 state columns in
 another order) and a = 1e-3, r = 1e-2 for bfloat16 y (one bf16 ulp);
@@ -297,43 +299,147 @@ def test_wrapper_counts_kernel_launches(dev):
     assert sampling.greedy_sample.launches == before + 1
 
 
-@pytest.mark.parametrize("b,v", [(1, 1000), (8, 151936), (136, 151936),
-                                 (5, 203)])
+def _graph_kernels(fn, calls=4):
+    """Kernel nodes of a CUDA graph that captures ``calls`` calls of
+    ``fn`` (one call first, outside the capture)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kind, kernels = ctypes.c_int(-1), 0
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kernels += kind.value == 0              # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels, n.value
+
+
+def _slice_edges(v, cluster):
+    """Columns on both sides of each edge between the slices of kernel
+    4's cluster CTAs (``gumbel_slice``), and the last column."""
+    sl = sampling.gumbel_slice(v, cluster)
+    cols = {v - 1}
+    for r in range(1, cluster):
+        if r * sl < v:
+            cols |= {r * sl - 1, r * sl}
+    return sorted(cols)
+
+
+def _plan_rows(v, top_k, sms, least=1):
+    """{cluster size: rows} for every cluster size ``gumbel_plan`` takes
+    over ``v``-column rows: the fewest rows (from ``least`` up to 2 x
+    ``sms``) at which it does."""
+    sizes = {}
+    for b in range(least, 2 * sms + 1):
+        sizes.setdefault(sampling.gumbel_plan(b, v, sms, top_k), b)
+    return sizes
+
+
+@pytest.mark.parametrize("v", [1000, 151936, 50280, 129280, 203, 4096])
 @pytest.mark.parametrize("top_k", [0, 1, 7, 50])
-def test_gumbel_kernel_exact_with_ties(dev, b, v, top_k):
-    """Ties planted at the kth value (so more than k columns are kept),
-    at the edges of the column chunks and at the last column; noise from
-    the reference's threefry draw."""
+def test_gumbel_kernel_exact_with_ties(dev, v, top_k):
+    """At every cluster size the plan takes for V (each at the fewest
+    rows that make it): ties planted at the kth value (so more than k
+    columns are kept) on both sides of every slice edge and at the last
+    column; noise from the reference's threefry draw."""
     gen = torch.Generator(device=dev).manual_seed(v + top_k)
-    lg = torch.randn((b, v), generator=gen, device=dev) * 3
-    chunk = -(-v // sampling.greedy_chunks(b, v, sm_count(dev)))
-    if top_k:
-        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
-        cols = torch.tensor([min(chunk, v - 1), min(chunk - 1, v - 1),
-                             v - 1], device=dev)
-        lg[:, cols] = kth.expand(-1, 3)
-    keys = prng.sample_keys(3, torch.arange(b, device=dev),
-                            torch.full((b,), 17, device=dev))
-    g = prng.gumbel(keys, v)
-    got = sampling.gumbel_sample(lg, g, temperature=0.8, top_k=top_k)
-    want = sampling.gumbel_sample_plain(lg, g, temperature=0.8, top_k=top_k)
-    assert torch.equal(got, want)
+    for cluster, b in _plan_rows(v, top_k, sm_count(dev)).items():
+        lg = torch.randn((b, v), generator=gen, device=dev) * 3
+        keys = prng.sample_keys(3, torch.arange(b, device=dev),
+                                torch.full((b,), 17, device=dev))
+        g = prng.gumbel(keys, v)
+        if top_k:
+            kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+            cols = torch.tensor(_slice_edges(v, cluster), device=dev)
+            lg[:, cols] = kth.expand(-1, len(cols))
+        got = sampling.gumbel_sample(lg, g, temperature=0.8, top_k=top_k)
+        want = sampling.gumbel_sample_plain(lg, g, temperature=0.8,
+                                            top_k=top_k)
+        assert torch.equal(got, want), (cluster, b, top_k)
 
 
-def test_gumbel_kernel_ties_on_equal_scores(dev):
-    """Equal scores (zero noise, equal logits) at a chunk edge and the
-    vocab edge go to the lowest column."""
-    b, v = 8, 151936
-    chunk = -(-v // sampling.greedy_chunks(b, v, sm_count(dev)))
-    lg = torch.zeros((b, v), device=dev)
-    lg[:, [chunk - 1, chunk, v - 1]] = 5.0
-    lg[1, chunk - 1] = 0.0
-    g = torch.zeros_like(lg)
+@pytest.mark.parametrize("v", [151936, 50280, 4096])
+def test_gumbel_kernel_ties_on_equal_scores(dev, v):
+    """Equal scores (zero noise, equal logits) on both sides of each
+    slice edge and at the vocab edge go to the lowest column, at every
+    cluster size the plan takes for V."""
     for top_k in (0, 3, 10):
-        got = sampling.gumbel_sample(lg, g, temperature=0.7, top_k=top_k)
+        for cluster, b in _plan_rows(v, top_k, sm_count(dev), 3).items():
+            edges = _slice_edges(v, cluster)
+            g = torch.zeros((b, v), device=dev)
+            lg = torch.zeros((b, v), device=dev)
+            lg[:, edges] = 5.0
+            want = [edges[0]]
+            if len(edges) >= 3:
+                lg[1, edges[0]] = 0.0
+                lg[2, :edges[-2] + 1] = 0.0
+                want = [edges[0], edges[1], edges[-1]]
+            got = sampling.gumbel_sample(lg, g, temperature=0.7,
+                                         top_k=top_k)
+            assert torch.equal(got, sampling.gumbel_sample_plain(
+                lg, g, temperature=0.7, top_k=top_k))
+            assert got.tolist()[:len(want)] == want, (cluster, top_k)
+
+
+@pytest.mark.parametrize("top_k", [0, 1, 5])
+def test_gumbel_kernel_nan_and_neg_inf_rows(dev, top_k):
+    """A NaN wins its row (the first NaN, also across slices), a row of
+    -inf gives column 0, and a row of equal logits (every column a
+    top-k candidate: each CTA's list overflows and the select reads its
+    whole slice) goes by the noise, at every cluster size the plan takes
+    for V."""
+    v = 50280
+    gen = torch.Generator(device=dev).manual_seed(top_k)
+    for cluster, b in _plan_rows(v, top_k, sm_count(dev), 4).items():
+        sl = sampling.gumbel_slice(v, cluster)
+        g = torch.randn((b, v), generator=gen, device=dev)
+        lg = torch.randn((b, v), generator=gen, device=dev)
+        lg[0] = -float("inf")
+        lg[1, [min(sl + 3, v - 1), v - 1]] = float("nan")
+        lg[2, 11] = float("nan")
+        lg[3] = 1.5
+        got = sampling.gumbel_sample(lg, g, temperature=0.8, top_k=top_k)
         assert torch.equal(got, sampling.gumbel_sample_plain(
-            lg, g, temperature=0.7, top_k=top_k))
-        assert got[0] == chunk - 1 and got[1] == chunk
+            lg, g, temperature=0.8, top_k=top_k)), cluster
+        assert got.tolist()[:3] == [0, min(sl + 3, v - 1), 11]
+
+
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_gumbel_kernel_is_one_launch_a_call(dev, top_k):
+    """One kernel node a call in a captured CUDA graph (no memset, no
+    merge kernel), at the plan's cluster sizes for 8 and 136 rows."""
+    for b in (8, 136):
+        lg = torch.randn((b, 151936), device=dev)
+        g = torch.randn_like(lg)
+        before = sampling.gumbel_sample.launches
+        kernels, nodes = _graph_kernels(lambda: sampling.gumbel_sample(
+            lg, g, temperature=0.8, top_k=top_k), calls=4)
+        assert (kernels, nodes) == (4, 4)
+        assert sampling.gumbel_sample.launches == before + 5
+
+
+def test_gumbel_kernel_refuses_a_row_no_cluster_holds(dev):
+    """With top-k, a row whose slices no cluster's shared memory holds
+    raises: there is no other launch to fall back to.  Without top-k
+    nothing is staged, and the same row samples exactly."""
+    v = 16 * sampling.GUMBEL_SMEM_BYTES // 4 + 64
+    lg = torch.randn((2, v), device=dev)
+    g = torch.randn_like(lg)
+    with pytest.raises(ValueError, match="does not fit"):
+        sampling.gumbel_sample(lg, g, temperature=1.0, top_k=50)
+    got = sampling.gumbel_sample(lg, g, temperature=1.0)
+    assert torch.equal(got, sampling.gumbel_sample_plain(
+        lg, g, temperature=1.0))
 
 
 def test_prng_bits_on_card_equal_cpu(dev):
@@ -519,38 +625,59 @@ def test_slot_gather_bool_mask_is_one_kernel(dev):
 @pytest.mark.parametrize("b", ROWS)
 @pytest.mark.parametrize("layers", [0, 3])
 def test_slot_scatter_kernel_bit_exact(dev, case, b, layers):
-    """Rows with valid_len 0 are routed to trash slot 0 first
-    (``layers.slot_state_scatter``'s rule): every other slot is exact;
-    slot 0 too when the destinations are distinct."""
+    """Rows with valid_len 0 write trash slot 0, routed by the kernel from
+    valid_len in each dtype it reads (int32, int64), or routed by the
+    caller with no valid_len: every other slot is exact against the plain
+    version; slot 0 too when the destinations are distinct."""
     s, feat, dt = case
     pool, slots, values, distinct = _slot_case(dev, s, feat, dt, b, layers,
                                                s + b)
     stacked = bool(layers)
     stale = torch.tensor(np.arange(b) % 4 == 2, device=dev)
     routed = torch.where(stale, torch.zeros_like(slots), slots)
-    for dst in ((slots, routed) if b > 2 else (slots,)):
+    vl = torch.where(stale, 0, 1 + torch.arange(b, device=dev) % 3)
+    calls = [(slots, None)] + ([(routed, None)] + [
+        (slots, vl.to(t)) for t in (torch.int32, torch.int64)]
+        if b > 2 else [])
+    before = slot_state.slot_scatter.launches
+    for dst, valid in calls:
         got, want = pool.clone(), pool.clone()
-        slot_state.slot_scatter(got, dst, values, stacked=stacked)
-        slot_state.slot_scatter_plain(want, dst, values, stacked=stacked)
+        slot_state.slot_scatter(got, dst, values, valid_len=valid,
+                                stacked=stacked)
+        slot_state.slot_scatter_plain(want, dst, values, valid_len=valid,
+                                      stacked=stacked)
         body = (slice(None), slice(1, None)) if stacked else (
             slice(1, None),)
         assert torch.equal(got[body], want[body])
-        if distinct and dst is slots:
+        if distinct and dst is slots and valid is None:
             assert torch.equal(got, want)
+        if valid is not None:          # the same as routing first
+            ref = pool.clone()
+            slot_state.slot_scatter(ref, routed, values, stacked=stacked)
+            assert torch.equal(got[body], ref[body])
+    assert slot_state.slot_scatter.launches == before + len(calls) + sum(
+        v is not None for _, v in calls)
 
 
 def test_slot_state_scatter_route_on_card(dev):
-    """The route through ``layers.slot_state_scatter`` on the card
-    launches the kernel and leaves a live slot alone for a stale row."""
+    """The route through ``layers.slot_state_scatter`` on the card is one
+    kernel a call (valid_len read by the scatter: no compare, zeros or
+    select first) and leaves a live slot alone for a stale row."""
     from repro_torch.models.layers import slot_state_scatter
     pool = torch.zeros((4, 6), device=dev)
     slots = torch.tensor([1, 2], dtype=torch.int32, device=dev)
     vl = torch.tensor([3, 0], dtype=torch.int32, device=dev)
+    value = torch.ones((2, 6), device=dev)
     before = slot_state.slot_scatter.launches
-    slot_state_scatter(pool, slots, vl, torch.ones((2, 6), device=dev))
+    slot_state_scatter(pool, slots, vl, value)
     assert slot_state.slot_scatter.launches == before + 1
     assert torch.equal(pool[1], torch.ones(6, device=dev))
     assert torch.equal(pool[2], torch.zeros(6, device=dev))
+    assert torch.equal(pool[0], torch.ones(6, device=dev))
+    for valid in (vl, vl.long(), None):
+        kernels, nodes = _graph_kernels(
+            lambda: slot_state_scatter(pool, slots, valid, value))
+        assert (kernels, nodes) == (4, 4), valid
 
 
 # ---------------------------------------------------------------------------

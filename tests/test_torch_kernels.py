@@ -292,7 +292,7 @@ def test_profiler_groups_every_port_kernel():
     names = _build.kernel_names()
     assert {"flash_decode_paged_kernel", "decode_view_kernel",
             "combine_splits", "argmax_chunk_kernel", "argmax_merge_kernel",
-            "topk_hist_kernel", "fused_sgd_kernel", "slot_gather_kernel",
+            "gumbel_cluster_kernel", "fused_sgd_kernel", "slot_gather_kernel",
             "slot_scatter_kernel", "ssd_chunk_kernel", "flash_attention_tc",
             "flash_attention_f32", "flash_decode_bhd_kernel"} <= set(names)
     for name in names:

@@ -9,9 +9,15 @@
   ``ref.sample_tokens`` and of ``ops.sample_tokens(impl="pallas")``
   (Pallas in interpret mode) on the same logits and keys, with ties
   planted at the kth value.
+- ``sampling.gumbel_plan`` (kernel 4's cluster size) is pinned at the
+  engine's row counts for the three served vocabularies on a 132-SM card
+  (an H100 SXM), with top-k each CTA's staged slice within a block's
+  shared memory.
 - The port's ``Engine`` at temperature 0.8, top_k 0 and 20, depths 1 and
   4, is token-identical to the JAX engine on the same weights.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,7 +110,7 @@ def _tied_logits(b, v, top_k, seed):
     return lg
 
 
-@pytest.mark.parametrize("top_k", [0, 1, 5])
+@pytest.mark.parametrize("top_k", [0, 1, 5, 50])
 def test_plain_gumbel_sample_equals_reference_and_pallas(top_k):
     b, v, t = 6, 1000, 0.8
     lg = _tied_logits(b, v, top_k, seed=top_k)
@@ -124,6 +130,92 @@ def test_plain_gumbel_sample_equals_reference_and_pallas(top_k):
     if top_k:
         kth = np.sort(lg, axis=1)[:, ::-1][:, top_k - 1]
         assert (lg[np.arange(b), got] >= kth).all()
+
+
+@pytest.mark.parametrize("top_k", [0, 3])
+def test_plain_gumbel_sample_all_neg_inf_row_gives_column_0(top_k):
+    """A row of -inf logits scores -inf everywhere: column 0, as
+    ``ref.sample_tokens`` gives it, beside an ordinary row."""
+    lg = np.full((4, 40), -np.inf, np.float32)
+    lg[1] = np.random.default_rng(top_k).standard_normal(40)
+    rids, pos = _rows(4, seed=3)
+    keys = jref.sample_keys(1, rids, pos)
+    want = np.asarray(jref.sample_tokens(jnp.asarray(lg), keys,
+                                         temperature=0.8, top_k=top_k))
+    tk = prng.sample_keys(1, torch.from_numpy(rids), torch.from_numpy(pos))
+    got = sampling.gumbel_sample(torch.from_numpy(lg), prng.gumbel(tk, 40),
+                                 temperature=0.8, top_k=top_k).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == 0
+
+
+SMS = 132
+# a block's shared memory on an H100 and what kernel 4 keeps there besides
+# its logits slice (csrc/sampling.cu gumbel_cluster_kernel: a 2048-bin
+# and a 256-bin histogram, 4 summed ones of 256 bins, a 2048-column
+# candidate list, scan and count words, partials, an mbarrier)
+BLOCK_SMEM = 232_448
+STATIC_SMEM = 4 * (2048 + 256 + 4 * 256 + 2048 + 8 + 3 + 2 * 16 + 2 * 16) + 8
+# (vocab, rows) -> cluster size without and with top-k: the engine's rows
+# (decode buckets 8/4/2, mixed 136 / 264, chip_smoke's 1 and 64) for
+# qwen2-1.5b, mamba2-370m and deepseek-v3
+ROWS = (1, 2, 4, 8, 64, 136, 264)
+GUMBEL_PLANS = {
+    **{(151936, b): c for b, c in zip(ROWS, [(16, 16)] * 4
+                                      + [(4, 8), (2, 8), (1, 8)])},
+    **{(50280, b): c for b, c in zip(ROWS, [(16, 16)] * 4
+                                     + [(4, 4), (2, 4), (1, 4)])},
+    **{(129280, b): c for b, c in zip(ROWS, [(16, 16)] * 4
+                                      + [(4, 8), (2, 8), (1, 8)])},
+}
+
+
+@pytest.mark.parametrize("v,b", list(GUMBEL_PLANS))
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_gumbel_plan_at_the_engine_rows(v, b, top_k):
+    c = sampling.gumbel_plan(b, v, SMS, top_k)
+    assert c == GUMBEL_PLANS[(v, b)][bool(top_k)]
+    sl = sampling.gumbel_slice(v, c)
+    # the slices cover the row, none empty, 16-byte copies
+    assert sl % 4 == 0 and (c - 1) * sl < v <= c * sl
+    fits = sampling.gumbel_clusters(v, top_k)
+    if not top_k:
+        # one streaming pass: the launch nearest two CTAs an SM
+        want = sampling.STREAM_CTAS_PER_SM * SMS
+        assert all(abs(math.log(b * c / want)) <= abs(math.log(b * d / want))
+                   for d in fits)
+        return
+    # the logits slice, staged, within a block's shared memory; the
+    # select's slice at most SELECT_SLICE columns, unless the rows are too
+    # few to fill the card with it
+    assert 4 * sl <= sampling.GUMBEL_SMEM_BYTES
+    assert 4 * sl + STATIC_SMEM <= BLOCK_SMEM
+    fits = [d for d in fits
+            if sampling.gumbel_slice(v, d) <= sampling.SELECT_SLICE]
+    if b * c < SMS:
+        # too few rows to fill the card: the largest cluster
+        assert c == fits[-1] == max(sampling.CLUSTER_SIZES)
+    else:
+        # the smallest that gives every SM a CTA
+        assert all(b * d < SMS for d in fits if d < c)
+
+
+def test_gumbel_plan_small_and_unfit_vocabularies():
+    # a slice below MIN_SLICE columns does not pay for a cluster
+    assert sampling.gumbel_clusters(1000, 0) == [1]
+    assert sampling.gumbel_plan(5, 203, SMS, 0) == 1
+    assert sampling.gumbel_plan(5, 203, SMS, 3) == 1
+    assert sampling.gumbel_slice(203, 1) == 204
+    assert sampling.gumbel_clusters(4096, 3) == [1, 2, 4]
+    # with top-k a row no cluster of 16 holds raises; the wrapper has no
+    # fallback.  Without, nothing is staged, so any cluster fits.
+    v = 16 * sampling.GUMBEL_SMEM_BYTES // 4 + 64
+    assert sampling.gumbel_clusters(v, 50) == []
+    with pytest.raises(ValueError, match="does not fit"):
+        sampling.gumbel_plan(8, v, SMS, 50)
+    assert sampling.gumbel_clusters(v, 0) == list(sampling.CLUSTER_SIZES)
+    assert sampling.gumbel_plan(8, v, SMS, 0) == 16
+    assert sampling.gumbel_plan(264, v, SMS, 0) == 1
 
 
 def test_gumbel_sample_rejects_bad_arguments():
