@@ -4,14 +4,16 @@
     python3 chip_smoke.py               # needs one CUDA card
 
 1. Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-   printing ``ptxas -v``, and counts the flash-attention, MLA-attend and
-   flash-decode templates' tensor-core instructions in the library's
-   SASS (``cuobjdump``).
+   printing ``ptxas -v``, and counts the flash-attention, MLA-attend,
+   flash-decode and SSD-block templates' tensor-core instructions in the
+   library's SASS (``cuobjdump``).
 2. One phase per kernel at the shapes its main path gives it: the
    attention and sampling kernels at every row layout the serving
-   engine dispatches (plus a 2048-key extra; the gumbel sampler, one
-   cluster launch a call at its plan's cluster size, its ties planted on
-   both sides of every slice edge of that size), the fused
+   engine dispatches (plus a 2048-key extra; the greedy and gumbel
+   samplers, one cluster launch a call at their plans' cluster sizes,
+   their ties planted on both sides of every slice edge of that size;
+   the gumbel sampler also at a top-k row no cluster's shared memory
+   holds), the fused
    update at every leaf shape of full-width qwen2-1.5b.  Each kernel is
    held against its plain PyTorch version on the same card inputs
    (kernels 1, 2 and 7 in both templates, bf16 and f32; kernel 2 in
@@ -73,8 +75,9 @@
    (63.2 GB of f32 weights: 5 layers would need 109 GB).
 8. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
-   bool mask, a ``slot_state_scatter`` with an int32 valid_len and a
-   gumbel sample (with and without top-k) each run their kernel alone,
+   bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
+   gumbel sample (with and without top-k) and a greedy sample each run
+   their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
 9. Prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -222,19 +225,21 @@ SASS_TEMPLATES = (
      "flash_decode_tc<{0},{1},{2}>"),      # <hd, narrow, keys>
     (r"(flash_decode_paged|flash_decode_bhd|decode_view)_kernelILi(\d+)E",
      "flash_decode_f32<{0},{1}>"),
+    (r"(ssd_chunk_tc)ILi(\d+)ELi(\d+)E", "{0}<{1},{2}>"),   # <NP, PP>
+    (r"(ssd_chunk_f32)", "{0}<>"),
 )
 # kernels whose resource usage sass_counts prints (and fails on a spill)
 RES_KERNELS = ("gumbel_cluster_kernel", "slot_gather_kernel",
-               "slot_scatter_kernel")
+               "slot_scatter_kernel", "ssd_chunk_tc", "ssd_chunk_f32")
 # bf16 (tensor-core) and f32 templates each family must have
 SASS_FAMILIES = {"flash_attention_": (2, 2), "mla_attend_": (2, 2),
-                 "flash_decode_": (8, 6)}
+                 "flash_decode_": (8, 6), "ssd_chunk_": (6, 1)}
 
 
 def sass_counts(so: Path) -> None:
     """Tensor-core MMA (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
-    instructions of each flash-attention, MLA-attend and flash-decode
-    template in the built library, from ``cuobjdump -sass``; fails
+    instructions of each flash-attention, MLA-attend, flash-decode and
+    SSD-block template in the built library, from ``cuobjdump -sass``; fails
     unless the bf16 templates (``_tc``) issue HMMA and the f32 ones do
     not; then the registers, static shared memory and local memory of
     ``RES_KERNELS`` (``cuobjdump -res-usage``), failing on a spill."""
@@ -645,8 +650,10 @@ def phase_decode_view(torch, timer, cfg, ec):
 def phase_greedy(torch, timer, cfg, ec):
     """Kernel 3 at every row count the engine samples (its step shapes)
     and at 1 and 64 rows, with exact ties planted across the threads'
-    stride, at the edges of the column chunks the rows are cut into and
-    at the ragged vocab edge: the lowest column must win."""
+    stride, on both sides of every edge between the slices of the plan's
+    cluster size (``greedy_plan``) and at the ragged vocab edge: the
+    lowest column must win.  Then NaN and all -inf rows.  Each layout is
+    one kernel node a call in a captured CUDA graph."""
     from repro_torch.kernels import sampling as sp
     from repro_torch.kernels._common import sm_count
     V = cfg.vocab_size
@@ -655,15 +662,17 @@ def phase_greedy(torch, timer, cfg, ec):
     for b in sorted({1, 64} | {rows for rows, _ in step_shapes(ec)}):
         lg = torch.randn((b, V), generator=g, device="cuda") * 3
         top = lg.max().item() + 1.0
-        nchunk = sp.greedy_chunks(b, V, sm_count(0))
-        chunk = -(-V // nchunk)
+        plan = sp.greedy_plan(b, V, sm_count(0))
+        sl = sp.gumbel_slice(V, plan)
+        # the first column of each slice but the first (or the middle)
+        starts = [k * sl for k in range(1, plan) if k * sl < V] or [V // 2]
         rows, cols = [], []
         for r in range(b):
-            edge = chunk * (r % nchunk + 1)
-            for col in ((7 + 256 * r) % V, V - 1, (5000 + 33 * r) % V,
-                        min(edge, V - 1), min(edge - 1, V - 1)):
-                rows.append(r)
-                cols.append(col)
+            e = starts[r % len(starts)]
+            planted = ([(7 + 256 * r) % V, V - 1, (5000 + 33 * r) % V],
+                       [e - 1, e, V - 1], [e, V - 1])[r % 3]
+            rows += [r] * len(planted)
+            cols += planted
         lg[torch.tensor(rows, device="cuda"),
            torch.tensor(cols, device="cuda")] = top
         got = sp.greedy_sample(lg)
@@ -671,16 +680,40 @@ def phase_greedy(torch, timer, cfg, ec):
         ref = lg.cpu().numpy().argmax(-1)
         if not (torch.equal(got, want) and (got.cpu().numpy() == ref).all()):
             fail(f"greedy_sample B={b}: kernel != argmax")
+        kernels, nodes = graph_kernels(torch, lambda: sp.greedy_sample(lg),
+                                       10)
+        if (kernels, nodes) != (10, 10):
+            fail(f"greedy_sample B={b}: {kernels} kernels, {nodes} graph "
+                 "nodes in 10 calls (want one kernel a call)")
         ms = timer(lambda: sp.greedy_sample(lg))
         plain_ms = timer(lambda: sp.greedy_sample_plain(lg))
         lib_ms = timer(lambda: torch.argmax(lg, dim=-1))
         bnd, by = bound_ms(b * V * 4 + b * 4, b * V, F32_OPS_PER_S)
         out[b] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                       bound_ms=bnd, bound_by=by, library_ms=lib_ms)
-        print(f"[greedy_sample] B={b} V={V} chunks={nchunk} exact=yes "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bnd:.4f} ({by}) library_ms(argmax)={lib_ms:.4f}",
+        print(f"[greedy_sample] B={b} V={V} cluster={plan} (slice "
+              f"{sp.gumbel_slice(V, plan)} columns, {plan * b} CTAs) "
+              f"exact=yes graph=1 kernel a call kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
+              f"bound_share={bnd / ms:.4f} library_ms(argmax)={lib_ms:.4f}",
               flush=True)
+    # NaN (the first wins, also across slices) and -inf rows (column 0;
+    # one finite column wins)
+    for b in (ec.decode_buckets[0], 264):
+        plan = sp.greedy_plan(b, V, sm_count(0))
+        sl = sp.gumbel_slice(V, plan)
+        lg = torch.randn((b, V), generator=g, device="cuda")
+        lg[0] = -math.inf
+        lg[1, [min(sl + 3, V - 1), V - 1]] = math.nan
+        lg[2, [11, V - 2]] = math.nan
+        lg[3] = -math.inf
+        lg[3, V - 3] = -1e30
+        got = sp.greedy_sample(lg)
+        if not (torch.equal(got, sp.greedy_sample_plain(lg)) and
+                got.tolist()[:4] == [0, min(sl + 3, V - 1), 11, V - 3]):
+            fail(f"greedy_sample B={b}: NaN / -inf rows differ from argmax")
+        print(f"[greedy_sample] B={b} V={V} cluster={plan} NaN and -inf "
+              "rows exact=yes", flush=True)
     return out
 
 
@@ -799,6 +832,41 @@ def phase_gumbel(torch, timer, cfg, mcfg, dcfg, ec):
               f"overflow), top_k {GUMBEL_TOP_KS[1:]}, cluster "
               f"{sp.gumbel_plan(b, v, sm_count(0), GUMBEL_TOP_KS[-1])}: "
               "exact=yes", flush=True)
+    # a top-k row whose slices no cluster's shared memory holds: the
+    # select reads them from device memory; ties at the kth value on both
+    # sides of every slice edge
+    b, v = 2, 16 * sp.GUMBEL_SMEM_BYTES // 4 + 64
+    plan = sp.gumbel_plan(b, v, sm_count(0), SAMPLE_TOP_K)
+    if sp.gumbel_staged(v, plan, SAMPLE_TOP_K):
+        fail(f"gumbel_plan: a {v}-column row staged in shared memory")
+    lg = torch.randn((b, v), generator=g, device="cuda") * 3
+    noise = torch.randn((b, v), generator=g, device="cuda")
+    kth = torch.topk(lg, SAMPLE_TOP_K, dim=-1).values[:, -1:]
+    cols = torch.tensor(_slice_edges(sp, v, plan) + [v - 1], device="cuda")
+    lg[:, cols] = kth.expand(-1, len(cols))
+
+    def wide():
+        return sp.gumbel_sample(lg, noise, temperature=SAMPLE_T,
+                                top_k=SAMPLE_TOP_K)
+
+    def wide_plain():
+        return sp.gumbel_sample_plain(lg, noise, temperature=SAMPLE_T,
+                                      top_k=SAMPLE_TOP_K)
+    if not torch.equal(wide(), wide_plain()):
+        fail(f"gumbel_sample B={b} V={v} top_k={SAMPLE_TOP_K} (unstaged): "
+             "kernel != plain")
+    ms, plain_ms = timer(wide), timer(wide_plain)
+    kept = int((~(lg < kth)).sum())
+    bnd, by = bound_ms(b * v * 4 + kept * 4 + b * 4, b * v + 2 * kept,
+                       F32_OPS_PER_S)
+    out[(f"V={v}", b, SAMPLE_TOP_K)] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+        library_ms=None)
+    print(f"[gumbel_sample] B={b} V={v} T={SAMPLE_T} top_k={SAMPLE_TOP_K} "
+          f"kept={kept} cluster={plan} unstaged (slice "
+          f"{sp.gumbel_slice(v, plan)} columns in device memory) exact=yes "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} "
+          f"({by}) bound_share={bnd / ms:.4f}", flush=True)
     return out
 
 
@@ -2199,7 +2267,7 @@ def _cast(tree, dtype):
 
 
 def phase_census(torch, cfg, mcfg, ec):
-    """The kernels kernels 2, 4, 10 and 11 run on the card: their names
+    """The kernels kernels 2, 3, 4, 10 and 11 run on the card: their names
     from the profiler (``device_kernels``), their launches a call from
     the CUDA driver (``graph_kernels``).  Kernel 2 in bf16 at the first
     decode bucket over the loop's views must run ``flash_decode_tc`` over
@@ -2210,10 +2278,10 @@ def phase_census(torch, cfg, mcfg, ec):
     ``layers.slot_state_scatter`` with an int32 valid_len (the fused
     step's call) over each leaf's one-layer pool must run the scatter
     alone, one launch a call; kernel 4 at the first decode bucket, with
-    and without top-k, one cluster launch a call.  Last of the phases:
-    once ``torch.profiler`` has run in a process, the host launches
-    slower for the rest of it (mamba depth-1 serving read about 10%
-    fewer tok/s after it; PERF.md)."""
+    and without top-k, and kernel 3 there, one cluster launch a call.
+    Last of the phases: once ``torch.profiler`` has run in a process, the
+    host launches slower for the rest of it (mamba depth-1 serving read
+    about 10% fewer tok/s after it; PERF.md)."""
     from repro_torch.kernels import decode_view as dv
     from repro_torch.kernels import sampling as sp
     from repro_torch.kernels import slot_state as ss
@@ -2277,6 +2345,8 @@ def phase_census(torch, cfg, mcfg, ec):
                                        top_k=top_k),
               "gumbel_cluster_kernel",
               f"gumbel_sample B={b} V={cfg.vocab_size} top_k={top_k}")
+    alone(lambda: sp.greedy_sample(lg), "gumbel_cluster_kernel",
+          f"greedy_sample B={b} V={cfg.vocab_size}")
 
 
 def main() -> int:

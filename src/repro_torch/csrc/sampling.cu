@@ -12,42 +12,41 @@
 // wins, equal values go to the LOWER column, and NaN counts as larger
 // than any number (the first NaN wins).  A row of -inf gives column 0.
 //
-// Greedy: each row is cut into `chunks` contiguous column ranges, one CTA
-// of 256 threads each, so a few rows still spread over the card's SMs:
-// each thread scans columns lo + tid, lo + tid + 256, ... < hi (the tail
-// past V is simply not visited), then a warp-shuffle and a shared-memory
-// reduction give the chunk's (score, column).  With one chunk the CTA
-// writes the token; otherwise it writes its partial result to `part` and
-// a second kernel, one warp per row, reduces a row's partials.
-//
-// Gumbel: one launch, one thread-block cluster a row (cluster sizes 1-16,
-// from kernels/sampling.py gumbel_plan), CTA r of the cluster taking the
-// contiguous slice [r * slice, (r + 1) * slice) of the row; 512-thread
-// CTAs.  Without top-k each CTA streams its slice of logits and noise once
-// (16-byte evict-first loads where the row allows) into its argmax.  With
-// top-k each CTA copies its logits slice into shared memory (TMA bulk
-// copies where the row allows, else 4-byte cp.async), and kth comes from
-// a radix select over ordered(x), the uint32 image of x that sorts as the
-// floats do, in four 8-bit digits from the top, every pass over shared
-// memory (cluster_kth).  Each pass counts the digit of the CTA's elements
-// whose higher digits equal the prefix chosen so far into 256 bins (the
-// first pass counts the top 11 bits into 2048 local bins, so that the
-// shared atomics of the few sign-and-exponent bins most logits share
-// rarely collide, and folds them to 256), adds its nonzero bins into rank
-// 0's sums through distributed shared memory, and after a cluster barrier
-// every CTA reads rank 0's sums and chooses the same digit.  The second
-// pass also lists the CTA's candidates, the columns at or above the first
-// digit chosen (a few hundred for a top-k of 50), so that the last two
-// passes and the argmax read the list and not the slice (a list past 2048
-// columns falls back to the slice).  The argmax reads the noise of the
-// kept columns alone: a masked column scores -inf and cannot win (a row
-// whose scores are all -inf gives column 0, as jnp.argmax does).  Each
-// CTA writes its partial argmax into rank 0's shared memory; after a last
-// cluster barrier rank 0 merges the partials and writes the token.  No
-// global scratch, no memset, no second kernel: five cluster barriers with
-// top-k (four merges and the last), one without (and the start's, waited
-// for before the first remote access).  Bound: bytes (each logit read
-// once, and the noise of the columns that can win).
+// One kernel, gumbel_cluster_kernel<MODE>, one launch a call for both:
+// one thread-block cluster a row (cluster sizes 1-16, from
+// kernels/sampling.py greedy_plan / gumbel_plan), CTA r of the cluster
+// taking the contiguous slice [r * slice, (r + 1) * slice) of the row;
+// 512-thread CTAs.  Greedy (kArgmax) and gumbel without top-k (kGumbel)
+// stream the CTA's slice once (logits alone, or logits and noise) with
+// 16-byte evict-first loads where the row allows, 4-byte ones where it
+// does not, into the CTA's argmax.  With top-k (kTopK) each CTA copies
+// its logits slice into shared memory (TMA bulk copies where the row
+// allows, else 4-byte cp.async), and kth comes from a radix select over
+// ordered(x), the uint32 image of x that sorts as the floats do, in four
+// 8-bit digits from the top, every pass over shared memory
+// (cluster_kth).  A row whose slices no cluster's shared memory holds
+// (kTopKWide: wider than 16 x 51,200 columns) runs the same select and
+// argmax over its slices in device memory instead (a few MB a row, read
+// twice, the second time mostly from the 50 MB L2).  Each pass counts
+// the digit of the CTA's elements whose higher digits equal the prefix
+// chosen so far into 256 bins (the first pass counts the top 11 bits
+// into 2048 local bins, so that the shared atomics of the few
+// sign-and-exponent bins most logits share rarely collide, and folds
+// them to 256), adds its nonzero bins into rank 0's sums through
+// distributed shared memory, and after a cluster barrier every CTA reads
+// rank 0's sums and chooses the same digit.  The second pass also lists
+// the CTA's candidates, the columns at or above the first digit chosen
+// (a few hundred for a top-k of 50), so that the last two passes and the
+// argmax read the list and not the slice (a list past 2048 columns falls
+// back to the slice).  The argmax reads the noise of the kept columns
+// alone: a masked column scores -inf and cannot win (a row whose scores
+// are all -inf gives column 0, as jnp.argmax does).  Each CTA writes its
+// partial argmax into rank 0's shared memory; after a last cluster
+// barrier rank 0 merges the partials and writes the token.  No global
+// scratch, no memset, no second kernel: five cluster barriers with top-k
+// (four merges and the last), one without (and the start's, waited for
+// before the first remote access).  Bound: bytes (each logit read once,
+// and the noise of the columns that can win).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,7 +58,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;   // the greedy kernels' CTA
 constexpr int kMaxCluster = 16;   // kernels/sampling.py CLUSTER_SIZES
 
 __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
@@ -86,98 +84,6 @@ __device__ __forceinline__ unsigned ordered(float x) {
 
 __device__ __forceinline__ float from_ordered(unsigned u) {
   return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
-// the score of column i of one row
-struct GreedyRow {
-  const float* lg;
-  __device__ __forceinline__ float operator()(int i) const {
-    return __ldg(lg + i);
-  }
-};
-
-struct Greedy {
-  const float* logits;
-  __device__ GreedyRow row(int b, int V) const {
-    return GreedyRow{logits + (long long)b * V};
-  }
-};
-
-// grid (chunks, B).  part: (B, chunks) values then (B, chunks) columns.
-template <class Score>
-__global__ void __launch_bounds__(kThreads)
-argmax_chunk_kernel(Score score, int* __restrict__ out,
-                    float* __restrict__ part_val, int* __restrict__ part_idx,
-                    int V, int chunk) {
-  __shared__ float s_val[kThreads / 32];
-  __shared__ int s_idx[kThreads / 32];
-  const int b = blockIdx.y, c = blockIdx.x, chunks = gridDim.x;
-  const auto row = score.row(b, V);
-  const int hi = min(V, (c + 1) * chunk);
-  float best = -INFINITY;
-  int idx = INT_MAX;
-#pragma unroll 4
-  for (int i = c * chunk + threadIdx.x; i < hi; i += kThreads) {
-    const float x = row(i);
-    if (better(x, i, best, idx)) {
-      best = x;
-      idx = i;
-    }
-  }
-  warp_best(best, idx);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_val[warp] = best;
-    s_idx[warp] = idx;
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  best = lane < kThreads / 32 ? s_val[lane] : -INFINITY;
-  idx = lane < kThreads / 32 ? s_idx[lane] : INT_MAX;
-  warp_best(best, idx);
-  if (lane != 0) return;
-  if (chunks == 1) {
-    out[b] = idx == INT_MAX ? 0 : idx;
-  } else {
-    part_val[b * chunks + c] = best;
-    part_idx[b * chunks + c] = idx;
-  }
-}
-
-// grid B, one warp: the row's chunk partials -> its token.
-__global__ void argmax_merge_kernel(const float* __restrict__ part_val,
-                                    const int* __restrict__ part_idx,
-                                    int* __restrict__ out, int chunks) {
-  const int b = blockIdx.x, lane = threadIdx.x;
-  float best = -INFINITY;
-  int idx = INT_MAX;
-  for (int c = lane; c < chunks; c += 32) {
-    const float x = part_val[b * chunks + c];
-    const int i = part_idx[b * chunks + c];
-    if (better(x, i, best, idx)) {
-      best = x;
-      idx = i;
-    }
-  }
-  warp_best(best, idx);
-  if (lane == 0) out[b] = idx == INT_MAX ? 0 : idx;
-}
-
-template <class Score>
-int launch_argmax(Score score, void* out, void* part, int B, int V,
-                  int chunks, cudaStream_t s) {
-  const int chunk = (V + chunks - 1) / chunks;
-  float* pv = static_cast<float*>(part);
-  int* pi = static_cast<int*>(part) + (long long)B * chunks;
-  argmax_chunk_kernel<<<dim3(chunks, B), kThreads, 0, s>>>(
-      score, static_cast<int*>(out), pv, pi, V, chunk);
-  if (chunks > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    argmax_merge_kernel<<<B, 32, 0, s>>>(pv, pi, static_cast<int*>(out),
-                                         chunks);
-  }
-  return cudaGetLastError();
 }
 
 constexpr int kGThreads = 512;   // the gumbel cluster kernel's CTA
@@ -264,20 +170,26 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n,
 }
 
 // f(column in the slice, value) for this thread's share of n floats of
-// shared memory: 16-byte reads, then the ragged tail.
+// shared or device memory: with vec (s 16-byte aligned) 16-byte reads,
+// then the ragged tail; else 4-byte reads.
 template <class F>
-__device__ __forceinline__ void each(const float* s, int n, F&& f) {
-  const float4* s4 = reinterpret_cast<const float4*>(s);
-  const int n4 = n >> 2;
+__device__ __forceinline__ void each(const float* s, int n, bool vec,
+                                     F&& f) {
+  int i0 = 0;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(s);
+    const int n4 = n >> 2;
 #pragma unroll 2
-  for (int i = threadIdx.x; i < n4; i += kGThreads) {
-    const float4 v = s4[i];
-    f(4 * i, v.x);
-    f(4 * i + 1, v.y);
-    f(4 * i + 2, v.z);
-    f(4 * i + 3, v.w);
+    for (int i = threadIdx.x; i < n4; i += kGThreads) {
+      const float4 v = s4[i];
+      f(4 * i, v.x);
+      f(4 * i + 1, v.y);
+      f(4 * i + 2, v.z);
+      f(4 * i + 3, v.w);
+    }
+    i0 = 4 * n4;
   }
-  for (int i = 4 * n4 + threadIdx.x; i < n; i += kGThreads) f(i, s[i]);
+  for (int i = i0 + threadIdx.x; i < n; i += kGThreads) f(i, s[i]);
 }
 
 // The select's shared state: this CTA's histograms, rank 0's sums of the
@@ -337,20 +249,22 @@ __device__ __forceinline__ unsigned take(Select& sel) {
 }
 
 // The kth largest logit of the cluster's row, duplicates counted, from its
-// slices in each CTA's shared memory (lg, n floats): four 8-bit radix
-// passes, each merged in rank 0's sums.  The first counts the top 11 bits
-// locally (2048 bins: most logits share a few sign-and-exponent bins of
-// the top 8, whose shared atomics would collide) and folds them to 8.  The
-// second also lists this CTA's candidates, the columns at or above the
-// first digit chosen (and NaN, which no mask drops): the last two passes,
-// and the argmax, read the list alone unless it overflowed kCap (then
-// *list is false and they read the slice).  Called by every thread; the
-// cluster barrier armed at the kernel's start is waited for here.
-__device__ float cluster_kth(cg::cluster_group& cluster, const float* lg,
-                             int n, int k, Select& sel, bool* list) {
+// slices (lg, n floats: in each CTA's shared memory, or in device memory
+// for kTopKWide; vec as for each()): four 8-bit radix passes, each merged
+// in rank 0's sums.  The first counts the top 11 bits locally (2048 bins:
+// most logits share a few sign-and-exponent bins of the top 8, whose
+// shared atomics would collide) and folds them to 8.  The second also
+// lists this CTA's candidates, the columns at or above the first digit
+// chosen (and NaN, which no mask drops): the last two passes, and the
+// argmax, read the list alone unless it overflowed kCap (sel.count >
+// kCap; then they read the slice).  Called by every thread; the cluster
+// barrier armed at the kernel's start is waited for here.
+__device__ __forceinline__ float cluster_kth(cg::cluster_group& cluster,
+                                             const float* lg, int n, bool vec,
+                                             int k, Select& sel) {
   const int lane = threadIdx.x & 31;
   unsigned* sum0 = cluster.map_shared_rank(&sel.sum[0][0], 0);
-  each(lg, n,
+  each(lg, n, vec,
        [&](int, float x) { atomicAdd(&sel.fine[ordered(x) >> 21], 1u); });
   __syncthreads();
   unsigned v = 0;
@@ -363,7 +277,7 @@ __device__ float cluster_kth(cg::cluster_group& cluster, const float* lg,
   // pass 1: bits 23-16 of the elements in the chosen bin; every element
   // at or above it joins the list (warp-aggregated appends)
   const unsigned d0 = prefix >> 24;
-  each(lg, n, [&](int i, float x) {
+  each(lg, n, vec, [&](int i, float x) {
     const unsigned u = ordered(x), top = u >> 24;
     if (top == d0) atomicAdd(&sel.hist[(u >> 16) & (kBins - 1)], 1u);
     const bool cand = top >= d0 || isnan(x);
@@ -378,7 +292,7 @@ __device__ float cluster_kth(cg::cluster_group& cluster, const float* lg,
     if (cand && pos < kCap) sel.list[pos] = i;
   });
   merge_choose(sum0, sel, 1, take(sel), prefix, 16, krem);
-  *list = sel.count <= kCap;
+  const bool list = sel.count <= kCap;
   // passes 2-3: the next 8 bits of the elements matching the prefix
   for (int p = 2; p < 4; ++p) {
     prefix = sel.prefix;
@@ -390,24 +304,31 @@ __device__ float cluster_kth(cg::cluster_group& cluster, const float* lg,
       if ((u & mask) == prefix)
         atomicAdd(&sel.hist[(u >> shift) & (kBins - 1)], 1u);
     };
-    if (*list) {
+    if (list) {
       for (int j = threadIdx.x; j < (int)sel.count; j += kGThreads)
         count(lg[sel.list[j]]);
     } else {
-      each(lg, n, [&](int, float x) { count(x); });
+      each(lg, n, vec, [&](int, float x) { count(x); });
     }
     merge_choose(sum0, sel, p, take(sel), prefix, shift, krem);
   }
   return from_ordered(sel.prefix);
 }
 
-// grid (cluster, B), clusters of (cluster, 1, 1): row b's slices.  TOPK
-// (top_k > 0): dynamic shared memory holds the CTA's logits slice (`slice`
-// floats, a multiple of 4) and the noise of the kept columns is read from
-// device memory alone.  Without, logits and noise are streamed once from
-// device memory and nothing is staged (nor is the select's shared memory
-// allocated).
-template <bool TOPK>
+// What a launch of gumbel_cluster_kernel computes (kernels/sampling.py
+// passes the code): the argmax of the logits (greedy), of g + lg / T, of
+// that over the top-k columns with each CTA's logits slice staged in
+// shared memory, or the same over slices read from device memory.
+enum Mode : int { kArgmax = 0, kGumbel = 1, kTopK = 2, kTopKWide = 3 };
+
+// grid (cluster, B), clusters of (cluster, 1, 1): row b's slices of
+// `slice` columns (a multiple of 4).  kArgmax and kGumbel stream the
+// slice once from device memory (the logits, and for kGumbel the noise)
+// and allocate no select state.  kTopK holds the CTA's logits slice in
+// dynamic shared memory; kTopKWide reads it from device memory.  Both
+// read the noise of the kept columns alone.  vec: the row is 16-byte
+// aligned (V % 4 == 0 and aligned bases).
+template <int MODE>
 __global__ void __launch_bounds__(kGThreads)
 gumbel_cluster_kernel(const float* __restrict__ logits,
                       const float* __restrict__ gumbel,
@@ -432,47 +353,63 @@ gumbel_cluster_kernel(const float* __restrict__ logits,
       idx = lo + i;
     }
   };
-  if constexpr (TOPK) {
-    extern __shared__ __align__(16) float s_lg[];
+  if constexpr (MODE == kTopK || MODE == kTopKWide) {
     __shared__ Select sel;
-    __shared__ __align__(8) uint64_t s_bar;      // the logits have landed
     for (int i = threadIdx.x; i < 4 * kBins; i += kGThreads)
       (&sel.sum[0][0])[i] = 0;
     for (int i = threadIdx.x; i < kFine; i += kGThreads) sel.fine[i] = 0;
     if (threadIdx.x < kBins) sel.hist[threadIdx.x] = 0;
     if (threadIdx.x == 0) sel.count = 0;
     cluster_arrive();            // this CTA runs, its sums are zero
-    stage(s_lg, lg, n, vec, &s_bar);
-    bool list;
-    const float thr = cluster_kth(cluster, s_lg, n, top_k, sel, &list);
-    // the kept columns (lg >= kth; NaN too) with their noise: a masked
-    // column scores -inf and never wins (a row whose scores are all -inf
-    // gives column 0 below)
-    auto keep = [&](int i, float x) {
-      if (!(x < thr)) consider(i, __fadd_rn(__ldg(g + i), __fdiv_rn(x, t)));
+    // kth over the slice at src, then the argmax of the kept columns (lg
+    // >= kth; NaN too) with their noise: a masked column scores -inf and
+    // never wins (a row whose scores are all -inf gives column 0 below)
+    auto kth_argmax = [&](const float* src, bool src_vec) {
+      const float thr = cluster_kth(cluster, src, n, src_vec, top_k, sel);
+      auto keep = [&](int i, float x) {
+        if (!(x < thr))
+          consider(i, __fadd_rn(__ldg(g + i), __fdiv_rn(x, t)));
+      };
+      if (sel.count <= kCap) {           // the candidate list held
+        for (int j = threadIdx.x; j < (int)sel.count; j += kGThreads)
+          keep(sel.list[j], src[sel.list[j]]);
+      } else {
+        each(src, n, src_vec, keep);
+      }
     };
-    if (list) {
-      for (int j = threadIdx.x; j < (int)sel.count; j += kGThreads)
-        keep(sel.list[j], s_lg[sel.list[j]]);
+    if constexpr (MODE == kTopK) {
+      extern __shared__ __align__(16) float s_lg[];
+      __shared__ __align__(8) uint64_t s_bar;    // the logits have landed
+      stage(s_lg, lg, n, vec, &s_bar);
+      kth_argmax(s_lg, true);
     } else {
-      each(s_lg, n, keep);
+      kth_argmax(lg, vec);
     }
   } else {
+    // one streaming pass: the score of a logit x whose noise is y
+    auto score = [&](float x, float y) {
+      if constexpr (MODE == kArgmax) return x;
+      else return __fadd_rn(y, __fdiv_rn(x, t));
+    };
     cluster_arrive();            // this CTA runs
     if (vec) {
       const float4* l4 = reinterpret_cast<const float4*>(lg);
       const float4* g4 = reinterpret_cast<const float4*>(g);
 #pragma unroll 4
       for (int i = threadIdx.x; i < n >> 2; i += kGThreads) {
-        const float4 x = __ldcs(l4 + i), y = __ldcs(g4 + i);
-        consider(4 * i, __fadd_rn(y.x, __fdiv_rn(x.x, t)));
-        consider(4 * i + 1, __fadd_rn(y.y, __fdiv_rn(x.y, t)));
-        consider(4 * i + 2, __fadd_rn(y.z, __fdiv_rn(x.z, t)));
-        consider(4 * i + 3, __fadd_rn(y.w, __fdiv_rn(x.w, t)));
+        const float4 x = __ldcs(l4 + i);
+        float4 y = x;
+        if constexpr (MODE == kGumbel) y = __ldcs(g4 + i);
+        consider(4 * i, score(x.x, y.x));
+        consider(4 * i + 1, score(x.y, y.y));
+        consider(4 * i + 2, score(x.z, y.z));
+        consider(4 * i + 3, score(x.w, y.w));
       }
     } else {
-      for (int i = threadIdx.x; i < n; i += kGThreads)
-        consider(i, __fadd_rn(__ldcs(g + i), __fdiv_rn(__ldcs(lg + i), t)));
+      for (int i = threadIdx.x; i < n; i += kGThreads) {
+        const float x = __ldcs(lg + i);
+        consider(i, score(x, MODE == kGumbel ? __ldcs(g + i) : x));
+      }
     }
     cluster_wait();              // rank 0 runs
   }
@@ -507,11 +444,12 @@ int gumbel_slice(int V, int cluster) {
   return ((V + cluster - 1) / cluster + 3) / 4 * 4;
 }
 
-// Lets the TOPK kernel take `smem` bytes of dynamic shared memory and, for
-// more than 8 CTAs, a non-portable cluster size, on the current device.
-// Each attribute is set once a device (a later launch asking no more sets
-// nothing, so a launch under CUDA graph capture makes no such call).
-template <bool TOPK>
+// Lets the MODE kernel take `smem` bytes of dynamic shared memory and,
+// for more than 8 CTAs, a non-portable cluster size, on the current
+// device.  Each attribute is set once a device (a later launch asking no
+// more sets nothing, so a launch under CUDA graph capture makes no such
+// call).
+template <int MODE>
 cudaError_t allow(int smem, int cluster) {
   constexpr int kDevices = 64;
   static int smem_set[kDevices] = {};
@@ -521,14 +459,14 @@ cudaError_t allow(int smem, int cluster) {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
   if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(gumbel_cluster_kernel<TOPK>,
+    err = cudaFuncSetAttribute(gumbel_cluster_kernel<MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = smem;
   }
   if (cluster > 8 && !wide_set[dev]) {
-    err = cudaFuncSetAttribute(gumbel_cluster_kernel<TOPK>,
+    err = cudaFuncSetAttribute(gumbel_cluster_kernel<MODE>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return err;
@@ -537,39 +475,20 @@ cudaError_t allow(int smem, int cluster) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// part: int32 scratch of 2 * B * chunks (unused when chunks == 1).
-// Returns cudaGetLastError() after the launches (0 = launched).
-extern "C" int rt_greedy_sample(const void* logits, void* out, void* part,
-                                int B, int V, int chunks, void* stream) {
-  if (B <= 0 || V <= 0 || chunks < 1 || chunks > V || B > 65535)
-    return cudaErrorInvalidValue;
-  return launch_argmax(Greedy{static_cast<const float*>(logits)}, out, part,
-                       B, V, chunks, static_cast<cudaStream_t>(stream));
-}
-
-// One cluster launch a call: grid (cluster, B), clusters of (cluster, 1,
-// 1), with top-k the logits slice's dynamic shared memory; cluster in [1,
-// 16], its slices within the shared memory a block may hold (the
-// wrapper's plan picks it).
-extern "C" int rt_gumbel_sample(const void* logits, const void* gumbel,
-                                void* out, int B, int V, int cluster,
-                                int top_k, float temperature, void* stream) {
-  if (B <= 0 || V <= 0 || B > 65535 || cluster < 1 ||
-      cluster > kMaxCluster || top_k < 0 || top_k > V ||
-      !(temperature > 0.0f))
-    return cudaErrorInvalidValue;
+// One launch of the MODE kernel over B rows of V columns in clusters of
+// `cluster` CTAs (kTopK: the logits slice's dynamic shared memory).
+template <int MODE>
+int launch(const float* lg, const float* g, int* out, int B, int V,
+           int cluster, int top_k, float t, cudaStream_t stream) {
   const int slice = gumbel_slice(V, cluster);
-  const int smem = top_k ? slice * (int)sizeof(float) : 0;
-  cudaError_t err = top_k ? allow<true>(smem, cluster)
-                          : allow<false>(smem, cluster);
+  const int smem = MODE == kTopK ? slice * (int)sizeof(float) : 0;
+  cudaError_t err = allow<MODE>(smem, cluster);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, B, 1);
   cfg.blockDim = dim3(kGThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cluster;
@@ -577,16 +496,52 @@ extern "C" int rt_gumbel_sample(const void* logits, const void* gumbel,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const float* lg = static_cast<const float*>(logits);
-  const float* g = static_cast<const float*>(gumbel);
   const bool vec = V % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(lg) |
                      reinterpret_cast<uintptr_t>(g)) & 15) == 0;
-  int* o = static_cast<int*>(out);
-  err = top_k ? cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<true>, lg, g,
-                                   o, V, slice, top_k, temperature, vec)
-              : cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<false>, lg, g,
-                                   o, V, slice, top_k, temperature, vec);
+  err = cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<MODE>, lg, g, out, V,
+                           slice, top_k, t, vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+bool bad_rows(int B, int V, int cluster) {
+  return B <= 0 || V <= 0 || B > 65535 || cluster < 1 ||
+         cluster > kMaxCluster;
+}
+
+}  // namespace
+
+// Kernel 3: the argmax of each row, one cluster launch a call (grid
+// (cluster, B), clusters of (cluster, 1, 1); the wrapper's plan picks
+// the cluster size).  Returns cudaGetLastError() after the launch (0 =
+// launched).
+extern "C" int rt_greedy_sample(const void* logits, void* out, int B, int V,
+                                int cluster, void* stream) {
+  if (bad_rows(B, V, cluster)) return cudaErrorInvalidValue;
+  const float* lg = static_cast<const float*>(logits);
+  return launch<kArgmax>(lg, lg, static_cast<int*>(out), B, V, cluster, 0,
+                         1.0f, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 4: one cluster launch a call, in clusters of `cluster` CTAs (1
+// to 16); with top-k, `staged` holds each CTA's logits slice in shared
+// memory (the wrapper's plan picks both, the slice within the shared
+// memory a block may hold), else the select reads it from device memory.
+extern "C" int rt_gumbel_sample(const void* logits, const void* gumbel,
+                                void* out, int B, int V, int cluster,
+                                int top_k, int staged, float temperature,
+                                void* stream) {
+  if (bad_rows(B, V, cluster) || top_k < 0 || top_k > V ||
+      !(temperature > 0.0f))
+    return cudaErrorInvalidValue;
+  const float* lg = static_cast<const float*>(logits);
+  const float* g = static_cast<const float*>(gumbel);
+  int* o = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!top_k)
+    return launch<kGumbel>(lg, g, o, B, V, cluster, 0, temperature, s);
+  if (staged)
+    return launch<kTopK>(lg, g, o, B, V, cluster, top_k, temperature, s);
+  return launch<kTopKWide>(lg, g, o, B, V, cluster, top_k, temperature, s);
 }

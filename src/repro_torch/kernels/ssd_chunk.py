@@ -12,14 +12,18 @@ Per (chunk, head), with ``dacum`` the within-chunk cumsum of dt * A:
     states = (B * exp(da_last - da) dt)^T x         (n, p)
 
 Bound on the H100: bytes at the model's shapes (l 256, p 64, n 128;
-about 1.1 GFLOP against 15 MB for two chunks of 32 heads).  Design: the
-(l, l) score tile of the TPU kernel does not fit a block's shared
-memory at l = 256, so each CTA takes 32 query rows of one (chunk, head)
-and loops over the key tiles at or below them, the masked 32 x 32 score
-tile in shared memory and its (32, p) output in registers; extra CTAs
-per (chunk, head) sum the chunk states.  f32 FMA over register tiles
-(2 x 2 scores, 2 x 4 outputs, 4 x 4 states a thread), no padding of p or
-n to 128 lanes.
+about 1.1 GFLOP against 15 MB for two chunks of 32 heads).  The (l, l)
+score tile of the TPU kernel does not fit a block's shared memory at l
+= 256, so each CTA takes a tile of query rows of one (chunk, head) and
+walks the key tiles at or below them; other CTAs per (chunk, head) sum
+the chunk states.  bfloat16 runs on the tensor cores (``ssd_chunk_tc``:
+64-row query tiles, 16 rows a warp, ``mma.sync`` over B and x tiles
+streamed through a 2-stage ``cp.async`` ring, dt folded into the masked
+scores, which feed the second product as bf16 hi + lo; n padded to 64,
+128 or 256 and p to 64 or 128 with zeros).  float32 stays on the CUDA
+cores (``ssd_chunk_f32``: tensor cores would round to TF32), f32 FMA
+over register tiles.  No padding of p or n to 128 lanes in device
+memory.
 """
 from __future__ import annotations
 

@@ -278,19 +278,60 @@ def test_greedy_kernel_exact_with_ties(dev, b, v):
 
 
 def test_greedy_kernel_ties_at_chunk_edges(dev):
-    """A row cut into column chunks: equal maxima at the last column of
-    one chunk and the first of the next, and in the last chunk, go to
-    the lowest column."""
-    b, v = 8, 151936
-    chunk = -(-v // sampling.greedy_chunks(b, v, sm_count(dev)))
-    lg = torch.zeros((b, v), device=dev)
-    lg[:, [chunk - 1, chunk, v - 1]] = 5.0
-    lg[1, chunk - 1] = 0.0
-    lg[2, :chunk + 1] = 0.0
-    got = sampling.greedy_sample(lg).tolist()
-    assert got[0] == chunk - 1 and got[1] == chunk and got[2] == v - 1
-    assert torch.equal(sampling.greedy_sample(lg),
-                       sampling.greedy_sample_plain(lg))
+    """A row cut into the plan's cluster slices: equal maxima at the last
+    column of one slice and the first of the next, and in the last
+    slice, go to the lowest column, at every cluster size the plan takes
+    for qwen2's vocab."""
+    v = 151936
+    sizes = {}
+    for b in range(3, 2 * sm_count(dev) + 1):
+        sizes.setdefault(sampling.greedy_plan(b, v, sm_count(dev)), b)
+    assert max(sizes) > 1
+    for cluster, b in sizes.items():
+        sl = sampling.gumbel_slice(v, cluster)
+        edge = sl if cluster > 1 else v // 2
+        lg = torch.zeros((b, v), device=dev)
+        lg[:, [edge - 1, edge, v - 1]] = 5.0
+        lg[1, edge - 1] = 0.0
+        lg[2, :edge + 1] = 0.0
+        got = sampling.greedy_sample(lg).tolist()
+        assert got[:3] == [edge - 1, edge, v - 1], cluster
+        assert torch.equal(sampling.greedy_sample(lg),
+                           sampling.greedy_sample_plain(lg))
+
+
+@pytest.mark.parametrize("v", [151936, 50280, 1537])
+def test_greedy_kernel_nan_and_neg_inf_rows(dev, v):
+    """A NaN wins its row (the first NaN, also across slices), a row of
+    -inf gives column 0, and a row of -inf with one finite column gives
+    that column, at every cluster size the plan takes for V."""
+    sizes = {}
+    for b in range(4, 2 * sm_count(dev) + 1):
+        sizes.setdefault(sampling.greedy_plan(b, v, sm_count(dev)), b)
+    gen = torch.Generator(device=dev).manual_seed(v)
+    for cluster, b in sizes.items():
+        sl = sampling.gumbel_slice(v, cluster)
+        lg = torch.randn((b, v), generator=gen, device=dev)
+        lg[0] = -float("inf")
+        lg[1, [min(sl + 3, v - 1), v - 1]] = float("nan")
+        lg[2, [11, v - 2]] = float("nan")
+        lg[3] = -float("inf")
+        lg[3, v - 3] = -1e30
+        got = sampling.greedy_sample(lg)
+        assert torch.equal(got, sampling.greedy_sample_plain(lg)), cluster
+        assert got.tolist()[:4] == [0, min(sl + 3, v - 1), 11, v - 3]
+
+
+def test_greedy_kernel_is_one_launch_a_call(dev):
+    """One kernel node a call in a captured CUDA graph (no memset, no
+    merge kernel), at the plan's cluster sizes for 8 and 264 rows."""
+    for b in (8, 264):
+        lg = torch.randn((b, 151936), device=dev)
+        before = sampling.greedy_sample.launches
+        kernels, nodes = _graph_kernels(
+            lambda: sampling.greedy_sample(lg), calls=4)
+        assert (kernels, nodes) == (4, 4)
+        assert sampling.greedy_sample.launches == before + 5
 
 
 def test_wrapper_counts_kernel_launches(dev):
@@ -428,18 +469,30 @@ def test_gumbel_kernel_is_one_launch_a_call(dev, top_k):
         assert sampling.gumbel_sample.launches == before + 5
 
 
-def test_gumbel_kernel_refuses_a_row_no_cluster_holds(dev):
+def test_gumbel_kernel_wide_top_k_row_matches_plain(dev):
     """With top-k, a row whose slices no cluster's shared memory holds
-    raises: there is no other launch to fall back to.  Without top-k
-    nothing is staged, and the same row samples exactly."""
+    (16 x 51,200 + 64 columns) runs the select over its slices in device
+    memory: ties at the kth value on both sides of every slice edge, a
+    NaN row and a row of -inf, against the plain version; without top-k
+    the same row streams."""
     v = 16 * sampling.GUMBEL_SMEM_BYTES // 4 + 64
-    lg = torch.randn((2, v), device=dev)
-    g = torch.randn_like(lg)
-    with pytest.raises(ValueError, match="does not fit"):
-        sampling.gumbel_sample(lg, g, temperature=1.0, top_k=50)
-    got = sampling.gumbel_sample(lg, g, temperature=1.0)
-    assert torch.equal(got, sampling.gumbel_sample_plain(
-        lg, g, temperature=1.0))
+    cluster = sampling.gumbel_plan(2, v, sm_count(dev), 50)
+    assert not sampling.gumbel_staged(v, cluster, 50)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lg = torch.randn((4, v), generator=gen, device=dev) * 3
+    g = torch.randn(lg.shape, generator=gen, device=dev)
+    kth = torch.topk(lg[:2], 50, dim=-1).values[:, -1:]
+    cols = torch.tensor(_slice_edges(v, cluster), device=dev)
+    lg[:2, cols] = kth.expand(-1, len(cols))
+    lg[2, [v // 2, v - 1]] = float("nan")
+    lg[3] = -float("inf")
+    for top_k in (50, 1, 0):
+        before = sampling.gumbel_sample.launches
+        got = sampling.gumbel_sample(lg, g, temperature=1.0, top_k=top_k)
+        assert sampling.gumbel_sample.launches == before + 1
+        assert torch.equal(got, sampling.gumbel_sample_plain(
+            lg, g, temperature=1.0, top_k=top_k)), top_k
+        assert got.tolist()[2:] == [v // 2, 0]
 
 
 def test_prng_bits_on_card_equal_cpu(dev):

@@ -6,6 +6,8 @@ Tolerances: float32 inputs, atol 3e-5 / rtol 2e-5 for attention (two f32
 softmax implementations, sums in different orders); greedy sampling must
 be exactly equal.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,17 +173,24 @@ def test_greedy_plain_matches_pallas_exactly_with_cross_block_ties(case):
 
 
 @pytest.mark.parametrize("b", [1, 2, 8, 136, 264])
-@pytest.mark.parametrize("v", [9, 1537, 151936])
-def test_greedy_chunks_cover_the_vocab_without_empty_chunks(b, v):
-    """The CUDA launch's column chunks on a 132-SM card (an H100 SXM):
-    contiguous ranges of one size that cover the row, none empty, about
-    the sampling kernels' CTAS_PER_SM CTAs per SM in all."""
+@pytest.mark.parametrize("v", [9, 1537, 50280, 129280, 151936])
+def test_greedy_plan_covers_the_vocab_without_empty_slices(b, v):
+    """Kernel 3's cluster launch on a 132-SM card (an H100 SXM): the
+    cluster's contiguous slices, a multiple of 4 columns each, cover the
+    row and none is empty; the size is one of CLUSTER_SIZES, the one
+    whose launch comes nearest STREAM_CTAS_PER_SM CTAs an SM among those
+    whose slices hold MIN_SLICE columns (kernel 4's without top-k)."""
     sms = 132
-    n = sampling.greedy_chunks(b, v, sms)
-    chunk = -(-v // n)
-    assert n >= 1 and (n - 1) * chunk < v <= n * chunk
-    assert n == 1 or b * (n - 1) < sampling.CTAS_PER_SM * sms
-    assert n == 1 or chunk >= sampling.THREADS * sampling.MIN_COLS_PER_THREAD
+    c = sampling.greedy_plan(b, v, sms)
+    sl = sampling.gumbel_slice(v, c)
+    assert c in sampling.CLUSTER_SIZES
+    assert sl % 4 == 0 and (c - 1) * sl < v <= c * sl
+    assert c == 1 or sl >= sampling.MIN_SLICE
+    fits = sampling.gumbel_clusters(v, 0)
+    want = sampling.STREAM_CTAS_PER_SM * sms
+    assert all(abs(math.log(b * c / want)) <= abs(math.log(b * d / want))
+               for d in fits)
+    assert c == sampling.gumbel_plan(b, v, sms, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +300,9 @@ def test_profiler_groups_every_port_kernel():
     from repro_torch.serve.profile_engine import _group
     names = _build.kernel_names()
     assert {"flash_decode_paged_kernel", "decode_view_kernel",
-            "combine_splits", "argmax_chunk_kernel", "argmax_merge_kernel",
-            "gumbel_cluster_kernel", "fused_sgd_kernel", "slot_gather_kernel",
-            "slot_scatter_kernel", "ssd_chunk_kernel", "flash_attention_tc",
+            "combine_splits", "gumbel_cluster_kernel", "fused_sgd_kernel",
+            "slot_gather_kernel", "slot_scatter_kernel", "ssd_chunk_tc",
+            "ssd_chunk_f32", "flash_attention_tc",
             "flash_attention_f32", "flash_decode_bhd_kernel"} <= set(names)
     for name in names:
         assert _group(f"void rt::{name}<float>(float const*, int)") == \

@@ -12,7 +12,8 @@
 - ``sampling.gumbel_plan`` (kernel 4's cluster size) is pinned at the
   engine's row counts for the three served vocabularies on a 132-SM card
   (an H100 SXM), with top-k each CTA's staged slice within a block's
-  shared memory.
+  shared memory; a top-k row no cluster stages takes the unstaged
+  variant, and the plain version samples the reference's token there.
 - The port's ``Engine`` at temperature 0.8, top_k 0 and 20, depths 1 and
   4, is token-identical to the JAX engine on the same weights.
 """
@@ -132,6 +133,23 @@ def test_plain_gumbel_sample_equals_reference_and_pallas(top_k):
         assert (lg[np.arange(b), got] >= kth).all()
 
 
+@pytest.mark.parametrize("top_k", [1, 50])
+def test_plain_gumbel_sample_wide_top_k_row_equals_reference(top_k):
+    """A top-k row wider than any cluster stages (16 x 51,200 + 64
+    columns; on the card the select then reads device memory) samples
+    ``ref.sample_tokens``'s token, ties planted at the kth value."""
+    b, v, t = 4, 16 * sampling.GUMBEL_SMEM_BYTES // 4 + 64, 0.8
+    lg = _tied_logits(b, v, top_k, seed=top_k + 3)
+    rids, pos = _rows(b, seed=top_k + 20)
+    keys = jref.sample_keys(6, rids, pos)
+    want = np.asarray(jref.sample_tokens(jnp.asarray(lg), keys,
+                                         temperature=t, top_k=top_k))
+    tk = prng.sample_keys(6, torch.from_numpy(rids), torch.from_numpy(pos))
+    got = sampling.gumbel_sample(torch.from_numpy(lg), prng.gumbel(tk, v),
+                                 temperature=t, top_k=top_k).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("top_k", [0, 3])
 def test_plain_gumbel_sample_all_neg_inf_row_gives_column_0(top_k):
     """A row of -inf logits scores -inf everywhere: column 0, as
@@ -207,15 +225,24 @@ def test_gumbel_plan_small_and_unfit_vocabularies():
     assert sampling.gumbel_plan(5, 203, SMS, 3) == 1
     assert sampling.gumbel_slice(203, 1) == 204
     assert sampling.gumbel_clusters(4096, 3) == [1, 2, 4]
-    # with top-k a row no cluster of 16 holds raises; the wrapper has no
-    # fallback.  Without, nothing is staged, so any cluster fits.
+    # with top-k a row no cluster of 16 stages takes the unstaged
+    # variant (the select reads its slices from device memory) at any
+    # size, the plan 16; without, nothing is staged, so any cluster fits
     v = 16 * sampling.GUMBEL_SMEM_BYTES // 4 + 64
-    assert sampling.gumbel_clusters(v, 50) == []
-    with pytest.raises(ValueError, match="does not fit"):
-        sampling.gumbel_plan(8, v, SMS, 50)
+    assert sampling.gumbel_clusters(v, 50) == list(sampling.CLUSTER_SIZES)
+    for b in (2, 8, 264):
+        c = sampling.gumbel_plan(b, v, SMS, 50)
+        assert c == 16 and not sampling.gumbel_staged(v, c, 50)
     assert sampling.gumbel_clusters(v, 0) == list(sampling.CLUSTER_SIZES)
     assert sampling.gumbel_plan(8, v, SMS, 0) == 16
     assert sampling.gumbel_plan(264, v, SMS, 0) == 1
+    # the served vocabularies stage their top-k slices at every engine
+    # row count, and a row just under the limit still does
+    for (vv, b), (_, c) in GUMBEL_PLANS.items():
+        assert sampling.gumbel_staged(vv, c, 50)
+        assert not sampling.gumbel_staged(vv, c, 0)
+    v = 16 * sampling.GUMBEL_SMEM_BYTES // 4
+    assert sampling.gumbel_staged(v, sampling.gumbel_plan(8, v, SMS, 50), 50)
 
 
 def test_gumbel_sample_rejects_bad_arguments():
