@@ -14,7 +14,8 @@
    their ties planted on both sides of every slice edge of that size;
    the gumbel sampler also at a top-k row no cluster's shared memory
    holds), the fused
-   update at every leaf shape of full-width qwen2-1.5b.  Each kernel is
+   update at every leaf shape of full-width qwen2-1.5b and of ResNet-50
+   (161 f32 leaves, 106 of them batch-norm vectors).  Each kernel is
    held against its plain PyTorch version on the same card inputs
    (kernels 1, 2 and 7 in both templates, bf16 and f32; kernel 2 in
    bf16 also bit for bit against kernel 1 on the same keys) and timed
@@ -33,7 +34,14 @@
 4. Trains full-width qwen2-1.5b for 8 LSGD steps with the fused SGD
    update through ``repro_torch.launch.train``, then runs the virtual
    CSGD and LSGD (4 workers, groups of 2) from one set of weights and
-   checks that they agree after ``finalize`` (the paper's claim).
+   checks that they agree after ``finalize`` (the paper's claim).  Then
+   the paper's own model: ResNet-50 at full width, 224 x 224, batch 64,
+   f32, 8 LSGD steps through the same launcher (finite losses, exactly
+   161 x 8 fused-update launches), and the ResNet half of the port's
+   Fig. 7 (``launch.fig7_equivalence``: CSGD and LSGD curves and
+   parameters within 1e-3).  A phase that turns TF32 off restores the
+   flags when it ends, so each phase runs under PyTorch's defaults
+   unless it sets its own.
 5. The static-batch path (the non-paged ``prefill`` / ``decode_step``,
    as benchmarks/serve_bench.py's ``run_static``): the flash-attention
    kernel at the static prefill's shapes (B=8, qwen2's heads, Sq = Sk =
@@ -90,6 +98,7 @@ the last line.  Without a CUDA device, or without the repository's
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -142,6 +151,13 @@ TRAIN_ARGV = ["--arch", "qwen2-1.5b", "--steps", "8", "--batch", "4",
 # bound of tests/test_equivalence.py
 VIRTUAL_LAYERS = 2
 VIRTUAL_BOUND = 1e-5
+# ResNet-50, the paper's model and shape: 224 x 224 images, local batch
+# 64, f32, 8 LSGD steps of fused SGD at the launcher's (the paper's) lr
+# schedule; 161 param leaves, each one kernel-5 launch an update
+RESNET_ARGV = ["--arch", "resnet50", "--steps", "8", "--batch", "64",
+               "--sync-mode", "lsgd", "--optimizer", "sgd", "--log-every",
+               "1", "--seed", "0", "--device", "cuda"]
+RESNET_LEAVES = 161
 # the fused update against its plain version: w within one bf16 ulp,
 # f32 momentum within 1e-6 relative
 UPDATE_M_RTOL = 1e-6
@@ -169,6 +185,22 @@ SEED = 0
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+@contextlib.contextmanager
+def float32_exact():
+    """TF32 off for matmuls and cuDNN while a phase runs, the flags as
+    they were after it, so that a later phase runs under PyTorch's
+    defaults (matmul TF32 off, cuDNN TF32 on) as the port's entry points
+    do.  Used as a decorator on each phase that checks float32."""
+    import torch
+    b = torch.backends
+    saved = b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = saved
 
 
 def nvidia_smi() -> str:
@@ -870,25 +902,25 @@ def phase_gumbel(torch, timer, cfg, mcfg, dcfg, ec):
     return out
 
 
-def phase_fused_update(torch, timer, cfg):
-    """Kernel 5 on every leaf of full-width qwen2-1.5b as the trainer
-    holds it (bf16 w, f32 momentum, f32 gradient): sgd, nesterov and a
-    LARS trust from the device, each leaf against the plain version on
-    copies of the same inputs (w within one bf16 ulp, m within
-    UPDATE_M_RTOL).  Times are over the whole parameter set, one launch
-    per leaf; the library yardstick is ``torch.optim.SGD(fused=True)``
-    on an all-f32 copy (the same function at trust 1, on more bytes)."""
+def _fused_update_layout(torch, timer, label, ws):
+    """Kernel 5 over the leaves ``ws`` as the trainer holds them (w in
+    its dtype, f32 momentum and gradient): sgd, nesterov and a LARS
+    trust from the device, each leaf against the plain version on copies
+    of the same inputs (w within one bf16 ulp for bf16 w, and within
+    UPDATE_M_RTOL relative for f32 w and m).  Times are over the whole
+    set, one launch per leaf; the library yardstick is
+    ``torch.optim.SGD(fused=True)`` on an all-f32 copy (the same function
+    at trust 1)."""
     from repro_torch.kernels import fused_update as fu
-    from repro_torch.models.model import build_model
     from repro_torch.optim.sgd import OptimConfig, lars_trust
-    params = build_model(cfg).init(SEED, "cuda")
-    ws = list(_leaves(params))
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     ms_ = [torch.randn(w.shape, generator=g, device="cuda") * 1e-2
            for w in ws]
     gs = [torch.randn(w.shape, generator=g, device="cuda") * 1e-2
           for w in ws]
     n = sum(w.numel() for w in ws)
+    w_bytes = ws[0].element_size()
+    w_rtol = 2.0 ** -7 if ws[0].dtype == torch.bfloat16 else UPDATE_M_RTOL
     lars = OptimConfig(kind="lars")
     lr = torch.full((), 0.01, device="cuda")
     worst_w = worst_m = 0.0
@@ -901,20 +933,19 @@ def phase_fused_update(torch, timer, cfg):
             fu.fused_sgd_update(w1, m1, gr, **kw)
             fu.fused_sgd_update_plain(w2, m2, gr, **kw)
             dw = (w1.float() - w2.float()).abs()
-            if not bool((dw <= w2.float().abs() * 2.0 ** -7).all()):
-                fail(f"fused_sgd_update {mode} {tuple(w.shape)}: w off by "
-                     "more than one bf16 ulp")
+            if not bool((dw <= w2.float().abs() * w_rtol).all()):
+                fail(f"fused_sgd_update {label} {mode} {tuple(w.shape)}: w "
+                     f"off by more than {w_rtol} relative")
             dm = (m1 - m2).abs()
             if not bool((dm <= UPDATE_M_RTOL * m2.abs()).all()):
-                fail(f"fused_sgd_update {mode} {tuple(w.shape)}: m off by "
-                     f"more than {UPDATE_M_RTOL} relative")
+                fail(f"fused_sgd_update {label} {mode} {tuple(w.shape)}: m "
+                     f"off by more than {UPDATE_M_RTOL} relative")
             worst_w = max(worst_w, dw.max().item())
             worst_m = max(worst_m, dm.max().item())
             del w1, m1, w2, m2, dw, dm
-    print(f"[fused_sgd_update] {len(ws)} leaves, {n / 1e9:.3f}B params "
-          f"(bf16 w, f32 m and g), sgd/nesterov/lars: max |kernel - plain| "
-          f"w {worst_w:.3g} (one bf16 ulp allowed) m {worst_m:.3g}",
-          flush=True)
+    print(f"[fused_sgd_update] {label}: {len(ws)} leaves, {n / 1e6:.3f}M "
+          f"params ({ws[0].dtype} w, f32 m and g), sgd/nesterov/lars: max "
+          f"|kernel - plain| w {worst_w:.3g} m {worst_m:.3g}", flush=True)
     tiny = torch.full((), 1e-6, device="cuda")
 
     def kernel():
@@ -927,6 +958,9 @@ def phase_fused_update(torch, timer, cfg):
             fu.fused_sgd_update_plain(w, m, gr, lr=tiny, momentum=0.9,
                                       weight_decay=1e-4)
 
+    before = fu.fused_sgd_update.launches
+    kernel()
+    per_call = fu.fused_sgd_update.launches - before
     ms = timer(kernel)
     plain_ms = timer(plain)
     p32 = [w.float().requires_grad_(True) for w in ws]
@@ -935,15 +969,33 @@ def phase_fused_update(torch, timer, cfg):
     opt = torch.optim.SGD(p32, lr=1e-6, momentum=0.9, weight_decay=1e-4,
                           fused=True)
     lib_ms = timer(opt.step)
-    # w read and written in bf16, m in f32, g read in f32
-    bnd, by = bound_ms(n * (2 + 2 + 4 + 4 + 4), 6 * n, F32_OPS_PER_S)
-    print(f"[fused_sgd_update] whole set: kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-          f"library_ms(torch.optim.SGD fused, all-f32)={lib_ms:.4f}",
-          flush=True)
-    del params, ws, ms_, gs, p32, opt
+    # w and m read and written, g read
+    bnd, by = bound_ms(n * (2 * w_bytes + 4 + 4 + 4), 6 * n, F32_OPS_PER_S)
+    print(f"[fused_sgd_update] {label} whole set: kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}, "
+          f"{2 * w_bytes + 12} B a param; {ms / bnd:.2f}x) "
+          f"library_ms(torch.optim.SGD fused, all-f32)={lib_ms:.4f} "
+          f"launches a call={per_call}", flush=True)
+    del ms_, gs, p32, opt
     return dict(max_abs_err=worst_w, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=by, library_ms=lib_ms)
+
+
+def phase_fused_update(torch, timer, cfg):
+    """Kernel 5 at two layouts: every leaf of full-width qwen2-1.5b (14
+    leaves, bf16 w), whose numbers fill the kernel's JSON row, and every
+    leaf of ResNet-50 (161 leaves, f32 w; 106 of them batch-norm scales
+    and biases of 64-2048 floats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    out = {}
+    for label, c in (("qwen2-1.5b", cfg), ("resnet50",
+                                           get_config("resnet50"))):
+        params = build_model(c).init(SEED, "cuda")
+        out[label] = _fused_update_layout(torch, timer, label,
+                                          list(_leaves(params)))
+        del params
+    return out[cfg.name]
 
 
 # ---------------------------------------------------------------------------
@@ -1074,6 +1126,7 @@ def phase_serve(torch, cfg):
     return launches
 
 
+@float32_exact()
 def phase_depth_f32(torch, cfg):
     """Depth 1 against depth 8 in float32 on the card's kernels: ``cfg``
     (full width; deepseek at its depth cut) with f32 weights from SEED
@@ -1085,8 +1138,6 @@ def phase_depth_f32(torch, cfg):
     depths attend with other kernels, whose sums run in other orders."""
     from repro_torch.models.model import build_model
     from repro_torch.serve.profile_engine import workload
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     model = build_model(cfg32)
     torch.cuda.reset_peak_memory_stats()
@@ -1172,6 +1223,7 @@ def phase_train(torch):
     return res
 
 
+@float32_exact()
 def phase_virtual(torch, cfg):
     """The paper's claim on the card: virtual CSGD and LSGD (4 workers in
     groups of 2, 3 steps, fused SGD) from one set of weights agree within
@@ -1182,7 +1234,6 @@ def phase_virtual(torch, cfg):
     from repro_torch.models.model import build_model
     from repro_torch.optim.sgd import OptimConfig
     from repro_torch.tree import leaves
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = cfg.replace(num_layers=VIRTUAL_LAYERS, param_dtype="float32",
                         compute_dtype="float32", remat=False)
     model = build_model(cfg32)
@@ -1209,6 +1260,84 @@ def phase_virtual(torch, cfg):
         fail(f"virtual csgd and lsgd differ by {diff} (bound "
              f"{VIRTUAL_BOUND})")
     return diff
+
+
+def phase_resnet_train(torch):
+    """ResNet-50, the paper's model, through ``repro_torch.launch.train``
+    with RESNET_ARGV (full width, 224 x 224, batch 64, f32, LSGD, fused
+    SGD, the paper's lr 0.1), every launch count set to 0 just before and
+    read just after, under the TF32 flags the launcher meets when it runs
+    alone.  Every loss must be finite and kernel 5 must have launched
+    once a leaf for each of the 7 deferred updates and ``finalize``."""
+    import statistics
+
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    tf32 = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+    kernels.reset_launch_counts()
+    out = train.main(RESNET_ARGV)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    losses, step_s = out["losses"], out["step_s"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"resnet50 training loss not finite: {losses}")
+    n_leaves = len(list(_leaves(out["state"]["params"])))
+    want = n_leaves * len(losses)
+    if n_leaves != RESNET_LEAVES or counts["fused_sgd_update"] != want:
+        fail(f"resnet50: {counts['fused_sgd_update']} fused_sgd_update "
+             f"launches over {n_leaves} leaves, want {RESNET_LEAVES} x "
+             f"{len(losses)}")
+    med = statistics.median(step_s[-6:])
+    res = dict(loss_first=losses[0], loss_last=losses[-1], step_ms=med * 1e3,
+               images_per_s=out["samples_per_step"] / med,
+               peak_gb=out["peak_mem_bytes"] / 1e9, launches=counts)
+    # the layout copies a step makes beside cuDNN's work: each HWIO conv
+    # weight to the channels-last OIHW the convolution takes, and its
+    # gradient back to HWIO (``core/autodiff``)
+    ws = [w for w in _leaves(out["state"]["params"]) if w.dim() == 4]
+    cls = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+           for w in ws]
+
+    def copies():
+        for w, c in zip(ws, cls):
+            w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            torch.empty_like(w).copy_(c.permute(2, 3, 1, 0))
+
+    copy_ms = Timer(torch, iters=10)(copies)
+    copy_mb = 4 * sum(w.numel() * w.element_size() for w in ws) / 1e6
+    print(f"[resnet_train] layout copies of {len(ws)} conv weights and "
+          f"their gradients: {copy_mb:.1f} MB moved, {copy_ms:.4f} ms a "
+          f"step", flush=True)
+    res["layout_copy_ms"] = copy_ms
+    del ws, cls
+    print(f"[resnet_train] resnet50 full width, {out['params']:,} params "
+          f"f32, 224 x 224, batch {out['samples_per_step']}, lsgd, fused "
+          f"sgd, TF32 {json.dumps(tf32)}: losses "
+          f"{[round(x, 4) for x in losses]}; step ms (median of the last 6) "
+          f"{res['step_ms']:.1f}; images/s {res['images_per_s']:.1f}; peak "
+          f"memory {res['peak_gb']:.2f} GB; step ms all "
+          f"{[round(x * 1e3, 1) for x in step_s]}; fused_sgd_update "
+          f"launches {counts['fused_sgd_update']} = {n_leaves} x "
+          f"{len(losses)}", flush=True)
+    del out
+    return res
+
+
+def phase_resnet_equivalence(torch):
+    """The ResNet half of the port's Fig. 7 on the card
+    (``repro_torch.launch.fig7_equivalence``): the reduced ResNet at 224
+    x 224, 12 steps of serial SGD, CSGD (8 workers) and LSGD (groups of
+    4), TF32 off and cuDNN deterministic.  Fails unless the CSGD and
+    LSGD curves and parameters agree within 1e-3."""
+    from repro_torch.launch import fig7_equivalence as fig7
+    with fig7.exact_float32():
+        name, gap, curve_gap = fig7.check(
+            "resnet", fig7.resnet_run("cuda"),
+            lambda line: print(f"[resnet_equivalence] {line}", flush=True))
+    print(f"[resnet_equivalence] csgd vs lsgd: parameter gap {gap:.3g}, "
+          f"curve gap {curve_gap:.3g} (bound {fig7.BOUND})", flush=True)
+    return gap, curve_gap
 
 
 # ---------------------------------------------------------------------------
@@ -1673,6 +1802,7 @@ def _close_scaled(got, want, tol):
     return d.max().item(), (d / lim).max().item()
 
 
+@float32_exact()
 def phase_ssd_chunk(torch, timer, mcfg, ec):
     """Kernel 12 at the mamba shapes (l 256, 32 heads, p 64, n 128, bf16
     x/B/C, f32 dt and da, the dt bias and A of a seeded layer) against
@@ -1684,7 +1814,6 @@ def phase_ssd_chunk(torch, timer, mcfg, ec):
     from repro_torch import kernels
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.models import ssm
-    torch.backends.cuda.matmul.allow_tf32 = False
     _, nh, _ = ssm._dims(mcfg)
     sm = mcfg.ssm
     l, p, n = sm.chunk_size, sm.head_dim, sm.d_state
@@ -2119,6 +2248,7 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+@float32_exact()
 def _teacher_forced_check(torch, model, params, work, greedy, sampled,
                           argmax_floor=TF_ARGMAX_FLOOR, routes=None):
     """Every emitted token against a plain f32 forward over the emitted
@@ -2140,8 +2270,6 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
     margin of emitted tokens with and without a flip at their position
     are printed beside the check."""
     from repro_torch.models import moe, transformer
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     p32 = _cast(params, torch.float32)
     cfg32 = model.cfg.replace(param_dtype="float32", compute_dtype="float32")
@@ -2388,8 +2516,11 @@ def main() -> int:
     launches = phase(phase_serve, torch, cfg)
     phase(phase_depth_f32, torch, cfg)
     tr = phase(phase_train, torch)
-    launches["fused_sgd_update"] = tr["launches"]["fused_sgd_update"]
     phase(phase_virtual, torch, cfg)
+    rn = phase(phase_resnet_train, torch)
+    launches["fused_sgd_update"] = (tr["launches"]["fused_sgd_update"]
+                                    + rn["launches"]["fused_sgd_update"])
+    phase(phase_resnet_equivalence, torch)
     from repro_torch.serve.profile_engine import workload
     work = workload(cfg.vocab_size, SEED)
     fa = phase(phase_flash_attention, torch, timer, cfg, work)

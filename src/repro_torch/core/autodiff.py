@@ -7,14 +7,26 @@ import torch
 from repro_torch.tree import leaves, unflatten
 
 
+def _in_layout_of(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` with ``p``'s strides.  Autograd hands a parameter used
+    through a permuted view (ResNet's HWIO weights, seen as OIHW by the
+    convolution) a gradient in the view's layout; the pending buffers,
+    the collectives and the fused update's kernel read raw memory in the
+    parameter's layout."""
+    if g.stride() == p.stride():
+        return g
+    return torch.empty_like(p, dtype=g.dtype).copy_(g)
+
+
 def value_and_grad(loss_fn, params, batch):
     """Returns (loss, metrics, grads): loss and metrics detached, grads a
-    tree like ``params`` in the params' dtypes.  The params are used
-    through detached aliases, so the caller's tensors need no
+    tree like ``params`` in the params' dtypes and strides.  The params
+    are used through detached aliases, so the caller's tensors need no
     ``requires_grad`` and may be updated in place afterwards."""
     with torch.enable_grad():
         ps = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss, metrics = loss_fn(unflatten(params, ps), batch)
         grads = torch.autograd.grad(loss, ps)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            unflatten(params, grads))
+            unflatten(params, [_in_layout_of(g, p)
+                               for g, p in zip(grads, ps)]))

@@ -1,12 +1,18 @@
 """Where a training step's time goes on the card: builds the trainer of
 ``repro_torch.launch.train`` from the same flags (default: full-width
-qwen2-1.5b, batch 4 x 512, LSGD, fused SGD, lr 0.01), takes a few warm
-steps, then profiles ``--steps`` steps under ``torch.profiler`` (device
-activity only) and prints one JSON line: step time, the device's busy
-share, kernel time by group (the port's CUDA kernels, matrix products,
-everything else) and the top kernels.  ``--attn-impl`` replaces the
-config's attention form (``naive`` or ``blocked``; qwen2-1.5b's config
-asks for ``blocked``), so that two forms compare in one process.
+qwen2-1.5b, batch 4 x 512, LSGD, fused SGD, lr 0.01; ``--arch resnet50
+--batch 64`` trains ResNet-50 on 224 x 224 images), takes a few warm
+steps on batches already on the card (no host loader), then profiles
+``--steps`` steps under ``torch.profiler`` (device activity only) and
+prints one JSON line: step time, the device's busy and idle shares,
+kernel time by group and the top kernels.  The groups, first match
+first: the port's CUDA kernels, batch statistics (PyTorch's and cuDNN's
+batch-norm kernels), pooling, copies (layout changes and casts: the
+HWIO weights seen as OIHW, their gradients put back), cuDNN's
+convolutions, elementwise, matrix products, everything else.
+``--attn-impl`` replaces the config's attention form (``naive`` or
+``blocked``; qwen2-1.5b's config asks for ``blocked``), so that two
+forms compare in one process.
 
     python -m repro_torch.launch.profile_train [--steps 3] \
         [--attn-impl naive|blocked] [train flags]
@@ -25,15 +31,36 @@ import numpy as np
 import torch
 
 from repro_torch.core.trainer import make_init_state, make_step
-from repro_torch.data.pipeline import DataConfig, synth_batch
+from repro_torch.data.pipeline import synth_batch
 from repro_torch.launch import train
 from repro_torch.models.model import build_model
-from repro_torch.serve.profile_engine import _device_us, _group
+from repro_torch.serve.profile_engine import (GEMM_MARKERS, PORT_KERNELS,
+                                              _device_us)
 
 DEFAULTS = ["--arch", "qwen2-1.5b", "--batch", "4", "--seq", "512",
             "--sync-mode", "lsgd", "--base-lr", "0.01", "--schedule",
             "const"]
 WARM_STEPS = 3
+# (group, lower-case name fragments), matched in order after the port's
+# kernels; cuDNN's batch-norm and layout kernels carry "cudnn" too
+GROUPS = (
+    ("batch statistics", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                          "welford")),
+    ("pooling", ("pool",)),
+    ("copies", ("copy", "nchwtonhwc", "nhwctonchw", "transpose")),
+    ("convolutions", ("fprop", "dgrad", "wgrad", "convolve", "winograd",
+                      "implicit", "cudnn")),
+    ("elementwise", ("elementwise",)),
+    ("matrix products", GEMM_MARKERS),
+)
+
+
+def group_of(name: str) -> str:
+    if any(k in name for k in PORT_KERNELS):
+        return "port kernels"
+    low = name.lower()
+    return next((g for g, keys in GROUPS if any(k in low for k in keys)),
+                "other")
 
 
 def main(argv=None) -> dict:
@@ -60,11 +87,10 @@ def main(argv=None) -> dict:
     tcfg = train.trainer_config(args)
     state = make_init_state(model, tcfg, "cuda")(args.seed)
     step = make_step(model, tcfg, train.lr_schedule(args))
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                      global_batch=args.batch, seed=args.seed)
-    batches = [{"tokens": torch.from_numpy(np.ascontiguousarray(
-        synth_batch(dcfg, t)["tokens"])).cuda()}
-        for t in range(WARM_STEPS + steps)]
+    dcfg = train.data_config(cfg, args)
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                for k, v in synth_batch(dcfg, t).items()}
+               for t in range(WARM_STEPS + steps)]
     for b in batches[:WARM_STEPS]:
         state, (loss, _) = step(state, b)
     torch.cuda.synchronize()
@@ -81,7 +107,7 @@ def main(argv=None) -> dict:
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        by_group[_group(evt.key)] += us
+        by_group[group_of(evt.key)] += us
         kernels.append((us, evt.count, evt.key))
     busy_us = sum(by_group.values())
     kernels.sort(reverse=True)
@@ -92,10 +118,14 @@ def main(argv=None) -> dict:
     out = {
         "card": card, "arch": cfg.name, "attn_impl": cfg.attn_impl,
         "batch": args.batch,
-        "seq": args.seq, "sync_mode": args.sync_mode, "steps": steps,
+        "seq": None if dcfg.kind == "image" else args.seq,
+        "sync_mode": args.sync_mode, "steps": steps,
         "step_s": wall / steps, "loss": float(loss),
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32},
         "kernels_per_step": sum(c for _, c, _ in kernels) / steps,
         "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
+        "device_idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
         "device_s_per_step_by_group": {
             k: v / 1e6 / steps for k, v in sorted(by_group.items())},
         "top_kernels": [{"name": n[:90], "device_s_per_step": us / 1e6 / steps,

@@ -11,31 +11,40 @@
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
         --device cpu --sync-mode lsgd --intra-group-size 2
 
+    # ResNet-50, the paper's model: 224 x 224 images, batch 64, f32
+    python -m repro_torch.launch.train --arch resnet50 --steps 8 \
+        --batch 64 --ckpt-dir ckpt --ckpt-every 4
+
 One process per rank: under ``torchrun`` (``WORLD_SIZE`` > 1) each rank
 joins the process group at ``MASTER_ADDR:MASTER_PORT``, takes rows
 [r*B/N, (r+1)*B/N) of each global batch, and the trainer syncs
-gradients across ranks.  The data is the reference's synthetic zipf
-token stream, a pure function of (seed, step).  SGD and LARS run through
-the fused CUDA update.  The reference's ``--mesh`` and checkpoint flags
-are not ported.
+gradients across ranks.  The data is the reference's synthetic stream
+(``data_config_for``: zipf tokens, or images and labels for ResNet), a
+pure function of (seed, step).  SGD and LARS run through the fused CUDA
+update.  With ``--ckpt-dir`` the run restores the newest checkpoint
+there when one exists, saves every ``--ckpt-every`` steps and after
+``finalize``, as the reference does (its data stream, too, starts again
+at batch 0 after a restore).  The reference's ``--mesh`` is not ported.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from types import SimpleNamespace
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.sync import SYNC_MODES
 from repro_torch.core.topology import Topology
 from repro_torch.core.trainer import (TrainerConfig, make_finalize,
                                       make_init_state, make_step)
-from repro_torch.data.pipeline import DataConfig, HostLoader
+from repro_torch.data.pipeline import HostLoader, data_config_for
 from repro_torch.models.model import build_model
 from repro_torch.optim import schedules
 from repro_torch.optim.sgd import OptimConfig
@@ -63,6 +72,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["paper", "wsd", "cosine", "const"])
     ap.add_argument("--warmup-steps", type=int, default=20)
     ap.add_argument("--io-latency", type=float, default=0.0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -111,6 +122,23 @@ def trainer_config(args) -> TrainerConfig:
         topology=Topology(intra_group_size=args.intra_group_size))
 
 
+def data_config(cfg, args):
+    """The reference's synthetic data for ``cfg``'s family, one global
+    batch of ``--batch`` rows a step."""
+    return data_config_for(
+        cfg, SimpleNamespace(seq_len=args.seq, global_batch=args.batch),
+        seed=args.seed)
+
+
+def to_device(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One rank's rows of a host batch leaf, on ``device`` (pinned and
+    non-blocking on a card)."""
+    t = torch.from_numpy(np.ascontiguousarray(rows))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def device_of(name: str) -> torch.device:
     """CUDA unless the caller asks for the CPU; no fallback."""
     if name == "cuda" and not torch.cuda.is_available():
@@ -139,8 +167,8 @@ def init_distributed(device: torch.device):
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Train; returns a summary (losses, step times, tokens per step, peak
-    device memory, the final state)."""
+    """Train; returns a summary (losses, step times, samples and tokens
+    per step, peak device memory, the final state)."""
     args = parse_args(argv)
     device = device_of(args.device)
     rank, world = init_distributed(device)
@@ -165,11 +193,15 @@ def main(argv=None) -> Dict[str, Any]:
         print(f"arch={cfg.name} params={n_params:,} sync={args.sync_mode} "
               f"ranks={world} device={device} optimizer={args.optimizer}",
               flush=True)
+    if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
+        state = checkpoint.restore(args.ckpt_dir, state)
+        if log:
+            print(f"restored checkpoint at step {state['step']}", flush=True)
 
     step_fn = make_step(model, tcfg, lr_fn)
     finalize = make_finalize(model, tcfg, lr_fn)
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                      global_batch=args.batch, seed=args.seed)
+    dcfg = data_config(cfg, args)
+    images = dcfg.kind == "image"
     per = args.batch // world
     losses: List[float] = []
     step_s: List[float] = []
@@ -178,22 +210,25 @@ def main(argv=None) -> Dict[str, Any]:
     try:
         for i in range(args.steps):
             t0 = time.perf_counter()
-            rows = next(loader)["tokens"][rank * per:(rank + 1) * per]
-            tokens = torch.from_numpy(np.ascontiguousarray(rows))
-            if device.type == "cuda":
-                tokens = tokens.pin_memory().to(device, non_blocking=True)
-            state, (loss, _) = step_fn(state, {"tokens": tokens})
+            batch = {k: to_device(v[rank * per:(rank + 1) * per], device)
+                     for k, v in next(loader).items()}
+            state, (loss, _) = step_fn(state, batch)
             losses.append(float(loss))           # waits for the step
             step_s.append(time.perf_counter() - t0)
             if log and ((i + 1) % args.log_every == 0 or i == 0):
-                tput = args.batch * args.seq * (i + 1) / (
+                rate = args.batch * (1 if images else args.seq) * (i + 1) / (
                     time.perf_counter() - t_start)
                 print(f"step {i + 1:5d} loss {losses[-1]:.4f} "
-                      f"lr {lr_fn(i):.4f} tok/s {tput:,.0f} "
-                      f"step_s {step_s[-1]:.4f}", flush=True)
+                      f"lr {lr_fn(i):.4f} {'img' if images else 'tok'}/s "
+                      f"{rate:,.0f} step_s {step_s[-1]:.4f}", flush=True)
+            if args.ckpt_dir and args.ckpt_every \
+                    and (i + 1) % args.ckpt_every == 0:
+                checkpoint.save(args.ckpt_dir, state, state["step"])
     finally:
         loader.close()
     state = finalize(state)
+    if args.ckpt_dir:
+        checkpoint.save(args.ckpt_dir, state, state["step"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     peak = (torch.cuda.max_memory_allocated(device)
@@ -201,10 +236,9 @@ def main(argv=None) -> Dict[str, Any]:
     if log:
         print(f"done in {time.perf_counter() - t_start:.1f}s; final loss "
               f"{losses[-1]:.4f}", flush=True)
-    return {"losses": losses, "step_s": step_s,
-            "tokens_per_step": args.batch * args.seq, "params": n_params,
-            "peak_mem_bytes": peak, "state": state}
-
+    return {"losses": losses, "step_s": step_s, "samples_per_step": args.batch,
+            "tokens_per_step": None if images else args.batch * args.seq,
+            "params": n_params, "peak_mem_bytes": peak, "state": state}
 
 if __name__ == "__main__":
     try:

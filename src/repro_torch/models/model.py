@@ -1,6 +1,8 @@
 """Model interface of the port for the dense, ssm and MLA + MoE families
-(``repro/models/model.py``): ``build_model(cfg)`` returns a ``Model``
-whose members are plain functions over a nested dict of tensors.
+and ResNet (``repro/models/model.py``): ``build_model(cfg)`` returns a
+``Model`` whose members are plain functions over a nested dict of
+tensors.  ResNet trains only: its serving members are None, as the
+reference's are.
 
   init(seed, device)                        -> params
   forward(params, tokens, ...)              -> (logits, cache, h)
@@ -18,12 +20,12 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import resnet, transformer
 
 
 @dataclass(frozen=True)
@@ -59,21 +61,22 @@ class PagedSpec:
 class Model:
     cfg: ModelConfig
     init: Callable
-    forward: Callable
-    init_cache: Callable
-    prefill: Callable
-    decode_step: Callable
-    init_paged_cache: Callable
-    paged_step: Callable
-    paged_decode_loop: Callable
-    paged_spec: PagedSpec
     loss: Callable
+    forward: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
+    init_paged_cache: Optional[Callable] = None
+    paged_step: Optional[Callable] = None
+    paged_decode_loop: Optional[Callable] = None
+    paged_spec: Optional[PagedSpec] = None   # None: the model does not serve
 
 
-def _init(seed: int, device, *, cfg):
+def seeded_init(seed: int, device, *, cfg, init_params=transformer.init_params,
+          **kw):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return transformer.init_params(cfg, gen, device)
+    return init_params(cfg, gen, device, **kw)
 
 
 def _loss_not_ported(params, batch, *, cfg):
@@ -84,6 +87,11 @@ def _loss_not_ported(params, batch, *, cfg):
 
 
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "resnet":
+        return Model(cfg=cfg,
+                     init=functools.partial(seeded_init, cfg=cfg,
+                                            init_params=resnet.init_params),
+                     loss=functools.partial(resnet.loss, cfg=cfg))
     kinds = {k for k, _, _ in transformer.runs_of(cfg)}   # raises if not
     kspec = {"sampling": "greedy_sample/gumbel_sample"}    # ported
     if "attn" in kinds:
@@ -97,7 +105,7 @@ def build_model(cfg: ModelConfig) -> Model:
         kernel_spec=tuple(sorted(kspec.items())))
     return Model(
         cfg=cfg,
-        init=functools.partial(_init, cfg=cfg),
+        init=functools.partial(seeded_init, cfg=cfg),
         forward=functools.partial(transformer.forward, cfg=cfg),
         init_cache=functools.partial(transformer.init_cache, cfg),
         prefill=functools.partial(transformer.prefill, cfg=cfg),

@@ -206,6 +206,9 @@ class Engine:
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(),
                  device=None, telemetry: Optional[Telemetry] = None,
                  replica_id: int = 0):
+        if model.paged_spec is None:
+            raise ValueError(f"{model.cfg.name}: the {model.cfg.family!r} "
+                             "family trains only and has no serving path")
         if cfg.steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if not cfg.fused:

@@ -541,6 +541,82 @@ def test_fused_update_rejects_misaligned(dev):
                                       momentum=0.9, weight_decay=0.0)
 
 
+@pytest.mark.parametrize("shape", [(3, 3, 64, 64), (64,)])
+@pytest.mark.parametrize("mode", ["sgd", "nesterov", "lars"])
+def test_fused_update_kernel_on_resnet_leaves(dev, shape, mode):
+    """ResNet-50's leaves as the trainer holds them: an HWIO conv weight
+    whose gradient comes from ``value_and_grad`` through the convolution
+    (which sees the weight as OIHW), and a 64-float batch-norm scale."""
+    from repro_torch.core.autodiff import value_and_grad
+    from repro_torch.models import resnet
+    gen = torch.Generator(device=dev).manual_seed(len(shape))
+    w = torch.randn(shape, generator=gen, device=dev)
+    m = torch.randn(shape, generator=gen, device=dev)
+    if len(shape) == 4:
+        x = torch.randn((2, 64, 9, 9), generator=gen, device=dev)
+        _, _, g = value_and_grad(
+            lambda p, b: (resnet.conv(p["w"], b, 2).square().mean(), {}),
+            {"w": w}, x)
+        g = g["w"]
+        assert g.stride() == w.stride()
+    else:
+        g = torch.randn(shape, generator=gen, device=dev)
+    trust = (torch.linalg.vector_norm(w) * 1e-3 if mode == "lars" else None)
+    kw = dict(lr=torch.tensor(0.05, device=dev), trust=trust, momentum=0.9,
+              weight_decay=1e-4, nesterov=mode == "nesterov")
+    w2, m2 = w.clone(), m.clone()
+    before = fused_update.fused_sgd_update.launches
+    fused_update.fused_sgd_update(w, m, g, **kw)
+    assert fused_update.fused_sgd_update.launches == before + 1
+    fused_update.fused_sgd_update_plain(w2, m2, g, **kw)
+    torch.testing.assert_close(w, w2, atol=0, rtol=1e-6)
+    torch.testing.assert_close(m, m2, atol=0, rtol=1e-6)
+
+
+def test_fused_update_refuses_a_non_contiguous_gradient(dev):
+    """The gradient of a permuted view, as autograd returns it, is not
+    the kernel's input: the wrapper raises (``value_and_grad`` puts it
+    back in the parameter's layout first)."""
+    w = torch.zeros((3, 3, 8, 16), device=dev)
+    g = torch.zeros((16, 8, 3, 3), device=dev).permute(2, 3, 1, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_update.fused_sgd_update(w, torch.zeros_like(w), g, lr=0.1,
+                                      momentum=0.9, weight_decay=0.0)
+
+
+def test_reduced_resnet_on_card_matches_cpu(dev):
+    """The reduced ResNet's loss and gradients through cuDNN (channels-last
+    input, the asymmetric "SAME" pads at 32 x 32) against the same
+    model on the CPU, float32 with TF32 off: within 1e-4 + 1e-4
+    relative (two f32 convolution orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.autodiff import value_and_grad
+    from repro_torch.models import resnet
+    from repro_torch.tree import leaves, tree_map
+    cfg, stages = get_config("resnet50"), (1, 1, 1, 1)
+    gen = torch.Generator().manual_seed(0)
+    params = resnet.init_params(cfg, gen, "cpu", stages, (8, 16, 32, 64), 10)
+    batch = {"images": torch.randn((4, 32, 32, 3), generator=gen),
+             "labels": torch.randint(0, 10, (4,), generator=gen)}
+    loss_fn = lambda p, b: resnet.loss(p, b, cfg, stages)
+    want_l, _, want_g = value_and_grad(loss_fn, params, batch)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got_l, _, got_g = value_and_grad(
+            loss_fn, tree_map(lambda t: t.to(dev), params),
+            {k: v.to(dev) for k, v in batch.items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    torch.testing.assert_close(got_l.cpu(), want_l, atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves(got_g), leaves(want_g)):
+        assert a.is_contiguous()
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("kind", ["sgd", "lars"])
 def test_apply_update_on_card_launches_the_kernel(dev, kind):
     """The optimizer has one route for sgd and lars: on CUDA tensors every

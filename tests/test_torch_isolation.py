@@ -25,6 +25,8 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.models.ssm", "repro_torch.models.mla",
            "repro_torch.models.moe",
            "repro_torch.models.transformer", "repro_torch.models.model",
+           "repro_torch.models.resnet",
+           "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.serve.profile_engine",
            "repro_torch.optim.sgd", "repro_torch.optim.schedules",
@@ -32,7 +34,8 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.core.topology", "repro_torch.core.virtual",
            "repro_torch.core.sync", "repro_torch.core.trainer",
            "repro_torch.data.pipeline", "repro_torch.launch.train",
-           "repro_torch.launch.profile_train"]
+           "repro_torch.launch.profile_train",
+           "repro_torch.launch.fig7_equivalence"]
 
 
 def test_port_imports_with_jax_and_repro_blocked():
@@ -44,6 +47,8 @@ def test_port_imports_with_jax_and_repro_blocked():
             "get_config('qwen2-1.5b')\n"
             "get_config('mamba2-370m')\n"
             "get_config('deepseek-v3-671b')\n"
+            "get_config('resnet50')\n"
+            "get_config('qwen1.5-0.5b')\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=SRC,
