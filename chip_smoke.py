@@ -153,7 +153,7 @@ VIRTUAL_LAYERS = 2
 VIRTUAL_BOUND = 1e-5
 # ResNet-50, the paper's model and shape: 224 x 224 images, local batch
 # 64, f32, 8 LSGD steps of fused SGD at the launcher's (the paper's) lr
-# schedule; 161 param leaves, each one kernel-5 launch an update
+# schedule; 161 param leaves, all f32: one kernel-5 launch an update
 RESNET_ARGV = ["--arch", "resnet50", "--steps", "8", "--batch", "64",
                "--sync-mode", "lsgd", "--optimizer", "sgd", "--log-every",
                "1", "--seed", "0", "--device", "cuda"]
@@ -262,7 +262,8 @@ SASS_TEMPLATES = (
 )
 # kernels whose resource usage sass_counts prints (and fails on a spill)
 RES_KERNELS = ("gumbel_cluster_kernel", "slot_gather_kernel",
-               "slot_scatter_kernel", "ssd_chunk_tc", "ssd_chunk_f32")
+               "slot_scatter_kernel", "ssd_chunk_tc", "ssd_chunk_f32",
+               "fused_sgd_kernel", "lars_norms_kernel", "lars_trust_kernel")
 # bf16 (tensor-core) and f32 templates each family must have
 SASS_FAMILIES = {"flash_attention_": (2, 2), "mla_attend_": (2, 2),
                  "flash_decode_": (8, 6), "ssd_chunk_": (6, 1)}
@@ -902,17 +903,81 @@ def phase_gumbel(torch, timer, cfg, mcfg, dcfg, ec):
     return out
 
 
+def _fused_update_check(torch, fu, label, ws, ms_, gs):
+    """One whole-set call of kernel 5 for each of sgd, nesterov and lars
+    against the plain version on copies of the same inputs: w within one
+    bf16 ulp for bf16 w and UPDATE_M_RTOL relative for f32 w, m within
+    UPDATE_M_RTOL (both are bit for bit in practice: the kernel rounds as
+    the plain version's operators do); LARS's trust from the kernel's
+    norms pass within ``fu.LARS_TRUST_RTOL`` of the plain one (norms
+    summed in another order), and the update given that trust held to
+    the same bounds.  The launches of each call must be
+    ``fu.launches_per_call``.  Returns (worst |dw|, worst |dm|, worst
+    trust relative error, whether every leaf was bit for bit)."""
+    from repro_torch.optim.sgd import OptimConfig
+    lars = OptimConfig(kind="lars")
+    lkw = dict(eta=lars.lars_eta, eps=lars.lars_eps,
+               weight_decay=lars.weight_decay)
+    keys = [(w.dtype, m.dtype, g.dtype) for w, m, g in zip(ws, ms_, gs)]
+    lr = torch.full((), 0.01, device="cuda")
+    worst_w = worst_m = worst_t = 0.0
+    exact = True
+    for mode in ("sgd", "nesterov", "lars"):
+        w1, m1 = [w.clone() for w in ws], [m.clone() for m in ms_]
+        before = fu.fused_sgd_update.launches
+        trust = None
+        if mode == "lars":
+            trust = fu.lars_trust(w1, gs, **lkw)
+            want = fu.lars_trust_plain(ws, gs, **lkw)
+            worst_t = ((trust - want).abs() / want.abs()).max().item()
+            if not worst_t <= fu.LARS_TRUST_RTOL:
+                fail(f"lars_trust {label}: {worst_t:.3g} relative from the "
+                     f"plain trust (bound {fu.LARS_TRUST_RTOL})")
+        kw = dict(lr=lr, trust=trust, momentum=0.9, weight_decay=1e-4,
+                  nesterov=mode == "nesterov")
+        fu.fused_sgd_update(w1, m1, gs, **kw)
+        launched = fu.fused_sgd_update.launches - before
+        if launched != fu.launches_per_call(keys, lars=mode == "lars"):
+            fail(f"fused_sgd_update {label} {mode}: {launched} launches, "
+                 f"want {fu.launches_per_call(keys, lars=mode == 'lars')}")
+        w2, m2 = [w.clone() for w in ws], [m.clone() for m in ms_]
+        fu.fused_sgd_update_plain(w2, m2, gs, **kw)
+        for i, (a, b, c, d) in enumerate(zip(w1, w2, m1, m2)):
+            w_rtol = 2.0 ** -7 if a.dtype == torch.bfloat16 else \
+                UPDATE_M_RTOL
+            m_rtol = 2.0 ** -7 if c.dtype == torch.bfloat16 else \
+                UPDATE_M_RTOL
+            dw = (a.float() - b.float()).abs()
+            dm = (c.float() - d.float()).abs()
+            if not bool((dw <= b.float().abs() * w_rtol).all()):
+                fail(f"fused_sgd_update {label} {mode} leaf {i} "
+                     f"{tuple(a.shape)}: w off by more than {w_rtol} "
+                     "relative")
+            if not bool((dm <= d.float().abs() * m_rtol).all()):
+                fail(f"fused_sgd_update {label} {mode} leaf {i} "
+                     f"{tuple(a.shape)}: m off by more than {m_rtol} "
+                     "relative")
+            worst_w = max(worst_w, dw.max().item() if dw.numel() else 0.0)
+            worst_m = max(worst_m, dm.max().item() if dm.numel() else 0.0)
+            exact = exact and torch.equal(a, b) and torch.equal(c, d)
+        del w1, m1, w2, m2
+    return worst_w, worst_m, worst_t, exact
+
+
 def _fused_update_layout(torch, timer, label, ws):
     """Kernel 5 over the leaves ``ws`` as the trainer holds them (w in
-    its dtype, f32 momentum and gradient): sgd, nesterov and a LARS
-    trust from the device, each leaf against the plain version on copies
-    of the same inputs (w within one bf16 ulp for bf16 w, and within
-    UPDATE_M_RTOL relative for f32 w and m).  Times are over the whole
-    set, one launch per leaf; the library yardstick is
-    ``torch.optim.SGD(fused=True)`` on an all-f32 copy (the same function
-    at trust 1)."""
+    its dtype, f32 momentum and gradient): the whole-set checks of
+    ``_fused_update_check``, then times over the whole set: one sgd call
+    (the kernel), the LARS set (trust and update), the plain version,
+    and the library yardstick ``torch.optim.SGD(fused=True)`` on an
+    all-f32 copy (the same function at trust 1); and the host time of
+    one ``apply_update`` over the set as a tree (host clock, no sync;
+    median of 20 calls, each after a sync), sgd and lars, with its
+    launches."""
+    import statistics
+
     from repro_torch.kernels import fused_update as fu
-    from repro_torch.optim.sgd import OptimConfig, lars_trust
+    from repro_torch.optim import sgd
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     ms_ = [torch.randn(w.shape, generator=g, device="cuda") * 1e-2
            for w in ws]
@@ -920,48 +985,31 @@ def _fused_update_layout(torch, timer, label, ws):
           for w in ws]
     n = sum(w.numel() for w in ws)
     w_bytes = ws[0].element_size()
-    w_rtol = 2.0 ** -7 if ws[0].dtype == torch.bfloat16 else UPDATE_M_RTOL
-    lars = OptimConfig(kind="lars")
-    lr = torch.full((), 0.01, device="cuda")
-    worst_w = worst_m = 0.0
-    for mode in ("sgd", "nesterov", "lars"):
-        for w, m, gr in zip(ws, ms_, gs):
-            trust = lars_trust(w, gr, lars) if mode == "lars" else None
-            kw = dict(lr=lr, trust=trust, momentum=0.9, weight_decay=1e-4,
-                      nesterov=mode == "nesterov")
-            w1, m1, w2, m2 = w.clone(), m.clone(), w.clone(), m.clone()
-            fu.fused_sgd_update(w1, m1, gr, **kw)
-            fu.fused_sgd_update_plain(w2, m2, gr, **kw)
-            dw = (w1.float() - w2.float()).abs()
-            if not bool((dw <= w2.float().abs() * w_rtol).all()):
-                fail(f"fused_sgd_update {label} {mode} {tuple(w.shape)}: w "
-                     f"off by more than {w_rtol} relative")
-            dm = (m1 - m2).abs()
-            if not bool((dm <= UPDATE_M_RTOL * m2.abs()).all()):
-                fail(f"fused_sgd_update {label} {mode} {tuple(w.shape)}: m "
-                     f"off by more than {UPDATE_M_RTOL} relative")
-            worst_w = max(worst_w, dw.max().item())
-            worst_m = max(worst_m, dm.max().item())
-            del w1, m1, w2, m2, dw, dm
+    worst_w, worst_m, worst_t, exact = _fused_update_check(
+        torch, fu, label, ws, ms_, gs)
     print(f"[fused_sgd_update] {label}: {len(ws)} leaves, {n / 1e6:.3f}M "
-          f"params ({ws[0].dtype} w, f32 m and g), sgd/nesterov/lars: max "
-          f"|kernel - plain| w {worst_w:.3g} m {worst_m:.3g}", flush=True)
-    tiny = torch.full((), 1e-6, device="cuda")
+          f"params ({ws[0].dtype} w, f32 m and g), sgd/nesterov/lars, one "
+          f"call each: max |kernel - plain| w {worst_w:.3g} m "
+          f"{worst_m:.3g}, bit for bit {exact}; lars trust max relative "
+          f"error {worst_t:.3g}", flush=True)
+    lkw = dict(eta=1e-3, eps=1e-9, weight_decay=1e-4)
+    tiny = 1e-6
 
     def kernel():
-        for w, m, gr in zip(ws, ms_, gs):
-            fu.fused_sgd_update(w, m, gr, lr=tiny, momentum=0.9,
-                                weight_decay=1e-4)
+        fu.fused_sgd_update(ws, ms_, gs, lr=tiny, momentum=0.9,
+                            weight_decay=1e-4)
+
+    def lars_set():
+        trust = fu.lars_trust(ws, gs, **lkw)
+        fu.fused_sgd_update(ws, ms_, gs, lr=tiny, trust=trust, momentum=0.9,
+                            weight_decay=1e-4)
 
     def plain():
-        for w, m, gr in zip(ws, ms_, gs):
-            fu.fused_sgd_update_plain(w, m, gr, lr=tiny, momentum=0.9,
-                                      weight_decay=1e-4)
+        fu.fused_sgd_update_plain(ws, ms_, gs, lr=tiny, momentum=0.9,
+                                  weight_decay=1e-4)
 
-    before = fu.fused_sgd_update.launches
-    kernel()
-    per_call = fu.fused_sgd_update.launches - before
     ms = timer(kernel)
+    lars_ms = timer(lars_set)
     plain_ms = timer(plain)
     p32 = [w.float().requires_grad_(True) for w in ws]
     for p, gr in zip(p32, gs):
@@ -969,23 +1017,80 @@ def _fused_update_layout(torch, timer, label, ws):
     opt = torch.optim.SGD(p32, lr=1e-6, momentum=0.9, weight_decay=1e-4,
                           fused=True)
     lib_ms = timer(opt.step)
+    del p32, opt
+    # the host time of the optimizer's call over the set as a tree
+    tree = lambda xs: {f"leaf_{i}": x for i, x in enumerate(xs)}
+    params, state, grads = tree(ws), {"m": tree(ms_)}, tree(gs)
+    host, per_call = {}, {}
+    for kind in ("sgd", "lars"):
+        cfg = sgd.OptimConfig(kind=kind)
+        times = []
+        for _ in range(23):
+            torch.cuda.synchronize()
+            before = fu.fused_sgd_update.launches
+            t0 = time.perf_counter()
+            sgd.apply_update(params, state, grads, tiny, cfg)
+            times.append(time.perf_counter() - t0)
+            per_call[kind] = fu.fused_sgd_update.launches - before
+        host[kind] = statistics.median(times[3:]) * 1e3
+    torch.cuda.synchronize()
     # w and m read and written, g read
     bnd, by = bound_ms(n * (2 * w_bytes + 4 + 4 + 4), 6 * n, F32_OPS_PER_S)
     print(f"[fused_sgd_update] {label} whole set: kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}, "
-          f"{2 * w_bytes + 12} B a param; {ms / bnd:.2f}x) "
+          f"lars_ms={lars_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bnd:.4f} ({by}, {2 * w_bytes + 12} B a param; "
+          f"{ms / bnd:.2f}x, {bnd / ms:.1%} of the bound) "
           f"library_ms(torch.optim.SGD fused, all-f32)={lib_ms:.4f} "
-          f"launches a call={per_call}", flush=True)
-    del ms_, gs, p32, opt
-    return dict(max_abs_err=worst_w, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
-                bound_by=by, library_ms=lib_ms)
+          f"({ms / lib_ms:.2f}x); apply_update host_ms sgd="
+          f"{host['sgd']:.4f} lars={host['lars']:.4f}; launches a call "
+          f"sgd {per_call['sgd']} lars {per_call['lars']}", flush=True)
+    del ms_, gs, params, state, grads
+    return dict(max_abs_err=max(worst_w, worst_m), ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+
+
+def _fused_update_ragged(torch):
+    """Kernel 5 over a ragged set against the plain version: leaves of 1,
+    7, 8, 9, 63, 64, 2047, 2048 and 2,359,296 elements twice, f32 w, m,
+    g and bf16 w with f32 m and bf16 g interleaved, then TABLE_LEAVES
+    small f32 leaves (1-300 elements), so that the f32 group outgrows one
+    table and takes a second launch: 3 launches for sgd, 9 for lars."""
+    from repro_torch.kernels import fused_update as fu
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    sizes = [1, 7, 8, 9, 63, 64, 2047, 2048, 3 * 3 * 512 * 512]
+    ws, ms_, gs = [], [], []
+    for n in sizes:
+        for wdt in (torch.float32, torch.bfloat16):
+            ws.append(torch.randn((n,), generator=g, device="cuda").to(wdt))
+            ms_.append(torch.randn((n,), generator=g, device="cuda") * 1e-2)
+            gs.append((torch.randn((n,), generator=g, device="cuda")
+                       * 1e-2).to(wdt))
+    for i in range(fu.TABLE_LEAVES):
+        n = 1 + (37 * i) % 300
+        ws.append(torch.randn((n,), generator=g, device="cuda"))
+        ms_.append(torch.randn((n,), generator=g, device="cuda") * 1e-2)
+        gs.append(torch.randn((n,), generator=g, device="cuda") * 1e-2)
+    keys = [(w.dtype, m.dtype, gr.dtype) for w, m, gr in zip(ws, ms_, gs)]
+    sgd_n, lars_n = fu.launches_per_call(keys), fu.launches_per_call(
+        keys, lars=True)
+    if (sgd_n, lars_n) != (3, 9):
+        fail(f"fused_sgd_update ragged set: launch rule gives {sgd_n} / "
+             f"{lars_n}, want 3 / 9")
+    worst_w, worst_m, worst_t, exact = _fused_update_check(
+        torch, fu, "ragged", ws, ms_, gs)
+    print(f"[fused_sgd_update] ragged set: {len(ws)} leaves (f32 and bf16 "
+          f"w, f32 and bf16 g), launches a call sgd {sgd_n} lars {lars_n}: "
+          f"max |kernel - plain| w {worst_w:.3g} m {worst_m:.3g}, bit for "
+          f"bit {exact}; lars trust max relative error {worst_t:.3g}",
+          flush=True)
+    return max(worst_w, worst_m)
 
 
 def phase_fused_update(torch, timer, cfg):
     """Kernel 5 at two layouts: every leaf of full-width qwen2-1.5b (14
     leaves, bf16 w), whose numbers fill the kernel's JSON row, and every
     leaf of ResNet-50 (161 leaves, f32 w; 106 of them batch-norm scales
-    and biases of 64-2048 floats)."""
+    and biases of 64-2048 floats); then the ragged set."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     out = {}
@@ -995,7 +1100,10 @@ def phase_fused_update(torch, timer, cfg):
         out[label] = _fused_update_layout(torch, timer, label,
                                           list(_leaves(params)))
         del params
-    return out[cfg.name]
+    row = out[cfg.name]
+    row["max_abs_err"] = max(row["max_abs_err"], out["resnet50"][
+        "max_abs_err"], _fused_update_ragged(torch))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1191,10 +1299,23 @@ def phase_depth_f32(torch, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _update_launches(state) -> int:
+    """Kernel 5's launches in one deferred update of a trainer's state:
+    ``launches_per_call`` of its (param, momentum, pending) dtypes, a
+    count that does not grow with the leaves."""
+    from repro_torch.kernels import fused_update as fu
+    keys = [(w.dtype, m.dtype, g.dtype) for w, m, g in zip(
+        _leaves(state["params"]), _leaves(state["opt"]["m"]),
+        _leaves(state["pending"]))]
+    return fu.launches_per_call(keys)
+
+
 def phase_train(torch):
     """The training main path: ``repro_torch.launch.train`` with
     TRAIN_ARGV (LSGD, fused SGD), every launch count set to 0 just before
-    and read just after.  The loss must be finite at every step."""
+    and read just after.  The loss must be finite at every step, and
+    kernel 5 must have launched exactly its launches a call for each of
+    the 7 deferred updates and ``finalize``."""
     import statistics
 
     from repro_torch import kernels
@@ -1206,8 +1327,11 @@ def phase_train(torch):
     losses, step_s = out["losses"], out["step_s"]
     if not all(math.isfinite(x) for x in losses):
         fail(f"training loss not finite: {losses}")
-    if counts["fused_sgd_update"] <= 0:
-        fail("training never launched fused_sgd_update")
+    per_step = _update_launches(out["state"])
+    if counts["fused_sgd_update"] != per_step * len(losses):
+        fail(f"training: {counts['fused_sgd_update']} fused_sgd_update "
+             f"launches, want {per_step} a deferred update x "
+             f"{len(losses)}")
     med = statistics.median(step_s[-6:])
     res = dict(loss_first=losses[0], loss_last=losses[-1], step_ms=med * 1e3,
                tokens_per_s=out["tokens_per_step"] / med,
@@ -1268,7 +1392,8 @@ def phase_resnet_train(torch):
     SGD, the paper's lr 0.1), every launch count set to 0 just before and
     read just after, under the TF32 flags the launcher meets when it runs
     alone.  Every loss must be finite and kernel 5 must have launched
-    once a leaf for each of the 7 deferred updates and ``finalize``."""
+    its launches a call (one: every leaf is f32) for each of the 7
+    deferred updates and ``finalize``, whatever the leaf count."""
     import statistics
 
     from repro_torch import kernels
@@ -1283,11 +1408,13 @@ def phase_resnet_train(torch):
     if not all(math.isfinite(x) for x in losses):
         fail(f"resnet50 training loss not finite: {losses}")
     n_leaves = len(list(_leaves(out["state"]["params"])))
-    want = n_leaves * len(losses)
-    if n_leaves != RESNET_LEAVES or counts["fused_sgd_update"] != want:
+    per_step = _update_launches(out["state"])
+    want = per_step * len(losses)
+    if (n_leaves != RESNET_LEAVES or per_step != 1
+            or counts["fused_sgd_update"] != want):
         fail(f"resnet50: {counts['fused_sgd_update']} fused_sgd_update "
-             f"launches over {n_leaves} leaves, want {RESNET_LEAVES} x "
-             f"{len(losses)}")
+             f"launches over {n_leaves} leaves, want {per_step} (of 1) x "
+             f"{len(losses)} over {RESNET_LEAVES}")
     med = statistics.median(step_s[-6:])
     res = dict(loss_first=losses[0], loss_last=losses[-1], step_ms=med * 1e3,
                images_per_s=out["samples_per_step"] / med,
@@ -1318,8 +1445,8 @@ def phase_resnet_train(torch):
           f"{res['step_ms']:.1f}; images/s {res['images_per_s']:.1f}; peak "
           f"memory {res['peak_gb']:.2f} GB; step ms all "
           f"{[round(x * 1e3, 1) for x in step_s]}; fused_sgd_update "
-          f"launches {counts['fused_sgd_update']} = {n_leaves} x "
-          f"{len(losses)}", flush=True)
+          f"launches {counts['fused_sgd_update']} = {per_step} x "
+          f"{len(losses)} over {n_leaves} leaves", flush=True)
     del out
     return res
 
@@ -2395,7 +2522,7 @@ def _cast(tree, dtype):
 
 
 def phase_census(torch, cfg, mcfg, ec):
-    """The kernels kernels 2, 3, 4, 10 and 11 run on the card: their names
+    """The kernels kernels 2, 3, 4, 5, 10 and 11 run on the card: their names
     from the profiler (``device_kernels``), their launches a call from
     the CUDA driver (``graph_kernels``).  Kernel 2 in bf16 at the first
     decode bucket over the loop's views must run ``flash_decode_tc`` over
@@ -2406,7 +2533,9 @@ def phase_census(torch, cfg, mcfg, ec):
     ``layers.slot_state_scatter`` with an int32 valid_len (the fused
     step's call) over each leaf's one-layer pool must run the scatter
     alone, one launch a call; kernel 4 at the first decode bucket, with
-    and without top-k, and kernel 3 there, one cluster launch a call.
+    and without top-k, and kernel 3 there, one cluster launch a call;
+    kernel 5 through ``apply_update`` over ResNet-50's 161 leaves, one
+    launch a call for sgd and three (norms, trust, update) for lars.
     Last of the phases: once ``torch.profiler`` has run in a process, the
     host launches slower for the rest of it (mamba depth-1 serving read
     about 10% fewer tok/s after it; PERF.md)."""
@@ -2475,6 +2604,35 @@ def phase_census(torch, cfg, mcfg, ec):
               f"gumbel_sample B={b} V={cfg.vocab_size} top_k={top_k}")
     alone(lambda: sp.greedy_sample(lg), "gumbel_cluster_kernel",
           f"greedy_sample B={b} V={cfg.vocab_size}")
+    del lg, noise
+    # kernel 5 over ResNet-50's 161 leaves through the optimizer: one
+    # launch a call for sgd, three for lars (norms, trust, update)
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_map
+    params = build_model(get_config("resnet50")).init(SEED, "cuda")
+    state = sgd.init_state(params, sgd.OptimConfig())
+    grads = tree_map(lambda p: torch.full_like(p, 1e-3), params)
+    for kind, want, names in (
+            ("sgd", 1, ("fused_sgd_kernel",)),
+            ("lars", 3, ("lars_norms_kernel", "lars_trust_kernel",
+                         "fused_sgd_kernel"))):
+        cfg5 = sgd.OptimConfig(kind=kind)
+        fn = lambda: sgd.apply_update(params, state, grads, 1e-6, cfg5)
+        ran, calls = device_kernels(torch, fn)
+        n, nodes = graph_kernels(torch, fn, 10)
+        print(f"[census] apply_update {kind} over resnet50's "
+              f"{len(list(_leaves(params)))} leaves: {n} kernels ({nodes} "
+              f"graph nodes) in 10 calls (CUDA graph); kernels the "
+              f"profiler saw over {calls - 1} calls: {ran}", flush=True)
+        if ((n, nodes) != (10 * want, 10 * want)
+                or {k for k in names if not any(k in r for r in ran)}
+                or any(not any(k in r for k in names) for r in ran)):
+            fail(f"apply_update {kind}: want {want} kernels a call "
+                 f"({names}), got {n} kernels, {nodes} nodes in 10 "
+                 f"calls, {ran}")
+    del params, state, grads
 
 
 def main() -> int:

@@ -6,11 +6,14 @@ decay in the PyTorch convention the paper's implementation uses,
 
 LARS (a per-tensor trust ratio on the same update) and AdamW.
 ``apply_update`` is the one function the LSGD trainer defers.  sgd and
-lars always go through ``fused_sgd_update`` (``kernels/fused_update.py``),
-with the LARS trust computed on the device: on the card it launches the
-hand-written CUDA update, on CPU tensors it runs its plain PyTorch
-version, which is the reference's ``_sgd_leaf`` operator for operator.
-The reference's ``fused`` option has no counterpart here.
+lars always go through ``fused_sgd_update`` (``kernels/fused_update.py``)
+once for the whole tree, its leaves in the tree's flatten order, with
+the LARS trust computed on the device (``fused_update.lars_trust``): on
+the card they launch the hand-written CUDA kernel (one launch a dtype
+triple for sgd, three for lars), on CPU tensors they run the plain
+PyTorch version, which is the reference's ``_sgd_leaf`` and
+``_lars_trust`` operator for operator.  The reference's ``fused`` option
+has no counterpart here.
 
 The port updates params and optimizer state in place and returns them
 (the reference returns new trees): a step that allocated fresh copies
@@ -24,8 +27,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import _DTYPES
-from repro_torch.kernels.fused_update import fused_sgd_update
-from repro_torch.tree import tree_map
+from repro_torch.kernels.fused_update import fused_sgd_update, lars_trust
+from repro_torch.tree import tree_map, zip_leaves
 
 
 @dataclass(frozen=True)
@@ -58,29 +61,21 @@ def init_state(params, cfg: OptimConfig) -> Dict[str, Any]:
     raise ValueError(cfg.kind)
 
 
-def lars_trust(w: torch.Tensor, g: torch.Tensor,
-               cfg: OptimConfig) -> torch.Tensor:
-    """Per-tensor trust ratio as a 0-dim device tensor (no host sync);
-    1 where either norm is zero."""
-    wn = torch.linalg.vector_norm(w.float())
-    gn = torch.linalg.vector_norm(g.float())
-    trust = cfg.lars_eta * wn / (gn + cfg.weight_decay * wn + cfg.lars_eps)
-    return torch.where((wn > 0) & (gn > 0), trust, torch.ones_like(trust))
-
-
 @torch.no_grad()
 def apply_update(params, state, grads, lr, cfg: OptimConfig
                  ) -> Tuple[Any, Any]:
     """One optimizer step, in place; returns (params, state).  ``lr`` is
     a float or a 0-dim tensor."""
     if cfg.kind in ("sgd", "lars"):
-        def leaf(w, m, g):
-            trust = lars_trust(w, g, cfg) if cfg.kind == "lars" else None
-            fused_sgd_update(w, m, g.float(), lr=lr, trust=trust,
-                   momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-                   nesterov=cfg.nesterov)
-
-        tree_map(leaf, params, state["m"], grads)
+        ws, ms, gs = zip_leaves(params, state["m"], grads)
+        trust = None
+        if cfg.kind == "lars":
+            trust = lars_trust(ws, gs, eta=cfg.lars_eta, eps=cfg.lars_eps,
+                               weight_decay=cfg.weight_decay)
+        fused_sgd_update(ws, ms, gs, lr=lr, trust=trust,
+                         momentum=cfg.momentum,
+                         weight_decay=cfg.weight_decay,
+                         nesterov=cfg.nesterov)
         return params, state
     if cfg.kind == "adamw":
         step = state["t"] + 1

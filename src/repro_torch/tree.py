@@ -21,6 +21,27 @@ def leaves(tree: Dict[str, Any]) -> List[Any]:
     return out
 
 
+def zip_leaves(tree: Dict[str, Any], *rest: Dict[str, Any]
+               ) -> List[List[Any]]:
+    """The leaves of ``tree`` and the matching leaves of each of ``rest``
+    (matched by key, as ``tree_map`` matches them), one list a tree, in
+    ``tree``'s leaf order: one walk, no tree built on the way."""
+    outs: List[List[Any]] = [[] for _ in range(1 + len(rest))]
+
+    def walk(node, others):
+        for k, v in node.items():
+            sub = [o[k] for o in others]
+            if isinstance(v, dict):
+                walk(v, sub)
+            else:
+                outs[0].append(v)
+                for out, x in zip(outs[1:], sub):
+                    out.append(x)
+
+    walk(tree, rest)
+    return outs
+
+
 def unflatten(like: Dict[str, Any], values) -> Dict[str, Any]:
     """A tree shaped like ``like`` holding ``values`` in leaf order."""
     it = iter(values)

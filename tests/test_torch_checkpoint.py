@@ -41,6 +41,7 @@ from repro_torch.core import trainer
 from repro_torch.launch import train
 from repro_torch.models.model import build_model
 from repro_torch.tree import leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 TINY = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=64)

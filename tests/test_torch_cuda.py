@@ -15,7 +15,9 @@ equal (gumbel at every cluster size the plan takes for a vocabulary);
 the fused update within one bf16 ulp for bf16 w and 1e-6 relative for
 f32 state (kernel
 and plain version round each operation alike, so they agree exactly in
-practice); the slot gather and scatter bit for bit (the scatter on
+practice), LARS's trust within ``fused_update.LARS_TRUST_RTOL`` of the
+plain one (norms summed in another order) and bit for bit from run to
+run; the slot gather and scatter bit for bit (the scatter on
 every slot but trash slot 0, and on slot 0 too where the destinations
 are distinct); the SSD block within
 |kernel - plain| <= a * max|plain| + r * |plain|, a = r = 1e-4 for
@@ -502,6 +504,17 @@ def test_prng_bits_on_card_equal_cpu(dev):
                                bits, atol=0, rtol=0)
 
 
+def _update_close(w, w2, m, m2):
+    """Kernel against plain: bit for bit in practice; bf16 within one
+    ulp, f32 within 1e-6 relative (the file's stated tolerance)."""
+    for got, want in ((w, w2), (m, m2)):
+        if got.dtype == torch.bfloat16:
+            ulp = want.float().abs() * 2.0 ** -7
+            assert torch.all((got.float() - want.float()).abs() <= ulp)
+        else:
+            torch.testing.assert_close(got, want, atol=0, rtol=1e-6)
+
+
 @pytest.mark.parametrize("n", [1, 7, 8, 4099, 1 << 20])
 @pytest.mark.parametrize("wdt,mdt", [(torch.float32, torch.float32),
                                      (torch.bfloat16, torch.float32),
@@ -512,33 +525,92 @@ def test_fused_update_kernel_matches_plain(dev, n, wdt, mdt, mode):
     w = torch.randn((n,), generator=gen, device=dev).to(wdt)
     m = torch.randn((n,), generator=gen, device=dev).to(mdt)
     g = torch.randn((n,), generator=gen, device=dev)
-    trust = (torch.linalg.vector_norm(w.float()) * 1e-3
+    trust = (torch.linalg.vector_norm(w.float()).reshape(1) * 1e-3
              if mode == "lars" else None)
     kw = dict(lr=torch.tensor(0.05, device=dev), trust=trust, momentum=0.9,
               weight_decay=1e-4, nesterov=mode == "nesterov")
     w2, m2 = w.clone(), m.clone()
     before = fused_update.fused_sgd_update.launches
-    fused_update.fused_sgd_update(w, m, g, **kw)
+    fused_update.fused_sgd_update([w], [m], [g], **kw)
     assert fused_update.fused_sgd_update.launches == before + 1
-    fused_update.fused_sgd_update_plain(w2, m2, g, **kw)
-    if wdt == torch.bfloat16:
-        ulp = w2.float().abs() * 2.0 ** -7
-        assert torch.all((w.float() - w2.float()).abs() <= ulp)
-    else:
-        torch.testing.assert_close(w, w2, atol=0, rtol=1e-6)
-    if mdt == torch.bfloat16:
-        ulp = m2.float().abs() * 2.0 ** -7
-        assert torch.all((m.float() - m2.float()).abs() <= ulp)
-    else:
-        torch.testing.assert_close(m, m2, atol=0, rtol=1e-6)
+    fused_update.fused_sgd_update_plain([w2], [m2], [g], **kw)
+    _update_close(w, w2, m, m2)
+
+
+def _ragged(dev, extra=0):
+    """Leaves of 1, 7, 8, 9, 63, 64, 2047, 2048 and 2.36 M elements twice:
+    f32 w, m, g, and bf16 w with f32 m and bf16 g, interleaved; then
+    ``extra`` small f32 leaves (sizes 1-300)."""
+    sizes = [1, 7, 8, 9, 63, 64, 2047, 2048, 3 * 3 * 512 * 512]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ws, ms, gs = [], [], []
+    for n in sizes:
+        for wdt, gdt in ((torch.float32, torch.float32),
+                         (torch.bfloat16, torch.bfloat16)):
+            ws.append(torch.randn((n,), generator=gen, device=dev).to(wdt))
+            ms.append(torch.randn((n,), generator=gen, device=dev))
+            gs.append(torch.randn((n,), generator=gen, device=dev).to(gdt))
+    for i in range(extra):
+        n = 1 + (37 * i) % 300
+        ws.append(torch.randn((n,), generator=gen, device=dev))
+        ms.append(torch.randn((n,), generator=gen, device=dev))
+        gs.append(torch.randn((n,), generator=gen, device=dev))
+    return ws, ms, gs
+
+
+def _keys(ws, ms, gs):
+    return [(w.dtype, m.dtype, g.dtype) for w, m, g in zip(ws, ms, gs)]
+
+
+@pytest.mark.parametrize("extra", [0, fused_update.TABLE_LEAVES])
+@pytest.mark.parametrize("mode", ["sgd", "nesterov", "lars"])
+def test_fused_update_ragged_set_matches_plain(dev, extra, mode):
+    """One call over the ragged set (two dtype groups; with ``extra`` the
+    f32 group outgrows one table and takes a second launch): every leaf
+    equals the plain version, the launches follow ``launches_per_call``,
+    and LARS's trust is within LARS_TRUST_RTOL of the plain one."""
+    ws, ms, gs = _ragged(dev, extra)
+    keys = _keys(ws, ms, gs)
+    trust = None
+    before = fused_update.fused_sgd_update.launches
+    if mode == "lars":
+        trust = fused_update.lars_trust(ws, gs, eta=1e-3, eps=1e-9,
+                                        weight_decay=1e-4)
+        want = fused_update.lars_trust_plain(ws, gs, eta=1e-3, eps=1e-9,
+                                             weight_decay=1e-4)
+        torch.testing.assert_close(trust, want, atol=0,
+                                   rtol=fused_update.LARS_TRUST_RTOL)
+    kw = dict(lr=0.05, trust=trust, momentum=0.9, weight_decay=1e-4,
+              nesterov=mode == "nesterov")
+    w2, m2 = [w.clone() for w in ws], [m.clone() for m in ms]
+    fused_update.fused_sgd_update(ws, ms, gs, **kw)
+    assert fused_update.fused_sgd_update.launches - before == \
+        fused_update.launches_per_call(keys, lars=mode == "lars")
+    assert fused_update.launches_per_call(keys) == (3 if extra else 2)
+    fused_update.fused_sgd_update_plain(w2, m2, gs, **kw)
+    for a, b, c, d in zip(ws, w2, ms, m2):
+        _update_close(a, b, c, d)
+
+
+def test_lars_trust_repeats_bit_for_bit(dev):
+    ws, _, gs = _ragged(dev)
+    kw = dict(eta=1e-3, eps=1e-9, weight_decay=1e-4)
+    a = fused_update.lars_trust(ws, gs, **kw)
+    b = fused_update.lars_trust(ws, gs, **kw)
+    assert torch.equal(a, b)
+    zero = [torch.zeros(64, device=dev), torch.ones(64, device=dev)]
+    t = fused_update.lars_trust(zero, [torch.ones(64, device=dev),
+                                       torch.zeros(64, device=dev)], **kw)
+    assert t.tolist() == [1.0, 1.0]
 
 
 def test_fused_update_rejects_misaligned(dev):
-    w = torch.zeros(17, device=dev)[1:]
+    ws, ms, gs = _ragged(dev)
+    ws[3] = torch.zeros(ws[3].numel() + 1, device=dev,
+                        dtype=ws[3].dtype)[1:]
     with pytest.raises(ValueError, match="aligned"):
-        fused_update.fused_sgd_update(w, torch.zeros(16, device=dev),
-                                      torch.zeros(16, device=dev), lr=0.1,
-                                      momentum=0.9, weight_decay=0.0)
+        fused_update.fused_sgd_update(ws, ms, gs, lr=0.1, momentum=0.9,
+                                      weight_decay=0.0)
 
 
 @pytest.mark.parametrize("shape", [(3, 3, 64, 64), (64,)])
@@ -561,14 +633,15 @@ def test_fused_update_kernel_on_resnet_leaves(dev, shape, mode):
         assert g.stride() == w.stride()
     else:
         g = torch.randn(shape, generator=gen, device=dev)
-    trust = (torch.linalg.vector_norm(w) * 1e-3 if mode == "lars" else None)
+    trust = (torch.linalg.vector_norm(w).reshape(1) * 1e-3
+             if mode == "lars" else None)
     kw = dict(lr=torch.tensor(0.05, device=dev), trust=trust, momentum=0.9,
               weight_decay=1e-4, nesterov=mode == "nesterov")
     w2, m2 = w.clone(), m.clone()
     before = fused_update.fused_sgd_update.launches
-    fused_update.fused_sgd_update(w, m, g, **kw)
+    fused_update.fused_sgd_update([w], [m], [g], **kw)
     assert fused_update.fused_sgd_update.launches == before + 1
-    fused_update.fused_sgd_update_plain(w2, m2, g, **kw)
+    fused_update.fused_sgd_update_plain([w2], [m2], [g], **kw)
     torch.testing.assert_close(w, w2, atol=0, rtol=1e-6)
     torch.testing.assert_close(m, m2, atol=0, rtol=1e-6)
 
@@ -580,8 +653,8 @@ def test_fused_update_refuses_a_non_contiguous_gradient(dev):
     w = torch.zeros((3, 3, 8, 16), device=dev)
     g = torch.zeros((16, 8, 3, 3), device=dev).permute(2, 3, 1, 0)
     with pytest.raises(ValueError, match="contiguous"):
-        fused_update.fused_sgd_update(w, torch.zeros_like(w), g, lr=0.1,
-                                      momentum=0.9, weight_decay=0.0)
+        fused_update.fused_sgd_update([w], [torch.zeros_like(w)], [g],
+                                      lr=0.1, momentum=0.9, weight_decay=0.0)
 
 
 def test_reduced_resnet_on_card_matches_cpu(dev):
@@ -619,8 +692,9 @@ def test_reduced_resnet_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("kind", ["sgd", "lars"])
 def test_apply_update_on_card_launches_the_kernel(dev, kind):
-    """The optimizer has one route for sgd and lars: on CUDA tensors every
-    leaf goes through the kernel, never the plain version."""
+    """The optimizer has one route for sgd and lars: on CUDA tensors the
+    whole tree goes through the kernel in one call (1 launch for sgd, 3
+    for lars), never the plain version."""
     from repro_torch.optim import sgd
     cfg = sgd.OptimConfig(kind=kind)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -629,20 +703,28 @@ def test_apply_update_on_card_launches_the_kernel(dev, kind):
     grads = {k: torch.randn(v.shape, generator=gen, device=dev)
              for k, v in params.items()}
     state = sgd.init_state(params, cfg)
-    want_p = {k: v.clone() for k, v in params.items()}
-    want_m = {k: v.clone() for k, v in state["m"].items()}
+    want_p = [v.clone() for v in params.values()]
+    want_m = [v.clone() for v in state["m"].values()]
+    gs = list(grads.values())
+    trust = None
+    if kind == "lars":     # the kernel's trust, held to the plain one
+        lars = dict(eta=cfg.lars_eta, eps=cfg.lars_eps,
+                    weight_decay=cfg.weight_decay)
+        trust = fused_update.lars_trust(want_p, gs, **lars)
+        torch.testing.assert_close(
+            trust, fused_update.lars_trust_plain(want_p, gs, **lars),
+            atol=0, rtol=fused_update.LARS_TRUST_RTOL)
     before = fused_update.fused_sgd_update.launches
     sgd.apply_update(params, state, grads, 0.05, cfg)
-    assert fused_update.fused_sgd_update.launches == before + 2
-    for k in params:
-        trust = (sgd.lars_trust(want_p[k], grads[k], cfg)
-                 if kind == "lars" else None)
-        fused_update.fused_sgd_update_plain(
-            want_p[k], want_m[k], grads[k], lr=0.05, trust=trust,
-            momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-        torch.testing.assert_close(params[k], want_p[k], atol=0, rtol=1e-6)
-        torch.testing.assert_close(state["m"][k], want_m[k], atol=0,
-                                   rtol=1e-6)
+    assert fused_update.fused_sgd_update.launches == before + (
+        3 if kind == "lars" else 1)
+    fused_update.fused_sgd_update_plain(
+        want_p, want_m, gs, lr=0.05, trust=trust, momentum=cfg.momentum,
+        weight_decay=cfg.weight_decay)
+    for got, want in zip(params.values(), want_p):
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-6)
+    for got, want in zip(state["m"].values(), want_m):
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

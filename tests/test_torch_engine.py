@@ -18,6 +18,7 @@ from repro.serve import EngineConfig as JaxEngineConfig
 from repro.serve import Request as JaxRequest
 from repro_torch.serve import Engine, EngineConfig, Request
 from test_torch_model import carried_models
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=128,
             num_heads=4, num_kv_heads=2, head_dim=32)

@@ -32,6 +32,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.models import attention as tattn
 from repro_torch.models.layers import rope_table
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 KTOL = dict(atol=3e-5, rtol=3e-5)

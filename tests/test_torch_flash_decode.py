@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _common, decode_view, flash_decode
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMS = 132
 # qwen2-1.5b's attention: 12 heads over 2 kv heads (G = 6); the engine's

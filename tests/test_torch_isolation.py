@@ -8,6 +8,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"

@@ -17,6 +17,7 @@ from repro.kernels import ops, ref
 from repro.models import attention as jattn
 from repro_torch.kernels import (decode_view, flash_attention, flash_decode,
                                  sampling)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=3e-5, rtol=2e-5)
 
@@ -211,8 +212,9 @@ def test_wrappers_route_cpu_to_plain_without_counting():
                                    torch.zeros(1, dtype=torch.int32))
     sampling.gumbel_sample(lg, torch.zeros_like(lg), temperature=0.5,
                            top_k=3)
-    kernels.fused_sgd_update(torch.zeros(4), torch.zeros(4), torch.ones(4),
-                             lr=0.1, momentum=0.9, weight_decay=0.0)
+    kernels.fused_sgd_update([torch.zeros(4)], [torch.zeros(4)],
+                             [torch.ones(4)], lr=0.1, momentum=0.9,
+                             weight_decay=0.0)
     pool = torch.zeros((2, 4, 6))
     slots = torch.tensor([1, 3], dtype=torch.int32)
     kernels.slot_gather(pool, slots, stacked=True)
@@ -301,6 +303,7 @@ def test_profiler_groups_every_port_kernel():
     names = _build.kernel_names()
     assert {"flash_decode_paged_kernel", "decode_view_kernel",
             "combine_splits", "gumbel_cluster_kernel", "fused_sgd_kernel",
+            "lars_norms_kernel", "lars_trust_kernel",
             "slot_gather_kernel", "slot_scatter_kernel", "ssd_chunk_tc",
             "ssd_chunk_f32", "flash_attention_tc",
             "flash_attention_f32", "flash_decode_bhd_kernel"} <= set(names)

@@ -28,6 +28,7 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.kernels import _common, mla_decode
 from repro_torch.models import attention as tattn
 from repro_torch.models import mla as tmla
+from torch_threads import one_torch_thread  # noqa: F401
 
 KTOL = dict(atol=3e-5, rtol=2e-5)
 TOL = dict(atol=1e-5, rtol=1e-5)

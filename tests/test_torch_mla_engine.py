@@ -36,6 +36,7 @@ from repro_torch.models.model import build_model
 from repro_torch.serve import Engine, EngineConfig, Request
 from repro_torch.serve.engine import _to_device
 from test_torch_engine import WIDE, _workload
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 SAMPLED = dict(temperature=0.8, top_k=20, seed=3)

@@ -27,6 +27,7 @@ from repro_torch import interop
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models import transformer as ttf
 from repro_torch.models.model import build_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -18,6 +18,7 @@ from repro.configs.base import smoke_variant as jax_smoke_variant
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models import moe as tmoe
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 ARCH = "deepseek-v3-671b"

@@ -52,6 +52,7 @@ from repro_torch.models import resnet
 from repro_torch.models.model import build_model, seeded_init
 from repro_torch.optim.sgd import OptimConfig
 from repro_torch.tree import leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 STAGES = (1, 1, 1, 1)
 WIDTHS = (8, 16, 32, 64)
@@ -315,6 +316,13 @@ def test_config_fields_match_reference(name):
      "elementwise"),
     ("nvjet_tst_128x64_64x4_1x2_h_bz_TNN", "matrix products"),
     ("void rt::fused_sgd_kernel<float, float>", "port kernels"),
+    ("void (anonymous namespace)::fused_sgd_kernel<float, float, float>("
+     "(anonymous namespace)::Table, float const*, float, float const*, "
+     "(anonymous namespace)::Hyper)", "port kernels"),
+    ("void (anonymous namespace)::lars_norms_kernel<float, float>("
+     "(anonymous namespace)::Table, float2*)", "port kernels"),
+    ("(anonymous namespace)::lars_trust_kernel((anonymous namespace)::Table, "
+     "float2 const*, float*, float, float, float)", "port kernels"),
     ("void at::native::reduce_kernel<512, 1>", "other")])
 def test_profile_train_kernel_groups(name, group):
     from repro_torch.launch.profile_train import group_of

@@ -34,6 +34,7 @@ from repro_torch.kernels import prng, sampling
 from repro_torch.serve import Engine, EngineConfig, Request
 from test_torch_engine import TINY, WIDE, _workload
 from test_torch_model import carried_models
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_EPS = float(np.finfo(np.float32).eps)
 

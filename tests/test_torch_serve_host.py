@@ -11,6 +11,7 @@ from repro.serve import telemetry as j_tel
 from repro_torch.serve import kv_cache as t_kv
 from repro_torch.serve import scheduler as t_sched
 from repro_torch.serve import telemetry as t_tel
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("window", [0, 16])

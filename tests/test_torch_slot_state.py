@@ -12,6 +12,7 @@ import torch
 from repro.models import layers as jlayers
 from repro_torch.kernels import slot_state
 from repro_torch.models import layers as tlayers
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMS = 132
 # mamba2-370m's two state leaves, in 16-byte units a row: the conv window

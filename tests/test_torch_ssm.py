@@ -28,6 +28,7 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.kernels import slot_state, ssd_chunk
 from repro_torch.models import layers as tlayers
 from repro_torch.models import ssm as tssm
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -33,6 +33,7 @@ from repro_torch.models.model import build_model
 from repro_torch.serve import Engine, EngineConfig, Request
 from test_torch_engine import SMALL, WIDE, _workload
 from test_torch_ssm import mamba_configs
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 SAMPLED = dict(temperature=0.8, top_k=20, seed=3)

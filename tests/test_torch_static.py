@@ -32,6 +32,7 @@ from repro_torch.tree import tree_map
 from test_torch_mla_engine import carried_deepseek
 from test_torch_model import carried_models
 from test_torch_ssm_engine import carried_mamba
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, STEPS = 2, 12, 8

@@ -45,6 +45,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.optim.sgd import OptimConfig
 from repro_torch.tree import leaves
 from test_torch_model import carried_models
+from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 TINY = dict(num_layers=2, d_model=32, d_ff=64, vocab_size=32, num_heads=2,
