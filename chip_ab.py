@@ -15,7 +15,8 @@ running while the other waits.  In each turn a side runs:
 - ``--phase NAME``: its own ``chip_smoke.phase_NAME``, called with the
   arguments its parameters name (``torch``, ``timer``, ``cfg`` for
   qwen2-1.5b, ``mcfg`` for mamba2-370m, ``dcfg`` for the served
-  deepseek-v3 cut, ``ec`` the serving engine's config, ``work`` the
+  deepseek-v3 cut, ``rcfg`` for recurrentgemma-2b, ``ec`` the serving
+  engine's config, ``work`` the
   serving workload); every ``ms`` the phase returns is kept, under the
   path of keys and labels that leads to it;
 - ``--serve ARCH:DEPTH``: ARCH at full width (bf16, random weights from
@@ -83,11 +84,13 @@ def worker(tree: Path) -> int:
     print(f"[ab {tree}] {so.name} in {time.perf_counter() - t0:.1f}s",
           flush=True)
     qwen = get_config("qwen2-1.5b")
-    context = dict(torch=torch, timer=cs.Timer(torch), cfg=qwen,
-                   mcfg=get_config("mamba2-370m"),
-                   dcfg=served_config("deepseek-v3-671b"),
+    context = dict(torch=torch, timer=cs.Timer(torch),
                    ec=EngineConfig(**ENGINE_CONFIG),
                    work=workload(qwen.vocab_size, SEED))
+    # the configs a phase may name, resolved only when one does (a tree
+    # need not have every arch)
+    archs = dict(cfg="qwen2-1.5b", mcfg="mamba2-370m",
+                 dcfg="deepseek-v3-671b", rcfg="recurrentgemma-2b")
     models = {}
 
     def served(arch):
@@ -119,7 +122,8 @@ def worker(tree: Path) -> int:
     def run(cmd):
         if cmd[0] == "phase":
             fn = getattr(cs, "phase_" + cmd[1])
-            args = {name: context[name]
+            args = {name: (served_config(archs[name]) if name in archs
+                           else context[name])
                     for name in inspect.signature(fn).parameters}
             return {f"{cmd[1]} {label}": ms
                     for label, ms in timings(fn(**args))}

@@ -81,14 +81,32 @@
    discontinuous; the count of bf16-vs-f32 routing flips is printed);
    then its float32 depth-1 == depth-8 check at the same 4-layer cut
    (63.2 GB of f32 weights: 5 layers would need 109 GB).
-8. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
+8. The RG-LRU hybrid: the phases of kernels 1, 2, 6 and 7 again at
+   recurrentgemma-2b's config (10 query heads over one kv head, hd 256,
+   window 2048), both dtypes, at the shapes its main path gives them:
+   its engine's layouts (chunk-wide mixed rows) over 40-block tables and
+   its two static batches; plus its long request's 160-block tables and
+   2,561-slot views, a 2,304-token prefill and a full 2,048-slot ring,
+   where the window masks keys; kernel 3 at its 256,000-token
+   vocabulary (kernel 4's is in its own phase) and kernels 10-11 at its
+   RG-LRU state leaves; then full-width
+   recurrentgemma-2b (26 layers, bf16, random weights from a seed)
+   serves the 16 requests at depths 1 and 8, greedy twice (the streams
+   must repeat) and sampled once, each run with exactly the launches
+   its counters call for, and one 2,400-token request that passes the
+   window and must reclaim blocks, every token held to the
+   teacher-forced f32 check; its float32 depth-1 == depth-8 check at
+   all 26 layers; and
+   its static path under "pallas" (two batches of 8, kernels 6, 7 and 3
+   at hd 256), whose float32 tokens must equal the plain attention's.
+9. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
    bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
    gumbel sample (with and without top-k) and a greedy sample each run
    their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
-9. Prints the ``kernels`` JSON line, the card's name and power limit, and
+10. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -173,6 +191,16 @@ MAMBA = "mamba2-370m"
 SSD_CASES = (("prefill rows x 1 chunk", None, 256), ("4 x 512", 4, 512))
 # the MLA + MoE path; its depth cut is profile_engine.DEPTH_CUTS's
 DEEPSEEK = "deepseek-v3-671b"
+# the RG-LRU hybrid, and one served request of 2,400 prompt and 64 new
+# tokens past its 2048-token window, under an EngineConfig whose
+# max_seq_len (LONG_SEQ, a whole number of prefill chunks) holds it: the
+# attention phases add its 160-block tables (2,560 keys) and 2,561-slot
+# views as extras for a windowed config, and a LONG_PREFILL-token
+# prefill past the window
+RGEMMA = "recurrentgemma-2b"
+RG_LONG = (2400, 64)
+LONG_SEQ = -(-sum(RG_LONG) // 128) * 128
+LONG_PREFILL = 2304
 # the static-batch path (the non-paged prefill / decode_step, as
 # benchmarks/serve_bench.py's run_static): batches of 8 requests, each
 # prompt right-padded with token 0 to the batch's longest rounded up to
@@ -264,9 +292,10 @@ SASS_TEMPLATES = (
 RES_KERNELS = ("gumbel_cluster_kernel", "slot_gather_kernel",
                "slot_scatter_kernel", "ssd_chunk_tc", "ssd_chunk_f32",
                "fused_sgd_kernel", "lars_norms_kernel", "lars_trust_kernel")
-# bf16 (tensor-core) and f32 templates each family must have
-SASS_FAMILIES = {"flash_attention_": (2, 2), "mla_attend_": (2, 2),
-                 "flash_decode_": (8, 6), "ssd_chunk_": (6, 1)}
+# bf16 (tensor-core) and f32 templates each family must have: the
+# attention families at head dims 64, 128 and 256
+SASS_FAMILIES = {"flash_attention_": (3, 3), "mla_attend_": (2, 2),
+                 "flash_decode_": (12, 9), "ssd_chunk_": (6, 1)}
 
 
 def sass_counts(so: Path) -> None:
@@ -325,6 +354,24 @@ def sass_counts(so: Path) -> None:
         if cur and m:
             usage.setdefault(cur, []).append(tuple(map(int, m.groups())))
             cur = None
+    # and of every attention template instance (SASS_TEMPLATES' names),
+    # printed, not gated: the hd-256 tensor-core instances keep a stack
+    # frame of spilled registers
+    cur = None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            cur = next((fmt.format(*mm.groups()) for pat, fmt in
+                        SASS_TEMPLATES[:4]
+                        for mm in [re.search(pat, m.group(1))] if mm), None)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                      line)
+        if cur and m:
+            reg, stack, _, local = map(int, m.groups())
+            print(f"[res] {cur}: registers {reg}, stack {stack}, local "
+                  f"{local}", flush=True)
+            cur = None
     for name in RES_KERNELS:
         rows = usage.get(name)
         if not rows:
@@ -372,12 +419,35 @@ def engine_config():
     return EngineConfig(**ENGINE_CONFIG)
 
 
-def step_shapes(ec):
-    """(rows, width) of every fused step the engine dispatches: decode
-    buckets, chunk-wide prefill rows, width-1 mixed rows (as its warmup)."""
+def step_shapes(ec, cfg):
+    """(rows, width) of every fused step the engine dispatches for
+    ``cfg``, as its warmup: decode buckets, chunk-wide prefill rows, and
+    mixed rows, width-1 where no layer keeps recurrent state, else
+    chunk-wide (``mixed_chunk_rows``)."""
+    from repro_torch.models.model import paged_spec
+    mixed = ([(b, 1) for b in ec.mixed_buckets]
+             if paged_spec(cfg).width1_mixed
+             else [(ec.mixed_chunk_rows, ec.prefill_chunk)])
     return ([(b, 1) for b in ec.decode_buckets]
-            + [(ec.prefill_rows, ec.prefill_chunk)]
-            + [(b, 1) for b in ec.mixed_buckets])
+            + [(ec.prefill_rows, ec.prefill_chunk)] + mixed)
+
+
+def attn_window(cfg) -> int:
+    """The window of ``cfg``'s attention layers (0: none), as the model
+    hands it to kernels 1, 2 and 6."""
+    from repro_torch.models.transformer import _layer_window
+    return max(_layer_window(cfg, kind) for kind, _, _ in _runs(cfg)
+               if kind in ("attn", "local_attn"))
+
+
+def row_keys(ctx, c, window):
+    """(keys a row reads, visible (query, key) pairs) summed over rows
+    whose first query sits at ctx[b], c queries each, under ``window``
+    (0: none): a query at p sees keys (p - window, p]."""
+    qpos = ctx[:, None] + np.arange(c)[None]
+    first = np.maximum(ctx - window + 1, 0) if window else 0
+    vis = np.minimum(qpos + 1, window) if window else qpos + 1
+    return int((ctx + c - first).sum()), int(vis.sum())
 
 
 def compare_attn(got, want):
@@ -441,23 +511,33 @@ def paged_case(torch, g, rng, ctx, c, nb_seq, H, KV, HD, BS):
 
 
 def phase_flash_decode(torch, timer, cfg, ec):
-    """Kernel 1 at every (rows, width) the engine dispatches, tables of
-    blocks_per_seq blocks, plus two 2048-key extras: bf16 (tensor cores)
-    timed beside its bound, plain version and SDPA, with its share of
-    the bf16 MMA rate; f32 (CUDA cores) on the same inputs, checked.
-    The engine's decode rows split their keys over CTAs; its mixed steps
-    fill the card unsplit, the kernel's direct epilogue: the phase fails
-    unless each template compares both."""
+    """Kernel 1 at every (rows, width) the engine dispatches for ``cfg``
+    (``step_shapes``), tables of blocks_per_seq blocks, under the
+    config's attention window (``attn_window``) and head dim, plus
+    extras: without a window two 2048-key cases; with one, the same
+    layouts over LONG_SEQ-key tables (the long request's, where the
+    window masks the oldest keys) and 136 width-1 rows, which take the
+    bf16 template's direct epilogue.  bf16 (tensor cores) timed beside
+    its bound, plain version and SDPA, with its share of the bf16 MMA
+    rate; f32 (CUDA cores) on the same inputs, checked.  The phase fails
+    unless each template compares both the split and the unsplit
+    epilogue: at the engine's layouts, or with a window at any case."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels._common import sm_count
     H, KV, HD, BS = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
         ec.block_size
+    W = attn_window(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     cases = [(f"B={b} C={c}", b, c, ec.blocks_per_seq)
-             for b, c in step_shapes(ec)]
-    cases += [("extra B=8 C=1", 8, 1, 2048 // BS),
-              ("extra B=1 C=128", 1, 128, 2048 // BS)]
+             for b, c in step_shapes(ec, cfg)]
+    if W:
+        cases += [(f"extra B={b} C={c} keys={LONG_SEQ}", b, c,
+                   LONG_SEQ // BS) for b, c in step_shapes(ec, cfg)]
+        cases += [("extra B=136 C=1", 136, 1, ec.blocks_per_seq)]
+    else:
+        cases += [("extra B=8 C=1", 8, 1, 2048 // BS),
+                  ("extra B=1 C=128", 1, 128, 2048 // BS)]
     results = []
     for label, b, c, nb_seq in cases:
         ctx = first_positions(rng, b, nb_seq * BS - c + 1)
@@ -467,14 +547,14 @@ def phase_flash_decode(torch, timer, cfg, ec):
         checked = {}
         for dt in (torch.bfloat16, torch.float32):
             args = [x.to(dt) for x in (q, kp, vp)] + [bt, pos]
-            tiles, nsplit = fd.launch_splits(b, c, H, KV, s, dtype=dt,
-                                             sms=sm_count(0))
+            tiles, nsplit = fd.launch_splits(b, c, H, KV, s, W, dtype=dt,
+                                             sms=sm_count(0), hd=HD)
             err, ratio, lim = compare_attn(
-                fd.flash_decode_paged(*args),
-                fd.flash_decode_paged_plain(*args))
+                fd.flash_decode_paged(*args, window=W),
+                fd.flash_decode_paged_plain(*args, window=W))
             if not (math.isfinite(err) and ratio <= 1.0):
-                fail(f"flash_decode_paged {label} {dt} keys {s}: max "
-                     f"|kernel - plain| = {err}, {ratio:.3g}x the bound "
+                fail(f"flash_decode_paged {cfg.name} {label} {dt} keys {s}: "
+                     f"max |kernel - plain| = {err}, {ratio:.3g}x the bound "
                      f"{lim}")
             checked[dt] = (tiles, nsplit, err, ratio)
         tiles, nsplit, err, ratio = checked[torch.bfloat16]
@@ -482,40 +562,45 @@ def phase_flash_decode(torch, timer, cfg, ec):
         print(f"[flash_decode_paged] {label} float32 keys={s} "
               f"tiles={f32_tiles} nsplit={f32_nsplit} err={f32_err:.3g} "
               f"(x{f32_ratio:.3f} of bound)", flush=True)
-        keys_read = int((ctx + c).sum())                 # per kv head
-        vis = int(sum(p + i + 1 for p in ctx for i in range(c)))
+        keys_read, vis = row_keys(ctx, c, W)             # per kv head
         nbytes = (2 * keys_read * KV * HD * 2 + 2 * q.numel() * 2
                   + bt.numel() * 4 + pos.numel() * 4)
         ops = 4 * vis * H * HD
         bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-        ms = timer(lambda: fd.flash_decode_paged(q, kp, vp, bt, pos))
-        plain_ms = timer(lambda: fd.flash_decode_paged_plain(q, kp, vp, bt,
-                                                             pos))
+        ms = timer(lambda: fd.flash_decode_paged(q, kp, vp, bt, pos,
+                                                 window=W))
+        plain_ms = timer(lambda: fd.flash_decode_paged_plain(
+            q, kp, vp, bt, pos, window=W))
         kg = kp[bt.long()].reshape(b, s, KV, HD).transpose(1, 2).contiguous()
         vg = vp[bt.long()].reshape(b, s, KV, HD).transpose(1, 2).contiguous()
-        qpos = pos[:, None].long() + torch.arange(c, device="cuda")[None]
-        mask = (torch.arange(s, device="cuda")[None, None]
-                <= qpos[..., None])[:, None]                   # (B,1,C,S)
+        qpos = (pos[:, None].long()
+                + torch.arange(c, device="cuda")[None])[..., None]
+        kpos = torch.arange(s, device="cuda")[None, None]
+        mask = kpos <= qpos
+        if W:
+            mask &= kpos > qpos - W
+        mask = mask[:, None]                                   # (B,1,C,S)
         lib_ms = timer(sdpa(torch, q.transpose(1, 2).contiguous(), kg, vg,
                             mask))
         results.append(dict(label=label, b=b, c=c, keys=s, nsplit=nsplit,
                             f32_nsplit=f32_nsplit,
-                            engine=not label.startswith("extra"),
                             max_abs_err=max(err, f32_err), ms=ms,
                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                             library_ms=lib_ms))
         print(f"[flash_decode_paged] {label} bfloat16 keys={s} tiles={tiles} "
-              f"nsplit={nsplit} H={H} KV={KV} hd={HD} bs={BS} err={err:.3g} "
-              f"(x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
+              f"nsplit={nsplit} H={H} KV={KV} hd={HD} window={W} bs={BS} "
+              f"err={err:.3g} (x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-              f"library_ms(sdpa)={lib_ms:.4f} "
+              f"library_ms(sdpa)={lib_ms:.4f} sdpa_ratio={ms / lib_ms:.3f} "
               f"bf16_tc_rate_share={ops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} "
               f"bound_share={bnd / ms:.4f}", flush=True)
-        del q, kp, vp, kg, vg
-    engine = [r for r in results if r["engine"]]
-    if ({r["nsplit"] > 1 for r in engine} != {False, True}
-            or {r["f32_nsplit"] > 1 for r in engine} != {False, True}):
-        fail("flash_decode_paged: the engine's shapes did not reach both "
+        del q, kp, vp, kg, vg, mask
+    # without a window the engine's own layouts reach both; the hybrid's
+    # split every bf16 launch (chunk-wide mixed rows), so its extras count
+    gated = [r for r in results if W or not r["label"].startswith("extra")]
+    if ({r["nsplit"] > 1 for r in gated} != {False, True}
+            or {r["f32_nsplit"] > 1 for r in gated} != {False, True}):
+        fail(f"flash_decode_paged {cfg.name}: the cases did not reach both "
              "the split and the unsplit epilogue of each template")
     return results
 
@@ -593,25 +678,33 @@ def view_as_pool(torch, k, v, bs):
 
 
 def phase_decode_view(torch, timer, cfg, ec):
-    """Kernel 2 at the N-step loop's shapes: every decode bucket over
-    views of blocks_per_seq * block_size + 1 slots, plus a 2049-slot
-    extra.  bf16 (kernel 1's tensor-core template over view keys) timed
-    beside its bound, plain version and SDPA, with its share of the bf16
-    MMA rate; f32 (CUDA cores) on the same inputs, checked.  At the
-    decode buckets the bf16 result must equal kernel 1's on the same
-    keys laid out as a pool, bit for bit (``phase_census`` names the
-    kernel it runs)."""
+    """Kernel 2 at the N-step loop's shapes for ``cfg`` under its
+    attention window and head dim: every decode bucket over views of
+    blocks_per_seq * block_size + 1 slots, plus extras: without a window
+    a 2049-slot view at B=8; with one, every bucket over LONG_SEQ + 1
+    slots (the long request's, where the window masks the oldest keys).
+    bf16 (kernel 1's tensor-core template over view keys) timed beside
+    its bound, plain version and SDPA, with its share of the bf16 MMA
+    rate; f32 (CUDA cores) on the same inputs, checked.  At the decode
+    buckets (and the windowed extras) the bf16 result must equal kernel
+    1's on the same keys laid out as a pool, bit for bit
+    (``phase_census`` names the kernel it runs)."""
     from repro_torch.kernels import decode_view as dv
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels._common import sm_count
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = attn_window(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rng = np.random.default_rng(SEED + 1)
     s_eng = ec.blocks_per_seq * ec.block_size + 1
-    cases = [(f"B={b}", b, s_eng) for b in ec.decode_buckets]
-    cases.append(("extra B=8", 8, 2049))
+    cases = [(f"B={b}", b, s_eng, True) for b in ec.decode_buckets]
+    if W:
+        cases += [(f"extra B={b} S+1={LONG_SEQ + 1}", b, LONG_SEQ + 1, True)
+                  for b in ec.decode_buckets]
+    else:
+        cases.append(("extra B=8", 8, 2049, False))
     results = []
-    for label, b, s1 in cases:
+    for label, b, s1, as_pool in cases:
         dt = torch.bfloat16
         q = torch.randn((b, H, HD), generator=g, device="cuda").to(dt)
         k = torch.randn((b, s1, KV, HD), generator=g, device="cuda").to(dt)
@@ -625,14 +718,14 @@ def phase_decode_view(torch, timer, cfg, ec):
         checked = {}
         for dt in (torch.bfloat16, torch.float32):
             args = [x.to(dt) for x in (q, k, v)] + [pos]
-            tiles, nsplit = dv.launch_splits(b, H, KV, s1, dtype=dt,
-                                             sms=sm_count(0))
+            tiles, nsplit = dv.launch_splits(b, H, KV, s1, W, dtype=dt,
+                                             sms=sm_count(0), hd=HD)
             err, ratio, lim = compare_attn(
-                dv.decode_view_attend(*args),
-                dv.decode_view_attend_plain(*args))
+                dv.decode_view_attend(*args, window=W),
+                dv.decode_view_attend_plain(*args, window=W))
             if not (math.isfinite(err) and ratio <= 1.0):
-                fail(f"decode_view_attend {label} {dt} S+1={s1}: max "
-                     f"|kernel - plain| = {err}, {ratio:.3g}x the bound "
+                fail(f"decode_view_attend {cfg.name} {label} {dt} S+1={s1}: "
+                     f"max |kernel - plain| = {err}, {ratio:.3g}x the bound "
                      f"{lim}")
             checked[dt] = (tiles, nsplit, err, ratio)
         tiles, nsplit, err, ratio = checked[torch.bfloat16]
@@ -641,26 +734,32 @@ def phase_decode_view(torch, timer, cfg, ec):
               f"tiles={f32_tiles} nsplit={f32_nsplit} err={f32_err:.3g} "
               f"(x{f32_ratio:.3f} of bound)", flush=True)
         same = "n/a"
-        if s1 == s_eng:
+        if as_pool:
             kp, vp, bt = view_as_pool(torch, k, v, ec.block_size)
             k1 = fd.flash_decode_paged(q[:, None].contiguous(), kp, vp, bt,
-                                       pos)[:, 0]
-            same = torch.equal(dv.decode_view_attend(q, k, v, pos), k1)
+                                       pos, window=W)[:, 0]
+            same = torch.equal(dv.decode_view_attend(q, k, v, pos, window=W),
+                               k1)
             print(f"[decode_view_attend] {label} bfloat16 == kernel 1 "
                   f"(flash_decode_paged) on the same keys as a pool, bit "
                   f"for bit: {same}", flush=True)
             if not same:
-                fail(f"decode_view_attend {label}: bf16 differs from "
-                     "kernel 1 on the same keys")
+                fail(f"decode_view_attend {cfg.name} {label}: bf16 differs "
+                     "from kernel 1 on the same keys")
             del kp, vp, bt, k1
-        keys = int((ctx + 1).sum())
+        keys, vis = row_keys(ctx, 1, W)
         nbytes = 2 * keys * KV * HD * 2 + 2 * q.numel() * 2 + b * 4
-        ops = 4 * keys * H * HD
+        ops = 4 * vis * H * HD
         bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-        ms = timer(lambda: dv.decode_view_attend(q, k, v, pos))
-        plain_ms = timer(lambda: dv.decode_view_attend_plain(q, k, v, pos))
-        mask = (torch.arange(s1, device="cuda")[None]
-                <= pos[:, None].long())[:, None, None]          # (B,1,1,S)
+        ms = timer(lambda: dv.decode_view_attend(q, k, v, pos, window=W))
+        plain_ms = timer(lambda: dv.decode_view_attend_plain(q, k, v, pos,
+                                                             window=W))
+        kpos = torch.arange(s1, device="cuda")[None]
+        p_ = pos[:, None].long()
+        mask = kpos <= p_
+        if W:
+            mask &= kpos > p_ - W
+        mask = mask[:, None, None]                              # (B,1,1,S)
         lib_ms = timer(sdpa(torch, q[:, :, None],
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), mask))
@@ -670,13 +769,14 @@ def phase_decode_view(torch, timer, cfg, ec):
                             library_ms=lib_ms))
         print(f"[decode_view_attend] {label} bfloat16 S+1={s1} "
               f"tiles={tiles} nsplit={nsplit} H={H} KV={KV} hd={HD} "
-              f"err={err:.3g} (x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-              f"library_ms(sdpa)={lib_ms:.4f} "
+              f"window={W} err={err:.3g} (x{ratio:.3f} of bound) "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd:.4f} ({by}) library_ms(sdpa)={lib_ms:.4f} "
+              f"sdpa_ratio={ms / lib_ms:.3f} "
               f"bf16_tc_rate_share={ops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} "
               f"bound_share={bnd / ms:.4f} equals_kernel1={same}",
               flush=True)
-        del q, k, v
+        del q, k, v, mask
     return results
 
 
@@ -692,7 +792,7 @@ def phase_greedy(torch, timer, cfg, ec):
     V = cfg.vocab_size
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     out = {}
-    for b in sorted({1, 64} | {rows for rows, _ in step_shapes(ec)}):
+    for b in sorted({1, 64} | {rows for rows, _ in step_shapes(ec, cfg)}):
         lg = torch.randn((b, V), generator=g, device="cuda") * 3
         top = lg.max().item() + 1.0
         plan = sp.greedy_plan(b, V, sm_count(0))
@@ -758,11 +858,12 @@ def _slice_edges(sp, v, cluster):
                    for c in (r * sl - 1, r * sl)})
 
 
-def phase_gumbel(torch, timer, cfg, mcfg, dcfg, ec):
+def phase_gumbel(torch, timer, cfg, mcfg, dcfg, rcfg, ec):
     """Kernel 4 at every row count the engine samples and at 1 and 64
     rows, V = qwen2's vocab, T = SAMPLE_T, top_k in GUMBEL_TOP_KS, noise
     from the reference's threefry draw as the engine makes it; then
-    mamba2-370m's and deepseek-v3's vocabularies at 8, 64 and 136 rows.
+    mamba2-370m's, deepseek-v3's and recurrentgemma-2b's vocabularies at
+    8, 64 and 136 rows.
     Planted: with top-k, logits equal to the row's kth value on both
     sides of every slice edge of the plan's cluster size
     (``gumbel_plan``), at a thread-stride column and at the last column
@@ -777,9 +878,9 @@ def phase_gumbel(torch, timer, cfg, mcfg, dcfg, ec):
     from repro_torch.kernels import sampling as sp
     from repro_torch.kernels._common import sm_count
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    qwen_rows = sorted({1, 64} | {rows for rows, _ in step_shapes(ec)})
+    qwen_rows = sorted({1, 64} | {rows for rows, _ in step_shapes(ec, cfg)})
     cases = [(cfg.vocab_size, b, GUMBEL_TOP_KS, None) for b in qwen_rows]
-    for other in (mcfg, dcfg):
+    for other in (mcfg, dcfg, rcfg):
         cases += [(other.vocab_size, b, (0, SAMPLE_TOP_K),
                    f"V={other.vocab_size}") for b in (8, 64, 136)]
     out = {}
@@ -1111,15 +1212,19 @@ def phase_fused_update(torch, timer, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _serve_once(torch, model, params, work, depth, **sample):
-    """One main-path run through a fresh Engine, every launch count set
-    to 0 just before it and read just after.  Returns (token streams,
-    counts, tok/s, a summary line)."""
+def _serve_once(torch, model, params, work, depth, *, engine=None,
+                stats=None, **sample):
+    """One main-path run through a fresh Engine (ENGINE_CONFIG, updated by
+    ``engine``), every launch count set to 0 just before it and read
+    just after.  Returns (token streams, counts, tok/s, a summary line);
+    a ``stats`` dict takes the engine's counters and its
+    kv_blocks_reclaimed."""
     from repro_torch import kernels
     from repro_torch.serve import Engine, EngineConfig, Request
     from repro_torch.serve.profile_engine import ENGINE_CONFIG
-    eng = Engine(model, params, EngineConfig(steps_per_dispatch=depth,
-                                             **sample, **ENGINE_CONFIG),
+    eng = Engine(model, params,
+                 EngineConfig(steps_per_dispatch=depth, **sample,
+                              **dict(ENGINE_CONFIG, **(engine or {}))),
                  device="cuda")
     eng.warmup()
     kernels.reset_launch_counts()
@@ -1148,6 +1253,9 @@ def _serve_once(torch, model, params, work, depth, **sample):
                     for r in res.values()
                     if r.finish_time > r.first_token_time]
     ttft = sorted(r.first_token_time - t0 for r in res.values())
+    reclaimed = int(eng.kv._m["reclaimed"].value)
+    if stats is not None:
+        stats.update(snap["counters"], kv_blocks_reclaimed=reclaimed)
     line = (f"requests={len(res)} tokens={ntok} wall_s={wall:.3f} "
             f"tok_s={ntok / wall:.1f} "
             f"ttft_p50_s={ttft[len(ttft) // 2]:.4f} "
@@ -1155,6 +1263,8 @@ def _serve_once(torch, model, params, work, depth, **sample):
             f"{sum(decode_rates) / len(decode_rates):.1f} "
             f"steps={snap['counters']['steps']} "
             f"model_calls={snap['counters']['model_calls']} "
+            f"loop_dispatches={snap['counters']['loop_dispatches']} "
+            f"kv_blocks_reclaimed={reclaimed} "
             f"launches={json.dumps(counts)}")
     return ({i: res[i].tokens for i in range(len(work))}, counts,
             ntok / wall, line)
@@ -1500,24 +1610,27 @@ def _visible_pairs(sq, sk, causal, window):
 
 
 def phase_flash_attention(torch, timer, cfg, work):
-    """Kernel 6 at the static prefill's shapes (B = 8 rows, qwen2's 12
-    heads over 2 kv heads, hd 128, causal, Sq = Sk = each static batch's
-    padded prompt) in bfloat16 and float32, plus a 512-token window-128
-    case, a window case whose rows past Sk + window - 1 see no key (bf16
-    and f32: they must get the plain version's mean of v), a non-causal
-    Sq 64 / Sk 320 case and an hd-64 case, each held to the plain version
-    within ``compare_attn``'s bound for its dtype; each prints the share of the
+    """Kernel 6 at the static prefill's shapes for ``cfg`` (B = 8 rows,
+    its heads, kv heads and head dim, causal under its attention window,
+    Sq = Sk = each static batch's padded prompt) in bfloat16 and
+    float32, plus a 512-token window-128 case, a window case whose rows
+    past Sk + window - 1 see no key (bf16 and f32: they must get the
+    plain version's mean of v), a non-causal Sq 64 / Sk 320 case and an
+    hd-64 case, and with a window a LONG_PREFILL-token prefill past it
+    (B = 2, both dtypes), each held to the plain version within
+    ``compare_attn``'s bound for its dtype; each prints the share of the
     bf16 tensor-core rate and of the byte bound its time reaches.
     Library yardstick: scaled_dot_product_attention (is_causal,
     enable_gqa; a boolean mask for the windows)."""
     from repro_torch.kernels import flash_attention as fa
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = attn_window(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     cases = []
     for _, _, pmax, _ in static_batches(work):
         for dt in (torch.bfloat16, torch.float32):
             cases.append((f"prefill S={pmax} {str(dt)[6:]}", STATIC_BATCH,
-                          pmax, pmax, H, KV, HD, True, 0, dt))
+                          pmax, pmax, H, KV, HD, True, W, dt))
     cases += [("window S=512 w=128", STATIC_BATCH, 512, 512, H, KV, HD,
                True, 128, torch.bfloat16)]
     cases += [(f"no-key Sq=512 Sk=384 w=64 {str(dt)[6:]}", STATIC_BATCH,
@@ -1528,6 +1641,10 @@ def phase_flash_attention(torch, timer, cfg, work):
                False, 0, torch.bfloat16),
               ("hd64 S=512", STATIC_BATCH, 512, 512, H, KV, 64, True, 0,
                torch.bfloat16)]
+    if W:
+        cases += [(f"long prefill S={LONG_PREFILL} {str(dt)[6:]}", 2,
+                   LONG_PREFILL, LONG_PREFILL, H, KV, HD, True, W, dt)
+                  for dt in (torch.bfloat16, torch.float32)]
     results = []
     for label, b, sq, sk, h, kv, hd, causal, window, dt in cases:
         q = torch.randn((b, sq, h, hd), generator=g, device="cuda").to(dt)
@@ -1542,8 +1659,8 @@ def phase_flash_attention(torch, timer, cfg, work):
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         err, ratio, lim = compare_attn(got, plain().transpose(1, 2))
         if not (math.isfinite(err) and ratio <= 1.0):
-            fail(f"flash_attention {label}: max |kernel - plain| = {err}, "
-                 f"{ratio:.3g}x the bound {lim}")
+            fail(f"flash_attention {cfg.name} {label}: max |kernel - "
+                 f"plain| = {err}, {ratio:.3g}x the bound {lim}")
         esize = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
         ops = 4 * b * h * hd * _visible_pairs(sq, sk, causal, window)
@@ -1553,12 +1670,13 @@ def phase_flash_attention(torch, timer, cfg, work):
                                               window=window))
         plain_ms = timer(plain)
         mask = None
-        if window:
+        binds = window and window < sq      # some query's window cuts keys
+        if binds:
             i = torch.arange(sq, device="cuda")[:, None]
             j = torch.arange(sk, device="cuda")[None, :]
             mask = (j <= i) & (j > i - window)
         lib_ms = timer(sdpa(torch, qt, kt, vt, mask,
-                            is_causal=causal and not window))
+                            is_causal=causal and not binds))
         results.append(dict(label=label, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                             library_ms=lib_ms))
@@ -1569,7 +1687,8 @@ def phase_flash_attention(torch, timer, cfg, work):
               f"KV={kv} hd={hd} causal={causal} window={window} "
               f"err={err:.3g} (x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-              f"library_ms(sdpa)={lib_ms:.4f} bf16_tc_rate_share="
+              f"library_ms(sdpa)={lib_ms:.4f} sdpa_ratio="
+              f"{ms / lib_ms:.3f} bf16_tc_rate_share="
               f"{tc_share:.4f} byte_bound_share={byte_share:.4f}",
               flush=True)
         del q, k, v, qt, kt, vt, got
@@ -1577,30 +1696,40 @@ def phase_flash_attention(torch, timer, cfg, work):
 
 
 def phase_flash_decode_bhd(torch, timer, cfg, work):
-    """Kernel 7 at the static decode's shape (B = 8, S = each static
-    batch's cache_len, qwen2's heads, hd 128) with ``length`` 1, S // 2
-    and S, in bfloat16 (tensor cores) and float32 (CUDA cores), plus a
-    case per template that runs unsplit (80 rows; 8 rows over 128
-    slots): the phase fails unless each template compares both the
-    split-K merge and the direct epilogue.  Slots at and past ``length``
-    hold large garbage, so a read past the mask shows.  Library
-    yardstick: scaled_dot_product_attention under a boolean mask."""
+    """Kernel 7 at the static decode's shape for ``cfg`` (B = 8, its
+    heads, kv heads and head dim, S = each static batch's cache_len, cut
+    to the attention window where one binds: the cache is then a ring)
+    with ``length`` 1, S // 2 and S, in bfloat16 (tensor cores) and
+    float32 (CUDA cores), plus a case per template that runs unsplit
+    (160 / KV rows; 8 rows over 128 slots), and with a window a full
+    ring of that many slots at length 1, half, full and wrapped (past
+    the ring, every slot live): the phase fails unless each template
+    compares both the split-K merge and the direct epilogue.  Slots at
+    and past ``length`` hold large garbage, so a read past the mask
+    shows.  Library yardstick: scaled_dot_product_attention under a
+    boolean mask."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels._common import sm_count
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = attn_window(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     b = STATIC_BATCH
     cases = []
     for _, _, pmax, gmax in static_batches(work):
-        s = pmax + gmax
+        s = min(pmax + gmax, W) if W else pmax + gmax
         for dt in (torch.bfloat16, torch.float32):
             for length in (1, s // 2, s):
                 cases.append((f"S={s} length={length} {str(dt)[6:]}", b, s,
                               length, dt))
-    cases += [("extra B=80 S=256 length=200 bfloat16", 80, 256, 200,
+    wide = -(-160 // KV)      # rows x kv heads past the card's 132 SMs
+    cases += [(f"extra B={wide} S=256 length=200 bfloat16", wide, 256, 200,
                torch.bfloat16),
               ("extra S=128 length=100 float32", b, 128, 100,
                torch.float32)]
+    if W:
+        cases += [(f"ring S={W} length={length} {str(dt)[6:]}", b, W, length,
+                   dt) for dt in (torch.bfloat16, torch.float32)
+                  for length in (1, W // 2, W, W + 52)]
     results = []
     for label, b, s, length, dt in cases:
         q = torch.randn((b, H, HD), generator=g, device="cuda").to(dt)
@@ -1612,16 +1741,17 @@ def phase_flash_decode_bhd(torch, timer, cfg, work):
         v.masked_fill_(past, -60.0)
         ln = torch.tensor(length, dtype=torch.int32, device="cuda")
         tiles, nsplit = fd.launch_splits(b, 1, H, KV, s, dtype=dt,
-                                         sms=sm_count(0))
+                                         sms=sm_count(0), hd=HD)
         got = fd.flash_decode(q, k, v, ln)
         err, ratio, lim = compare_attn(
             got, fd.flash_decode_bhd_plain(q, k, v, ln))
         if not (math.isfinite(err) and ratio <= 1.0):
-            fail(f"flash_decode {label}: max |kernel - plain| = {err}, "
-                 f"{ratio:.3g}x the bound {lim}")
+            fail(f"flash_decode {cfg.name} {label}: max |kernel - plain| = "
+                 f"{err}, {ratio:.3g}x the bound {lim}")
         esize = q.element_size()
-        nbytes = (2 * b * length * KV * HD + 2 * q.numel()) * esize + 4
-        ops = 4 * b * H * HD * length
+        seen = min(length, s)                # a wrapped ring: every slot
+        nbytes = (2 * b * seen * KV * HD + 2 * q.numel()) * esize + 4
+        ops = 4 * b * H * HD * seen
         bnd, by = bound_ms(nbytes, ops, BF16_OPS_PER_S
                            if dt == torch.bfloat16 else F32_OPS_PER_S)
         ms = timer(lambda: fd.flash_decode(q, k, v, ln))
@@ -1640,14 +1770,15 @@ def phase_flash_decode_bhd(torch, timer, cfg, work):
               f"tiles={tiles} nsplit={nsplit} err={err:.3g} "
               f"(x{ratio:.3f} of bound) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}) "
-              f"library_ms(sdpa)={lib_ms:.4f}{share} "
+              f"library_ms(sdpa)={lib_ms:.4f} sdpa_ratio="
+              f"{ms / lib_ms:.3f}{share} "
               f"bound_share={bnd / ms:.4f}", flush=True)
         del q, k, v, got
     for dt in (torch.bfloat16, torch.float32):
         if {r["nsplit"] > 1 for r in results if r["dtype"] == dt} != {
                 False, True}:
-            fail(f"flash_decode: the {dt} cases did not reach both the "
-                 "split and the unsplit epilogue")
+            fail(f"flash_decode {cfg.name}: the {dt} cases did not reach "
+                 "both the split and the unsplit epilogue")
     return results
 
 
@@ -1671,7 +1802,7 @@ def _static_once(torch, model, params, batches):
         ev[0].record()
         logits, cache = model.prefill(params, torch.from_numpy(toks).cuda(),
                                       cache_len=pmax + gmax)
-        tok = greedy_sample(logits[:, -1].float())
+        tok = greedy_sample(logits[:, -1].float().contiguous())
         ev[1].record()
         out = [tok]
         pos = torch.tensor(pmax, dtype=torch.int32, device="cuda")
@@ -1692,16 +1823,19 @@ def _static_once(torch, model, params, batches):
     return streams, kernels.launch_counts(), wall, prefill_ms, decode_ms
 
 
-def phase_serve_static(torch, cfg):
-    """The static-batch main path: full-width qwen2-1.5b under
-    attn_impl="pallas" (bf16, random weights from SEED), the serving
-    phase's 16 requests in two static batches of 8, run twice (the
-    streams must repeat), with exact launch counts — flash_attention
-    once per layer and batch, flash_decode once per layer and decode
-    step, greedy_sample once per step, nothing else — so no plain
-    version ran on the card; then every emitted token against a
-    teacher-forced f32 forward of the plain (naive) model over the
-    padded prompt and the emitted stream."""
+def phase_serve_static(torch, cfg, f32_equal=False):
+    """The static-batch main path: full-width ``cfg`` (qwen2-1.5b, or
+    recurrentgemma-2b) under attn_impl="pallas" (bf16, random weights
+    from SEED), the serving phase's 16 requests in two static batches of
+    8, run twice (the streams must repeat), with exact launch counts —
+    flash_attention once per attention layer and batch, flash_decode
+    once per attention layer and decode step, greedy_sample once per
+    step, nothing else — so no plain version ran on the card; then every
+    emitted token against a teacher-forced f32 forward of the plain
+    (naive) model over the padded prompt and the emitted stream.  With
+    ``f32_equal`` the same batches run once more in float32 (TF32 off)
+    under "pallas" (the kernels' f32 templates) and under "naive" (the
+    plain attention, no kernel), whose greedy tokens must be equal."""
     from repro_torch import kernels
     from repro_torch.models.model import build_model
     from repro_torch.serve.profile_engine import workload
@@ -1710,7 +1844,8 @@ def phase_serve_static(torch, cfg):
     params = model.init(SEED, "cuda")
     work = workload(pcfg.vocab_size, SEED)
     batches = static_batches(work)
-    L = pcfg.num_layers
+    L = sum(n for kind, _, n in _runs(pcfg)
+            if kind in ("attn", "local_attn"))
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
     want.update(flash_attention=L * len(batches),
                 flash_decode=L * sum(g - 1 for *_, g in batches),
@@ -1736,7 +1871,35 @@ def phase_serve_static(torch, cfg):
               for j in range(len(rows))]
     _teacher_forced_check(torch, build_model(cfg.replace(attn_impl="naive")),
                           params, padded, [runs[0]], [])
-    del params
+    if f32_equal:
+        p32 = _cast(params, torch.float32)
+        del params
+        out = {}
+        with float32_exact():
+            for impl in ("pallas", "naive"):
+                m32 = build_model(cfg.replace(attn_impl=impl,
+                                              param_dtype="float32",
+                                              compute_dtype="float32"))
+                streams, got, wall, pre_ms, dec_ms = _static_once(
+                    torch, m32, p32, batches)
+                if got != (want if impl == "pallas" else
+                           dict(want, flash_attention=0, flash_decode=0)):
+                    fail(f"static f32 {impl}: launches {got}")
+                out[impl] = streams
+                print(f"[serve_static] {pcfg.name} float32 {impl} wall_s="
+                      f"{wall:.3f} prefill_ms per batch "
+                      f"{[round(x, 2) for x in pre_ms]} decode_ms per step "
+                      f"{[round(x, 3) for x in dec_ms]}", flush=True)
+        same = out["pallas"] == out["naive"]
+        print(f"[serve_static] {pcfg.name} float32: pallas (kernels 6, 7) "
+              f"== naive (plain attention) greedy tokens: {same}",
+              flush=True)
+        if not same:
+            fail(f"{pcfg.name} static f32: the kernels' tokens differ from "
+                 "the plain attention's")
+        del p32
+    else:
+        del params
     return counts
 
 
@@ -1752,14 +1915,16 @@ def slot_rows(ec):
 
 
 def phase_slot_state(torch, timer, mcfg, ec):
-    """Kernels 10 and 11 at the mamba path's shapes: both pool leaves
-    as the model allocates them (the conv window, 3 x 2304 bf16 a row,
-    and the SSD state, 32 x 64 x 128 f32 a row) of S = num_slots + 1
-    slots, one layer's pool (the fused step's call, once per layer) and
-    all layers' at once (the decode loop's entry and exit), at every row
-    count of ``slot_rows``.  Gathers with every third row fresh (it
-    reads zeros); scatters to distinct live slots, then with every fourth
-    row stale: routed to trash slot 0 by the caller, or by the kernel
+    """Kernels 10 and 11 at the slot-state path's shapes of ``mcfg``:
+    both pool leaves as the model allocates them (mamba2-370m: the conv
+    window, 3 x 2304 bf16 a row, and the SSD state, 32 x 64 x 128 f32 a
+    row; recurrentgemma-2b: the conv window, 3 x 2560 bf16, and the
+    hidden state, 2560 f32) of S = num_slots + 1 slots, one layer's pool
+    (the fused step's call, once per layer) and a whole run's at once
+    (the decode loop's entry and exit: mamba's 48 layers, a run of 2
+    RG-LRU layers), at every row count of ``slot_rows``.  Gathers with
+    every third row fresh (it reads zeros); scatters to distinct live
+    slots, then with every fourth row stale: routed to trash slot 0 by the caller, or by the kernel
     from an int32 valid_len (and, at one layer, through
     ``layers.slot_state_scatter``, the fused step's route).  Bit for bit
     against the plain versions (slot 0 left out where two rows write
@@ -1773,16 +1938,19 @@ def phase_slot_state(torch, timer, mcfg, ec):
     from repro_torch.kernels import slot_state as ss
     from repro_torch.kernels._common import sm_count
     from repro_torch.models.layers import slot_state_scatter
+    from repro_torch.models.rglru import init_rglru_cache
     from repro_torch.models.ssm import init_ssm_cache
     s = ec.num_slots + 1
+    init_state = init_rglru_cache if mcfg.rglru else init_ssm_cache
     leaves = [(name, tuple(t.shape[1:]), t.dtype) for name, t in
-              init_ssm_cache(mcfg, 1, mcfg.cdtype, "meta").items()]
+              init_state(mcfg, 1, mcfg.cdtype, "meta").items()]
+    run = max(n for kind, _, n in _runs(mcfg) if kind in ("ssm", "rglru"))
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED + 5)
     out = {}
     for leaf, feat, dtype in leaves:
         esize = torch.empty((), dtype=dtype).element_size()
-        for layers in (0, mcfg.num_layers):
+        for layers in (0, run):
             lead = (layers, s) if layers else (s,)
             pool = torch.randn(lead + feat, generator=g, device="cuda").to(
                 dtype)
@@ -2164,7 +2332,7 @@ def phase_mla(torch, timer, dcfg, ec, paged):
     g = torch.Generator(device="cuda").manual_seed(SEED + 7 + paged)
     rng = np.random.default_rng(SEED + 7 + paged)
     results = []
-    for b, c in step_shapes(ec):
+    for b, c in step_shapes(ec, dcfg):
         label = f"B={b} C={c}"
         q_lat, q_rope, ckv, kr, bt, pos, ctx = mla_case(torch, g, rng, b, c,
                                                         ec, dcfg, paged)
@@ -2519,6 +2687,126 @@ def _cast(tree, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the RG-LRU hybrid: recurrentgemma-2b served
+# ---------------------------------------------------------------------------
+
+
+def _serving_launches(cfg, counters, depth, sampled):
+    """The launches one Engine run must make, from its counters: every
+    fused step one kernel-1 launch a (local) attention layer and a slot
+    gather and scatter a leaf of each recurrent layer; every decode loop
+    ``depth`` iterations of one kernel-2 launch an attention layer, and
+    one slot gather and scatter a leaf of each recurrent run at entry
+    and exit; one sampler launch a step or iteration."""
+    runs = _runs(cfg)
+    attn = sum(n for kind, _, n in runs if kind in ("attn", "local_attn"))
+    state = [n for kind, _, n in runs if kind in ("ssm", "rglru")]
+    leaves = 2                               # conv and h (or state)
+    loops = counters["loop_dispatches"]
+    steps = counters["model_calls"] - loops
+    want = dict(flash_decode_paged=steps * attn,
+                decode_view_attend=loops * depth * attn,
+                slot_gather=leaves * (steps * sum(state) + loops * len(state)))
+    want["slot_scatter"] = want["slot_gather"]
+    want["gumbel_sample" if sampled else "greedy_sample"] = \
+        steps + loops * depth
+    return want
+
+
+def phase_serve_recurrentgemma(torch, rcfg):
+    """The hybrid's serving path: full-width recurrentgemma-2b (26
+    layers: 18 RG-LRU, 8 local MQA at hd 256; bf16, random weights from
+    SEED) serves the qwen2 phase's 16 requests at depths 1 and 8, greedy
+    twice (the streams must repeat) and once at SAMPLE_T / SAMPLE_TOP_K,
+    each run making exactly the launches its counters call for (kernels
+    1-4 and 10-11, ``_serving_launches``) and freeing every state slot;
+    then one request of RG_LONG's prompt and new tokens under an
+    EngineConfig whose tables hold it, at depths 1 and 8: its queries
+    pass the 2048 window, so the kernels mask keys and the engine must
+    reclaim dead blocks (kv_blocks_reclaimed > 0).  Every emitted token
+    is held to the teacher-forced f32 check.  Returns the launches of
+    each depth's first greedy and its sampled run and of the long runs,
+    summed."""
+    from repro_torch import kernels
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    model = build_model(rcfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {rcfg.name} full width: {rcfg.num_layers} layers "
+          f"{[k for k, _, _ in _runs(rcfg)][:3]}..., d_model "
+          f"{rcfg.d_model}, {nparams / 1e9:.3f}B params "
+          f"{rcfg.param_dtype}, init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    work = workload(rcfg.vocab_size, SEED)
+    launches = {fn.__name__: 0 for fn in kernels.KERNELS}
+    greedy_streams, sampled_streams = [], []
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+
+    def gate(counts, stats, depth, sampled, label):
+        want = _serving_launches(rcfg, stats, depth, sampled)
+        got = {k: v for k, v in counts.items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"{rcfg.name} {label}: launches {got}, want {want}")
+
+    for depth in (1, 8):
+        for kw in ({}, sample):
+            runs = []
+            for rep in range(1 if kw else 2):
+                stats = {}
+                stream, counts, _, line = _serve_once(
+                    torch, model, params, work, depth, stats=stats, **kw)
+                mode = (f"T={SAMPLE_T} top_k={SAMPLE_TOP_K}" if kw
+                        else "greedy")
+                print(f"[serve] {rcfg.name} depth={depth} {mode} run={rep} "
+                      f"{line}", flush=True)
+                gate(counts, stats, depth, bool(kw), f"depth {depth} {mode}")
+                if rep == 0:
+                    for k, v in counts.items():
+                        launches[k] += v
+                runs.append(stream)
+            if runs[0] != runs[-1]:
+                fail(f"{rcfg.name} depth {depth} {mode}: a repeat gave "
+                     "other streams")
+            (sampled_streams if kw else greedy_streams).append(runs[0])
+    same = (greedy_streams[0] == greedy_streams[1],
+            sampled_streams[0] == sampled_streams[1])
+    print(f"[serve] {rcfg.name}: greedy streams repeat at each depth; "
+          f"depth 1 == depth 8: greedy {same[0]}, sampled {same[1]}",
+          flush=True)
+
+    # one request past the window: the window mask and block reclaim
+    prompt_len, new = RG_LONG
+    rng = np.random.default_rng(SEED + 21)
+    long_work = [(rng.integers(0, rcfg.vocab_size, (prompt_len,))
+                  .astype(np.int32), new)]
+    long_cfg = dict(max_seq_len=LONG_SEQ)
+    long_streams = []
+    for depth in (1, 8):
+        stats = {}
+        stream, counts, _, line = _serve_once(
+            torch, model, params, long_work, depth, engine=long_cfg,
+            stats=stats)
+        print(f"[serve] {rcfg.name} long request depth={depth} prompt="
+              f"{prompt_len} new={new} max_seq_len="
+              f"{long_cfg['max_seq_len']} {line}", flush=True)
+        if stats["kv_blocks_reclaimed"] <= 0:
+            fail(f"long request depth {depth}: no block reclaimed past the "
+                 f"{rcfg.rglru.local_window}-token window")
+        gate(counts, stats, depth, False, f"long request depth {depth}")
+        for k, v in counts.items():
+            launches[k] += v
+        long_streams.append(stream)
+    _teacher_forced_check(torch, model, params, work, greedy_streams,
+                          sampled_streams)
+    _teacher_forced_check(torch, model, params, long_work, long_streams, [])
+    del params
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def phase_census(torch, cfg, mcfg, ec):
@@ -2669,7 +2957,8 @@ def main() -> int:
     gs = phase(phase_greedy, torch, timer, cfg, ec)
     from repro_torch.serve.profile_engine import served_config
     mcfg, dcfg = get_config(MAMBA), served_config(DEEPSEEK)
-    gb = phase(phase_gumbel, torch, timer, cfg, mcfg, dcfg, ec)
+    rcfg = get_config(RGEMMA)
+    gb = phase(phase_gumbel, torch, timer, cfg, mcfg, dcfg, rcfg, ec)
     fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
     launches = phase(phase_serve, torch, cfg)
     phase(phase_depth_f32, torch, cfg)
@@ -2699,12 +2988,28 @@ def main() -> int:
     phase(phase_depth_f32, torch, dcfg)
     for name in ("mla_decode_views", "mla_decode_paged"):
         launches[name] = d_launches[name]
+    rwork = workload(rcfg.vocab_size, SEED)
+    fd += phase(phase_flash_decode, torch, timer, rcfg, ec)
+    dv += phase(phase_decode_view, torch, timer, rcfg, ec)
+    fa += phase(phase_flash_attention, torch, timer, rcfg, rwork)
+    fdb += phase(phase_flash_decode_bhd, torch, timer, rcfg, rwork)
+    phase(phase_greedy, torch, timer, rcfg, ec)
+    phase(phase_slot_state, torch, timer, rcfg, ec)
+    r_launches = phase(phase_serve_recurrentgemma, torch, rcfg)
+    phase(phase_depth_f32, torch, rcfg)
+    rs_launches = phase(phase_serve_static, torch, rcfg, True)
+    for name in ("flash_decode_paged", "decode_view_attend", "greedy_sample",
+                 "gumbel_sample", "slot_gather", "slot_scatter"):
+        launches[name] += r_launches[name]
+    for name in ("flash_attention", "flash_decode"):
+        launches[name] += rs_launches[name]
     phase(phase_census, torch, cfg, mcfg, ec)
 
     def row(results, label):
-        """The kernel's JSON numbers: times of the case ``label`` (the
-        engine's full decode bucket, or the static path's first batch),
-        error the worst over every case of the phase."""
+        """The kernel's JSON numbers: times of the first case ``label``
+        (qwen2's full decode bucket, or its static path's first batch),
+        error the worst over every case of the phase's calls (qwen2's
+        and recurrentgemma's)."""
         pick = next(r for r in results if r["label"] == label)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(max_abs_err=max(r["max_abs_err"] for r in results),

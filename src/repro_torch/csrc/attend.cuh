@@ -16,13 +16,15 @@
 // kernel (combine_splits) merges them.
 //
 // Inside a CTA the keys go in chunks of 32 (one key per lane): the
-// chunk's K and V rows are read with 16-byte vector loads, all issued
-// before any is stored, into shared memory as f32; each lane scores its
-// key against the tile's queries, and each warp keeps m/l/acc of its 2
-// query rows in registers, each lane owning HD/32 lanes of the
-// accumulator.  Keys past the last position any query of the tile sees
-// are never read; with a window, keys before the first visible one are
-// skipped too.
+// chunk's K and V rows are read with 16-byte vector loads, up to 8 a
+// thread issued before any is stored, into shared memory as f32; each
+// lane scores its key against the tile's queries, and each warp keeps
+// m/l/acc of its 2 query rows in registers, each lane owning HD/32 lanes
+// of the accumulator.  Keys past the last position any query of the tile
+// sees are never read; with a window, keys before the first visible one
+// are skipped too.  The tile's q, k and v live in dynamic shared memory
+// (attend_smem_bytes: 73,856 bytes at hd 256, past the 48 KB a kernel
+// may declare statically), which each launcher allows once a process.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +39,14 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 2;
 constexpr int kTileRows = kWarps * kRowsPerWarp;
 constexpr int kChunk = 32;
+
+// dynamic shared memory of attend_tile: q (kTileRows, HD), k (kChunk,
+// HD + 1), v (kChunk, HD), f32
+template <int HD>
+constexpr int attend_smem_bytes() {
+  return (kTileRows * HD + kChunk * (HD + 1) + kChunk * HD) *
+         (int)sizeof(float);
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -81,7 +91,8 @@ struct ViewKeys {
 };
 
 // Stage keys [k0, k0 + kChunk) ∩ [.., k_end) of K and V in shared memory
-// as f32 (zeros past k_end).  Every vector load is issued before the
+// as f32 (zeros past k_end).  The vector loads go in groups of up to 8 a
+// thread (one group up to hd 128 in f32), each issued whole before its
 // first store, so their latencies overlap.
 template <typename T, int HD, typename Keys>
 __device__ __forceinline__ void load_chunk(const T* __restrict__ kbuf,
@@ -93,31 +104,37 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ kbuf,
   constexpr int VEC = 16 / sizeof(T);           // elements per 16 bytes
   constexpr int PER_TOKEN = HD / VEC;
   constexpr int N = kChunk * PER_TOKEN / kThreads;
-  static_assert(N * kThreads == kChunk * PER_TOKEN, "chunk tiling");
-  uint4 kr[N], vr[N];
+  constexpr int GROUP = N < 8 ? N : 8;
+  static_assert(N * kThreads == kChunk * PER_TOKEN && N % GROUP == 0,
+                "chunk tiling");
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int t = idx / PER_TOKEN, key = k0 + t;
-    if (key < k_end) {
-      const long long off = keys.offset(b, kv, key) + (idx % PER_TOKEN) * VEC;
-      kr[i] = __ldg(reinterpret_cast<const uint4*>(kbuf + off));
-      vr[i] = __ldg(reinterpret_cast<const uint4*>(vbuf + off));
-    } else {
-      kr[i] = make_uint4(0, 0, 0, 0);
-      vr[i] = make_uint4(0, 0, 0, 0);
+  for (int i0 = 0; i0 < N; i0 += GROUP) {
+    uint4 kr[GROUP], vr[GROUP];
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) {
+      const int idx = threadIdx.x + (i0 + i) * kThreads;
+      const int t = idx / PER_TOKEN, key = k0 + t;
+      if (key < k_end) {
+        const long long off =
+            keys.offset(b, kv, key) + (idx % PER_TOKEN) * VEC;
+        kr[i] = __ldg(reinterpret_cast<const uint4*>(kbuf + off));
+        vr[i] = __ldg(reinterpret_cast<const uint4*>(vbuf + off));
+      } else {
+        kr[i] = make_uint4(0, 0, 0, 0);
+        vr[i] = make_uint4(0, 0, 0, 0);
+      }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int t = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
-    const T* kx = reinterpret_cast<const T*>(&kr[i]);
-    const T* vx = reinterpret_cast<const T*>(&vr[i]);
+    for (int i = 0; i < GROUP; ++i) {
+      const int idx = threadIdx.x + (i0 + i) * kThreads;
+      const int t = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
+      const T* kx = reinterpret_cast<const T*>(&kr[i]);
+      const T* vx = reinterpret_cast<const T*>(&vr[i]);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      ks[t][d0 + j] = to_f(kx[j]);
-      vs[t][d0 + j] = to_f(vx[j]);
+      for (int j = 0; j < VEC; ++j) {
+        ks[t][d0 + j] = to_f(kx[j]);
+        vs[t][d0 + j] = to_f(vx[j]);
+      }
     }
   }
 }
@@ -136,9 +153,13 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kbuf,
                             int split, int nsplit, int pos, int n_keys,
                             int window, float scale) {
   constexpr int PER_LANE = HD / 32;
-  __shared__ float qs[kTileRows][HD];
-  __shared__ float ks[kChunk][HD + 1];  // +1: lane-per-key reads hit distinct banks
-  __shared__ float vs[kChunk][HD];
+  extern __shared__ float attend_smem[];   // attend_smem_bytes<HD>()
+  float(*qs)[HD] = reinterpret_cast<float(*)[HD]>(attend_smem);
+  // +1: lane-per-key reads hit distinct banks
+  float(*ks)[HD + 1] =
+      reinterpret_cast<float(*)[HD + 1]>(attend_smem + kTileRows * HD);
+  float(*vs)[HD] = reinterpret_cast<float(*)[HD]>(
+      attend_smem + kTileRows * HD + kChunk * (HD + 1));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_rows = C * G;

@@ -45,7 +45,10 @@
 // not the bound.  O accumulates in f32 registers (64 a thread at hd
 // 128); the epilogue divides by l, rounds to bf16 and stores through
 // shared memory as 16-byte rows.  Shared memory at hd 128: Q 16 KB +
-// 2 x (K 16 KB + V 16 KB) = 80 KB, two CTAs an SM.
+// 2 x (K 16 KB + V 16 KB) = 80 KB, two CTAs an SM.  At hd 256 (O alone
+// 128 registers a thread) Q's fragments are read from shared memory at
+// each k-step instead of held, and K/V go in 32-key chunks: Q 32 KB +
+// 2 x (16 KB + 16 KB) = 96 KB, still two CTAs an SM.
 //
 // float32: CUDA cores (flash_attention_f32).  Tensor cores on f32 would
 // be TF32 and change the numbers against the f32 plain version, so f32
@@ -53,8 +56,9 @@
 // f32; the keys go in chunks of 32 (16-byte vector loads, all issued
 // before any is stored); each warp owns 8 query rows, a lane scores one
 // key of the chunk against the warp's rows and accumulates HD/32 columns
-// of the 8 output rows; 256 threads, two CTAs an SM.  Operations bind it
-// (67 TFLOP/s f32).
+// of the 8 output rows (4 at hd 256, where 8 rows of 256 columns would
+// take 64 accumulators a thread and 64 rows of q 64 KB); 256 threads, two
+// CTAs an SM.  Operations bind it (67 TFLOP/s f32).
 #include "attend.cuh"
 #include "mma.cuh"
 
@@ -95,23 +99,33 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;   // one m16n8k16 A tile a warp
-constexpr int kKeys = 64;            // keys a chunk
+
+// keys a chunk, and whether Q's A fragments stay in registers for the
+// whole key loop (at hd 256 they are read from shared memory at each
+// k-step: O alone takes 128 registers a thread)
+template <int HD>
+struct Shape {
+  static constexpr int kKeys = HD > 128 ? 32 : 64;
+  static constexpr bool kQRegs = HD <= 128;
+};
 
 template <int HD>
-constexpr int smem_bytes() {
-  return (kRows + 4 * kKeys) * HD * (int)sizeof(bf16);   // Q, 2 x (K, V)
+constexpr int smem_bytes() {   // Q, 2 x (K, V)
+  return (kRows + 4 * Shape<HD>::kKeys) * HD * (int)sizeof(bf16);
 }
+static_assert(2 * (smem_bytes<256>() + 256 * 4) <= 232448,
+              "hd 256: two CTAs an SM");
 
-// K/V rows [k0, k0 + kKeys) of one (row, kv head) into a swizzled stage;
+// K/V rows [k0, k0 + KEYS) of one (row, kv head) into a swizzled stage;
 // keys at and past Sk are zero-filled (never read from device memory)
-template <int HD>
+template <int HD, int KEYS>
 __device__ __forceinline__ void load_keys(bf16* dst, const bf16* src,
                                           long long kv_stride, int k0,
                                           int Sk) {
   constexpr int CH = HD / 8;
-  static_assert(kKeys * CH % kThreads == 0, "chunk tiling");
+  static_assert(KEYS * CH % kThreads == 0, "chunk tiling");
 #pragma unroll
-  for (int it = 0; it < kKeys * CH / kThreads; ++it) {
+  for (int it = 0; it < KEYS * CH / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / CH, c = idx % CH, key = k0 + r;
     const bool ok = key < Sk;
@@ -126,6 +140,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int B,
                    int Sq, int Sk, int H, int KV, int causal, int window,
                    float scale_log2) {
+  constexpr int kKeys = Shape<HD>::kKeys;
+  constexpr bool kQRegs = Shape<HD>::kQRegs;
   constexpr int CH = HD / 8;       // 16-byte chunks a row
   constexpr int KSTEPS = HD / 16;  // k-steps of Q·Kᵀ
   constexpr int NT = kKeys / 8;    // n-tiles of S
@@ -164,9 +180,9 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async16(smem_u32(qs + swz<HD>(r, c)),
                q + (((long long)b * Sq + qi) * H + head) * HD + c * 8, ok);
   }
-  if (n_chunks > 0) load_keys<HD>(ks, kb, kv_stride, k_begin, Sk);
+  if (n_chunks > 0) load_keys<HD, kKeys>(ks, kb, kv_stride, k_begin, Sk);
   cp_async_commit();
-  if (n_chunks > 0) load_keys<HD>(vs, vb, kv_stride, k_begin, Sk);
+  if (n_chunks > 0) load_keys<HD, kKeys>(vs, vb, kv_stride, k_begin, Sk);
   cp_async_commit();
 
   // this thread's two rows of the warp's 16: lane / 4 and lane / 4 + 8
@@ -179,11 +195,16 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   cp_async_wait<1>();   // Q and K of chunk 0
   __syncthreads();
-  uint32_t qf[KSTEPS][4];
+  // Q's A fragments: all KSTEPS held, or the two of one k-step pair
+  uint32_t qf[kQRegs ? KSTEPS : 2][4];
+  const uint32_t q_addr = smem_u32(qs + warp * 16 * HD);
+  auto load_q = [&](int s, uint32_t(&f)[4]) {
+    ldsm_x4(q_addr + 2 * swz<HD>(lane & 15, 2 * s + (lane >> 4)), f);
+  };
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s)
-    ldsm_x4(smem_u32(qs + swz<HD>(warp * 16 + (lane & 15), 2 * s + (lane >> 4))),
-            qf[s]);
+    for (int s = 0; s < KSTEPS; ++s) load_q(s, qf[s]);
+  }
 
   for (int n = 0; n < n_chunks; ++n) {
     const int k0 = k_begin + n * kKeys;
@@ -195,22 +216,28 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       __syncthreads();      // and every warp is done with chunk n - 1
     }
     if (n + 1 < n_chunks)
-      load_keys<HD>(ks + (st ^ 1) * kKeys * HD, kb, kv_stride, k0 + kKeys, Sk);
+      load_keys<HD, kKeys>(ks + (st ^ 1) * kKeys * HD, kb, kv_stride,
+                           k0 + kKeys, Sk);
     cp_async_commit();
 
-    // S = Q Kᵀ: 16 rows x 64 keys a warp
+    // S = Q Kᵀ: 16 rows x kKeys keys a warp
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kp = 0; kp < KSTEPS / 2; ++kp) {
+      if constexpr (!kQRegs) {
+        load_q(2 * kp, qf[0]);
+        load_q(2 * kp + 1, qf[1]);
+      }
+      const int qa = kQRegs ? 2 * kp : 0;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t kf[4];
         ldsm_x4(smem_u32(kst + swz<HD>(j * 8 + (lane & 7), 4 * kp + (lane >> 3))),
                 kf);
-        mma(s[j], qf[2 * kp], kf[0], kf[1]);
-        mma(s[j], qf[2 * kp + 1], kf[2], kf[3]);
+        mma(s[j], qf[qa], kf[0], kf[1]);
+        mma(s[j], qf[qa + 1], kf[2], kf[3]);
       }
     }
 
@@ -266,7 +293,8 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();   // V of chunk n (chunk n + 1's K may be in flight)
     __syncthreads();      // and every warp is done with chunk n - 1's V
     if (n + 1 < n_chunks)
-      load_keys<HD>(vs + (st ^ 1) * kKeys * HD, vb, kv_stride, k0 + kKeys, Sk);
+      load_keys<HD, kKeys>(vs + (st ^ 1) * kKeys * HD, vb, kv_stride,
+                           k0 + kKeys, Sk);
     cp_async_commit();
 
     // O += P V, P from the S accumulators as A fragments (hi + lo)
@@ -360,17 +388,24 @@ namespace f32 {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kRows = kWarps * kRowsPerWarp;
 constexpr int kChunk = 32;
 
-// Shared memory of one CTA, in floats: q (kRows, HD), k (kChunk, HD + 4)
+// query rows a warp and a CTA: 8 and 64, or 4 and 32 at hd 256 (the
+// accumulators stay 64 a thread and two CTAs share an SM)
+template <int HD>
+struct Rows {
+  static constexpr int kPerWarp = HD > 128 ? 4 : 8;
+  static constexpr int kCta = kWarps * kPerWarp;
+};
+
+// Shared memory of one CTA, in floats: q (rows, HD), k (kChunk, HD + 4)
 // (the +4 keeps a lane-per-key float4 read free of bank conflicts), v
 // (kChunk, HD).
 template <int HD>
 constexpr int smem_floats() {
-  return kRows * HD + kChunk * (HD + 4) + kChunk * HD;
+  return Rows<HD>::kCta * HD + kChunk * (HD + 4) + kChunk * HD;
 }
+static_assert(2 * smem_floats<256>() * 4 <= 232448, "hd 256: two CTAs an SM");
 
 // two CTAs an SM (at most 128 registers a thread): while one waits at
 // its barrier for a K/V chunk from device memory, the other computes
@@ -382,6 +417,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     int window, float scale) {
   constexpr int PER_LANE = HD / 32;
   constexpr int KS = HD + 4;
+  constexpr int kRowsPerWarp = Rows<HD>::kPerWarp;
+  constexpr int kRows = Rows<HD>::kCta;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [kRows][HD]
   float* ks = qs + kRows * HD;                   // [kChunk][KS]
@@ -427,18 +464,24 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int VEC = 4;
   constexpr int PER_TOKEN = HD / VEC;
   constexpr int NLOAD = kChunk * PER_TOKEN / kThreads;
-  static_assert(NLOAD * kThreads == kChunk * PER_TOKEN, "chunk tiling");
+  // loads in flight a thread, issued before their stores: every one up to
+  // hd 128, groups of 4 at hd 256 (within the 128 registers of two CTAs
+  // an SM)
+  constexpr int GROUP = NLOAD < 4 ? NLOAD : 4;
+  static_assert(NLOAD * kThreads == kChunk * PER_TOKEN && NLOAD % GROUP == 0,
+                "chunk tiling");
   const long long kv_stride = (long long)KV * HD;   // between positions
   const float* kb = k + (long long)b * Sk * kv_stride + (long long)kv * HD;
   const float* vb = v + (long long)b * Sk * kv_stride + (long long)kv * HD;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
     __syncthreads();  // previous chunk consumed (and qs written, first time)
-    {
-      float4 kr[NLOAD], vr[NLOAD];
 #pragma unroll
-      for (int i = 0; i < NLOAD; ++i) {
-        const int idx = tid + i * kThreads;
+    for (int i0 = 0; i0 < NLOAD; i0 += GROUP) {
+      float4 kr[GROUP], vr[GROUP];
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) {
+        const int idx = tid + (i0 + i) * kThreads;
         const int tok = idx / PER_TOKEN, key = k0 + tok;
         if (key < k_end) {
           const long long off = key * kv_stride + (idx % PER_TOKEN) * VEC;
@@ -450,8 +493,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int i = 0; i < NLOAD; ++i) {
-        const int idx = tid + i * kThreads;
+      for (int i = 0; i < GROUP; ++i) {
+        const int idx = tid + (i0 + i) * kThreads;
         const int tok = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
         *reinterpret_cast<float4*>(ks + tok * KS + d0) = kr[i];
         *reinterpret_cast<float4*>(vs + tok * HD + d0) = vr[i];
@@ -556,7 +599,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       flash_attention_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const int tiles = (Sq * (H / KV) + kRows - 1) / kRows;
+  const int tiles = (Sq * (H / KV) + Rows<HD>::kCta - 1) / Rows<HD>::kCta;
   flash_attention_f32<HD><<<tiles * KV * B, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), B, Sq, Sk, H,
@@ -582,9 +625,13 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
     return f32::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 0 && hd == 128)
     return f32::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 0 && hd == 256)
+    return f32::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 1 && hd == 256)
+    return tc::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -8,7 +8,7 @@
 // pos (B,) int32 -> out (B, C, H, HD).  Query c of row b sits at
 // position pos[b] + c and sees keys kpos <= pos[b] + c (and
 // kpos > pos[b] + c - window when window > 0).  Pools are read in place
-// at any head dim the kernel is built for (64, 128): nothing is
+// at any head dim the kernel is built for (64, 128, 256): nothing is
 // padded, and the scale comes from the caller (1/sqrt(true hd)).
 //
 // rt_flash_decode: one query token per row over a contiguous cache.
@@ -52,7 +52,8 @@
 //     at the end the warps merge through shared memory, in warp order.
 // Q is copied once (cp.async, issued before the position is read) into
 // XOR-swizzled shared memory and moved by ldmatrix into A fragments held
-// for the whole key loop.  K and V go in 64-key chunks through a 2-stage
+// for the whole key loop up to hd 128.  K and V go in 64-key chunks
+// through a 2-stage
 // cp.async ring of bf16 in swizzled shared memory (nothing converted to
 // f32 there), each 16-byte piece of a paged key routed through the block
 // table; keys past the CTA's last are zero-filled by the copy, never
@@ -65,6 +66,15 @@
 // the kernel instead (the last CTA of a tile to finish, by an atomic
 // ticket) measured slower on the H100: one CTA's serial pass over the
 // partials took longer than the second launch.
+//
+// Head dim 256 (recurrentgemma's MQA, G = 10): O alone is 128 f32
+// registers a thread, so Q's A fragments are not held across the key
+// loop but read from shared memory by ldmatrix at each k-step (64
+// registers fewer, one more ldmatrix a K one); and the wide layout
+// stages 32-key chunks, (64 + 4 x 32) x 256 x 2 = 96 KB, so two CTAs
+// still share an SM.  The narrow layout keeps 64-key chunks (16 keys a
+// warp is one m16n8k16 k-step of P·V): (16 + 4 x 64) x 256 x 2 = 136 KB,
+// one CTA an SM.
 //
 // float32: CUDA cores (attend.cuh's attend_tile, 8 rows a CTA, one
 // kernel per entry point); tensor cores would be TF32 and change the
@@ -158,9 +168,14 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* bt, const void* pos, void* out, void* pacc,
                    void* pml, int B, int C, int H, int KV, int bs, int nb_seq,
                    int window, float scale, int nsplit, cudaStream_t stream) {
+  constexpr int bytes = rt::attend_smem_bytes<HD>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(flash_decode_paged_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
   const int tiles = (C * (H / KV) + rt::kTileRows - 1) / rt::kTileRows;
   flash_decode_paged_kernel<HD><<<dim3(tiles * nsplit, KV, B), rt::kThreads,
-                                  0, stream>>>(
+                                  bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kp),
       static_cast<const float*>(vp), static_cast<const int*>(bt),
       static_cast<const int*>(pos), static_cast<float*>(out),
@@ -174,9 +189,14 @@ cudaError_t launch_bhd(const void* q, const void* k, const void* v,
                        const void* length, void* out, void* pacc, void* pml,
                        int B, int H, int KV, int S, float scale, int nsplit,
                        cudaStream_t stream) {
+  constexpr int bytes = rt::attend_smem_bytes<HD>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(flash_decode_bhd_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
   const int tiles = (H / KV + rt::kTileRows - 1) / rt::kTileRows;
   flash_decode_bhd_kernel<HD><<<dim3(tiles * nsplit, KV, B), rt::kThreads,
-                                0, stream>>>(
+                                bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(length),
       static_cast<float*>(out), static_cast<float*>(pacc),
@@ -189,8 +209,13 @@ cudaError_t launch_view(const void* q, const void* k, const void* v,
                         const void* pos, void* out, void* pacc, void* pml,
                         int B, int H, int KV, int S1, int window, float scale,
                         int nsplit, cudaStream_t stream) {
+  constexpr int bytes = rt::attend_smem_bytes<HD>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(decode_view_kernel<HD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return attr;
   const int tiles = (H / KV + rt::kTileRows - 1) / rt::kTileRows;
-  decode_view_kernel<HD><<<dim3(tiles * nsplit, KV, B), rt::kThreads, 0,
+  decode_view_kernel<HD><<<dim3(tiles * nsplit, KV, B), rt::kThreads, bytes,
                            stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(pos),
@@ -211,20 +236,25 @@ using namespace rt;   // the tensor-core helpers of mma.cuh
 using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kKeys = 64;                 // keys a staged chunk
 constexpr int kNarrowRows = 16;           // the wrapper's NARROW_ROWS
 constexpr int kWideRows = kWarps * 16;    // the wrapper's WIDE_ROWS
 
-// query rows a CTA, and keys of a chunk one warp scores
-template <bool NARROW>
+// query rows a CTA, keys a staged chunk (the wrapper's chunk_keys), keys
+// of a chunk one warp scores, and whether Q's A fragments stay in
+// registers for the whole key loop (else read from shared memory at each
+// k-step: at hd 256 O alone takes 128 registers a thread)
+template <int HD, bool NARROW>
 struct Layout {
   static constexpr int kRows = NARROW ? kNarrowRows : kWideRows;
+  static constexpr int kKeys = !NARROW && HD > 128 ? 32 : 64;
   static constexpr int kWarpKeys = NARROW ? kKeys / kWarps : kKeys;
+  static constexpr bool kQRegs = HD <= 128;
 };
 
 template <int HD, bool NARROW>
 constexpr int smem_bytes() {   // Q, 2 x (K, V)
-  return (Layout<NARROW>::kRows + 4 * kKeys) * HD * (int)sizeof(bf16);
+  using L = Layout<HD, NARROW>;
+  return (L::kRows + 4 * L::kKeys) * HD * (int)sizeof(bf16);
 }
 
 // The narrow layout's merge: each warp's (16, HD) f32 O, rows HD + 8
@@ -234,22 +264,28 @@ template <int HD>
 constexpr int merge_bytes() {
   return kWarps * 16 * ((HD + 8) + 2) * (int)sizeof(float);
 }
-static_assert(merge_bytes<64>() <= 4 * kKeys * 64 * 2 &&
-                  merge_bytes<128>() <= 4 * kKeys * 128 * 2,
+template <int HD>
+constexpr bool merge_fits() {
+  return merge_bytes<HD>() <= 4 * Layout<HD, true>::kKeys * HD * 2;
+}
+static_assert(merge_fits<64>() && merge_fits<128>() && merge_fits<256>(),
               "the merge fits in the ring");
+static_assert(smem_bytes<256, true>() <= 232448 &&
+                  2 * smem_bytes<256, false>() <= 232448,
+              "hd 256: one narrow CTA, two wide CTAs an SM");
 
-// Keys [k0, k0 + kKeys) of (row b, kv head kv) into a swizzled stage,
+// Keys [k0, k0 + KEYS) of (row b, kv head kv) into a swizzled stage,
 // each 16-byte piece at the offset Keys gives (through the block table
 // when paged); keys at and past k_end (> k0) zero-filled, never read.
-template <int HD, typename Keys>
+template <int HD, int KEYS, typename Keys>
 __device__ __forceinline__ void stage_keys(bf16* dst,
                                            const bf16* __restrict__ src,
                                            const Keys& keys, int b, int kv,
                                            int k0, int k_end) {
   constexpr int CH = HD / 8;
-  static_assert(kKeys * CH % kThreads == 0, "chunk tiling");
+  static_assert(KEYS * CH % kThreads == 0, "chunk tiling");
 #pragma unroll
-  for (int it = 0; it < kKeys * CH / kThreads; ++it) {
+  for (int it = 0; it < KEYS * CH / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / CH, c = idx % CH, key = k0 + r;
     const bool ok = key < k_end;
@@ -269,8 +305,10 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
                 bf16* __restrict__ out, float* __restrict__ part_acc,
                 float* __restrict__ part_ml, int C, int H, int KV,
                 int n_keys, int window, float scale_log2, int nsplit) {
-  constexpr int ROWS = Layout<NARROW>::kRows;
-  constexpr int WK = Layout<NARROW>::kWarpKeys;
+  using L = Layout<HD, NARROW>;
+  constexpr int ROWS = L::kRows;
+  constexpr int kKeys = L::kKeys;
+  constexpr int WK = L::kWarpKeys;
   constexpr int CH = HD / 8;       // 16-byte chunks a row
   constexpr int KSTEPS = HD / 16;  // k-steps of Q·Kᵀ
   constexpr int NT = WK / 8;       // n-tiles of a warp's S
@@ -318,9 +356,11 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
   const int n_chunks =
       k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
 
-  if (n_chunks > 0) stage_keys<HD>(ks, kbuf, keys, b, kv, k_begin, k_end);
+  if (n_chunks > 0)
+    stage_keys<HD, kKeys>(ks, kbuf, keys, b, kv, k_begin, k_end);
   cp_async_commit();
-  if (n_chunks > 0) stage_keys<HD>(vs, vbuf, keys, b, kv, k_begin, k_end);
+  if (n_chunks > 0)
+    stage_keys<HD, kKeys>(vs, vbuf, keys, b, kv, k_begin, k_end);
   cp_async_commit();
 
   // the warp's rows of the tile and keys of a chunk; this thread's two
@@ -337,11 +377,16 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
 
   cp_async_wait<1>();   // Q and K of chunk 0
   __syncthreads();
-  uint32_t qf[KSTEPS][4];
+  // Q's A fragments: all KSTEPS held, or the two of one k-step pair
+  uint32_t qf[L::kQRegs ? KSTEPS : 2][4];
+  const uint32_t q_addr = smem_u32(qs + rbase * HD);
+  auto load_q = [&](int s, uint32_t(&f)[4]) {
+    ldsm_x4(q_addr + 2 * swz<HD>(lane & 15, 2 * s + (lane >> 4)), f);
+  };
+  if constexpr (L::kQRegs) {
 #pragma unroll
-  for (int s = 0; s < KSTEPS; ++s)
-    ldsm_x4(smem_u32(qs + swz<HD>(rbase + (lane & 15), 2 * s + (lane >> 4))),
-            qf[s]);
+    for (int s = 0; s < KSTEPS; ++s) load_q(s, qf[s]);
+  }
 
   for (int n = 0; n < n_chunks; ++n) {
     const int k0 = k_begin + n * kKeys;
@@ -353,8 +398,8 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
       __syncthreads();      // and every warp is done with chunk n - 1
     }
     if (n + 1 < n_chunks)
-      stage_keys<HD>(ks + (st ^ 1) * kKeys * HD, kbuf, keys, b, kv,
-                     k0 + kKeys, k_end);
+      stage_keys<HD, kKeys>(ks + (st ^ 1) * kKeys * HD, kbuf, keys, b, kv,
+                            k0 + kKeys, k_end);
     cp_async_commit();
 
     const int kw = k0 + kbase;                // the warp's first key
@@ -366,14 +411,19 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
       // S = Q Kᵀ: 16 rows x WK keys a warp
 #pragma unroll
       for (int kp = 0; kp < KSTEPS / 2; ++kp) {
+        if constexpr (!L::kQRegs) {
+          load_q(2 * kp, qf[0]);
+          load_q(2 * kp + 1, qf[1]);
+        }
+        const int qa = L::kQRegs ? 2 * kp : 0;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t kf[4];
           ldsm_x4(smem_u32(kst + swz<HD>(kbase + j * 8 + (lane & 7),
                                          4 * kp + (lane >> 3))),
                   kf);
-          mma(s[j], qf[2 * kp], kf[0], kf[1]);
-          mma(s[j], qf[2 * kp + 1], kf[2], kf[3]);
+          mma(s[j], qf[qa], kf[0], kf[1]);
+          mma(s[j], qf[qa + 1], kf[2], kf[3]);
         }
       }
 
@@ -430,8 +480,8 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
     cp_async_wait<1>();   // V of chunk n (chunk n + 1's K may be in flight)
     __syncthreads();      // and every warp is done with chunk n - 1's V
     if (n + 1 < n_chunks)
-      stage_keys<HD>(vs + (st ^ 1) * kKeys * HD, vbuf, keys, b, kv,
-                     k0 + kKeys, k_end);
+      stage_keys<HD, kKeys>(vs + (st ^ 1) * kKeys * HD, vbuf, keys, b, kv,
+                            k0 + kKeys, k_end);
     cp_async_commit();
 
     if (busy) {
@@ -582,7 +632,7 @@ cudaError_t launch_layout(const void* q, const void* k, const void* v,
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return attr;
-  constexpr int rows = Layout<NARROW>::kRows;
+  constexpr int rows = Layout<HD, NARROW>::kRows;
   const int tiles = (C * (H / KV) + rows - 1) / rows;
   float* pa = static_cast<float*>(pacc);
   float* pm = static_cast<float*>(pml);
@@ -638,10 +688,14 @@ extern "C" int rt_flash_decode_paged(const void* q, const void* kp,
     return f32::launch<64>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
   if (dtype == 0 && hd == 128)
     return f32::launch<128>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
+  if (dtype == 0 && hd == 256)
+    return f32::launch<256>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, kp, vp, keys, pos, 1, 0, out, part_acc, part_ml, B, C, H, KV, nb_seq * bs, window, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, kp, vp, keys, pos, 1, 0, out, part_acc, part_ml, B, C, H, KV, nb_seq * bs, window, scale, nsplit, s);
+  if (dtype == 1 && hd == 256)
+    return tc::launch<256>(q, kp, vp, keys, pos, 1, 0, out, part_acc, part_ml, B, C, H, KV, nb_seq * bs, window, scale, nsplit, s);
   return cudaErrorInvalidValue;
 }
 
@@ -662,10 +716,14 @@ extern "C" int rt_flash_decode(const void* q, const void* k, const void* v,
     return f32::launch_bhd<64>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
   if (dtype == 0 && hd == 128)
     return f32::launch_bhd<128>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
+  if (dtype == 0 && hd == 256)
+    return f32::launch_bhd<256>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
+  if (dtype == 1 && hd == 256)
+    return tc::launch<256>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
   return cudaErrorInvalidValue;
 }
 
@@ -686,9 +744,13 @@ extern "C" int rt_decode_view_attend(const void* q, const void* kview,
     return f32::launch_view<64>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 0 && hd == 128)
     return f32::launch_view<128>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 0 && hd == 256)
+    return f32::launch_view<256>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 1 && hd == 256)
+    return tc::launch<256>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
   return cudaErrorInvalidValue;
 }

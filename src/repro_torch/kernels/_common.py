@@ -13,6 +13,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ATTENTION_CTAS_PER_SM = 2
 KEY_CHUNK = 32
 TILE_ROWS = 8       # query rows (c, head) of one kv head per f32 CTA
+# head dims the attention kernels 1, 2, 6 and 7 are built for
+# (csrc/flash_decode.cu, csrc/flash_attention.cu)
+HEAD_DIMS = (64, 128, 256)
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -63,6 +66,12 @@ def split_scratch(rows: int, nsplit: int, hd: int, device):
     n = rows * nsplit if nsplit > 1 else 0
     return (torch.empty((n, hd), dtype=torch.float32, device=device),
             torch.empty((n, 2), dtype=torch.float32, device=device))
+
+
+def require_head_dim(name: str, hd: int) -> None:
+    """An attention kernel's head dim is one it is built for."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not built {HEAD_DIMS}")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

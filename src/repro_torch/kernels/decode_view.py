@@ -30,19 +30,19 @@ import torch
 
 from repro_torch.kernels import _build, flash_decode
 from repro_torch.kernels._common import (dtype_code, require_aligned,
-                                        require_cuda, sm_count,
-                                        split_scratch)
+                                        require_cuda, require_head_dim,
+                                        sm_count, split_scratch)
 
 NEG_INF = -1e30
 
 
 def launch_splits(b: int, h: int, kvh: int, s1: int, window: int = 0, *,
-                  dtype, sms: int):
+                  dtype, sms: int, hd: int = 128):
     """(tiles, nsplit) of a launch over ``b`` rows of views of ``s1``
     slots: kernel 1's plan for one query a row over the ``s1 - 1`` slots
     a live row can see (slot ``s1 - 1`` is the trash slot)."""
     return flash_decode.launch_splits(b, 1, h, kvh, s1 - 1, window,
-                                      dtype=dtype, sms=sms)
+                                      dtype=dtype, sms=sms, hd=hd)
 
 
 def decode_view_attend_plain(q, k_view, v_view, pos, *, window: int = 0):
@@ -84,16 +84,14 @@ def decode_view_attend(q, k_view, v_view, pos, *, window: int = 0):
         raise ValueError("decode_view_attend: inconsistent shapes "
                          f"q{tuple(q.shape)} view{tuple(k_view.shape)} "
                          f"pos{tuple(pos.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"decode_view_attend: head_dim {hd} not built "
-                         "(64, 128)")
+    require_head_dim("decode_view_attend", hd)
     if not (k_view.dtype == v_view.dtype == q.dtype):
         raise ValueError("decode_view_attend: q and views must share a dtype")
     if pos.dtype != torch.int32:
         raise ValueError("decode_view_attend: pos must be int32")
     out = torch.empty_like(q)
     _, nsplit = launch_splits(b, h, kvh, s1, window, dtype=q.dtype,
-                              sms=sm_count(q.device))
+                              sms=sm_count(q.device), hd=hd)
     part_acc, part_ml = split_scratch(b * h, nsplit, hd, q.device)
     lib = _build.library()
     rc = lib.rt_decode_view_attend(

@@ -11,22 +11,24 @@ heads over 2 kv heads, hd 128, causal, bf16) 26 MB of q/k/v/o against
 so bytes bind at the card's peaks.
 
 bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
-accumulate): a CTA of 4 warps owns 64 query rows of one (row, kv head)
-— all G query heads of ~64/G positions, 16 rows a warp — with its Q
+accumulate): a CTA of 4 warps owns 64 query rows of one (row, kv head) —
+all G query heads of ~64/G positions, 16 rows a warp — with its Q
 fragments in registers; K and V stream in 64-key chunks through a
 2-stage ``cp.async`` ring in swizzled shared memory read by
-``ldmatrix``; the online softmax runs in registers, and P feeds P·V
-from registers as two bf16 terms (hi + lo), which keeps P·V within one
-bf16 ulp of the f32 plain version.  float32 keeps a CUDA-core design
-(tensor cores would mean TF32): 8 warps of 8 rows, a lane a key, where
-the 67 TFLOP/s f32 rate binds.  Both read (B,S,H,hd) and (B,S,KV,hd) in
-place and mask the ragged tails (the TPU wrapper padded hd to 128 and S
-to the block and transposed); causal and window tiles outside a query
-tile's range are never read.  A query row that sees no key (window > 0
-and position >= Sk + window - 1) gets the reference's answer, the mean
-of v over all Sk keys, computed in f32 inside the same launch.  Forward
-only, as the reference: it has no backward, and its configs train
-through ``blocked``.
+``ldmatrix``; the online softmax runs in registers, and P feeds P·V from
+registers as two bf16 terms (hi + lo), which keeps P·V within one bf16
+ulp of the f32 plain version. At hd 256 the Q fragments are read from
+shared memory at each k-step and K/V stream in 32-key chunks (O alone
+takes 128 registers a thread; two CTAs still share an SM). float32 keeps
+a CUDA-core design (tensor cores would mean TF32): 8 warps of 8 rows, a
+lane a key, where the 67 TFLOP/s f32 rate binds. Both read (B,S,H,hd)
+and (B,S,KV,hd) in place and mask the ragged tails (the TPU wrapper
+padded hd to 128 and S to the block and transposed); causal and window
+tiles outside a query tile's range are never read. A query row that sees
+no key (window > 0 and position >= Sk + window - 1) gets the reference's
+answer, the mean of v over all Sk keys, computed in f32 inside the same
+launch. Forward only, as the reference: it has no backward, and its
+configs train through ``blocked``.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (dtype_code, require_aligned,
-                                        require_cuda)
+                                        require_cuda, require_head_dim)
 
 NEG_INF = -1e30
 
@@ -74,7 +76,7 @@ def flash_attention_bhsd_plain(q, k, v, *, causal: bool = True,
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B,Sq,H,hd); k, v (B,Sk,KV,hd) -> (B,Sq,H,hd), as
     ``ops.flash_attention``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (head dims 64 and 128, float32 and
+    tensors launch the kernel (head dims 64, 128 and 256, float32 and
     bfloat16).  Forward only: raises when autograd would need a
     gradient through it."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -95,9 +97,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention: inconsistent shapes "
                          f"q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"flash_attention: head_dim {hd} not built "
-                         "(64, 128)")
+    require_head_dim("flash_attention", hd)
     if not (k.dtype == v.dtype == q.dtype):
         raise ValueError("flash_attention: q, k and v must share a dtype")
     if window < 0:

@@ -26,7 +26,11 @@ bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
 accumulate), the query rows as the MMA's rows, K/V in 64-key bf16 chunks
 through a 2-stage ``cp.async`` ring in swizzled shared memory, Q in
 registers (``ldmatrix``), P·V with P as bf16 hi + lo (one-ulp
-tolerance), softmax in f32.  Two layouts, chosen from C*G alone:
+tolerance), softmax in f32.  At head dim 256 O alone fills 128 f32
+registers a thread: Q's fragments are read from shared memory at each
+k-step instead, and the wide layout stages 32-key chunks so that two
+CTAs still share an SM (``chunk_keys``).  Two layouts, chosen from C*G
+alone:
 
 - wide (C*G > 16, the prefill chunk): 64 rows a CTA, 16 a warp, every
   warp over the whole chunk.  What bounded the CUDA-core kernel there
@@ -66,23 +70,29 @@ import torch
 
 from repro_torch.kernels import _build, _common
 from repro_torch.kernels._common import (dtype_code, require_aligned,
-                                        require_cuda, sm_count,
-                                        split_scratch)
+                                        require_cuda, require_head_dim,
+                                        sm_count, split_scratch)
 
 NEG_INF = -1e30
 # the bf16 template: query rows (c, head) of one kv head a CTA in each
-# layout (narrow when they all fit one 16-row MMA tile), and keys a
-# staged chunk
+# layout (narrow when they all fit one 16-row MMA tile)
 NARROW_ROWS = 16
 WIDE_ROWS = 64
-TC_KEYS = 64
-# chunks a split of the wide bf16 layout keeps at most: each chunk is 64
+# keys a split of the wide bf16 layout keeps at most: each chunk is 64
 # rows' products, and a split's chunks run in order in one CTA
-WIDE_SPLIT_CHUNKS = 2
+WIDE_SPLIT_KEYS = 128
+
+
+def chunk_keys(hd: int, narrow: bool) -> int:
+    """Keys a staged chunk of the bf16 template (its ``Layout::kKeys``):
+    64, or 32 in the wide layout at hd 256, where 64-key stages would
+    leave one CTA an SM (the narrow layout keeps 64: 16 keys a warp)."""
+    return 32 if hd > 128 and not narrow else 64
+
 
 
 def launch_splits(b: int, c: int, h: int, kvh: int, keys: int,
-                  window: int = 0, *, dtype, sms: int):
+                  window: int = 0, *, dtype, sms: int, hd: int = 128):
     """(tiles, nsplit) of a launch over ``b`` rows of ``c`` queries of
     ``h`` heads (``kvh`` kv heads), ``keys`` addressable key positions
     a row (table or cache length), for the template ``dtype`` selects,
@@ -90,21 +100,24 @@ def launch_splits(b: int, c: int, h: int, kvh: int, keys: int,
     head), each split over ``nsplit`` key ranges (1 takes the direct
     epilogue).  Static shapes only, so choosing needs no device value.
 
-    bfloat16: the splits that cut the chunks a tile can see (at most
-    ``keys``, or the window plus the chunk) into equal runs, about one
-    CTA an SM (one chunk a split at the decode buckets, none where the
-    rows alone fill the card), at most ``WIDE_SPLIT_CHUNKS`` chunks a
-    split in the wide layout.  float32: ``_common.launch_splits``."""
+    bfloat16: the splits that cut the ``chunk_keys``-key chunks a tile
+    can see (at most ``keys``, or the window plus the chunk) into equal
+    runs, about one CTA an SM (one chunk a split at the decode buckets,
+    none where the rows alone fill the card), at most
+    ``WIDE_SPLIT_KEYS`` keys a split in the wide layout.  float32:
+    ``_common.launch_splits`` (no head dim in its plan)."""
     rows = c * (h // kvh)
     if dtype == torch.float32:
         tiles = -(-rows // _common.TILE_ROWS)
         return tiles, _common.launch_splits(b, c, h, kvh, keys, window,
                                             sms=sms)
-    tiles = 1 if rows <= NARROW_ROWS else -(-rows // WIDE_ROWS)
-    chunks = -(-min(keys, (window or keys) + c) // TC_KEYS)
+    narrow = rows <= NARROW_ROWS
+    tiles = 1 if narrow else -(-rows // WIDE_ROWS)
+    ck = chunk_keys(hd, narrow)
+    chunks = -(-min(keys, (window or keys) + c) // ck)
     per = max(1, chunks * b * kvh * tiles // sms)   # chunks a split
-    if rows > NARROW_ROWS:
-        per = min(per, WIDE_SPLIT_CHUNKS)
+    if not narrow:
+        per = min(per, WIDE_SPLIT_KEYS // ck)
     return tiles, -(-chunks // per)
 
 
@@ -157,9 +170,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, pos, *,
                          f"q{tuple(q.shape)} pool{tuple(k_pool.shape)} "
                          f"tables{tuple(block_tables.shape)} "
                          f"pos{tuple(pos.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"flash_decode_paged: head_dim {hd} not built "
-                         "(64, 128)")
+    require_head_dim("flash_decode_paged", hd)
     if not (k_pool.dtype == v_pool.dtype == q.dtype):
         raise ValueError("flash_decode_paged: q and pools must share a dtype")
     if block_tables.dtype != torch.int32 or pos.dtype != torch.int32:
@@ -168,7 +179,7 @@ def flash_decode_paged(q, k_pool, v_pool, block_tables, pos, *,
     out = torch.empty_like(q)
     nb_seq = block_tables.shape[1]
     _, nsplit = launch_splits(b, c, h, kvh, nb_seq * bs, window,
-                              dtype=q.dtype, sms=sm_count(q.device))
+                              dtype=q.dtype, sms=sm_count(q.device), hd=hd)
     part_acc, part_ml = split_scratch(b * c * h, nsplit, hd, q.device)
     lib = _build.library()
     rc = lib.rt_flash_decode_paged(
@@ -222,15 +233,14 @@ def flash_decode(q, k, v, length):
         raise ValueError("flash_decode: inconsistent shapes "
                          f"q{tuple(q.shape)} cache{tuple(k.shape)} "
                          f"length{tuple(length.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"flash_decode: head_dim {hd} not built (64, 128)")
+    require_head_dim("flash_decode", hd)
     if not (k.dtype == v.dtype == q.dtype):
         raise ValueError("flash_decode: q and caches must share a dtype")
     if length.dtype != torch.int32:
         raise ValueError("flash_decode: length must be int32")
     out = torch.empty_like(q)
     _, nsplit = launch_splits(b, 1, h, kvh, s, dtype=q.dtype,
-                              sms=sm_count(q.device))
+                              sms=sm_count(q.device), hd=hd)
     part_acc, part_ml = split_scratch(b * h, nsplit, hd, q.device)
     rc = _build.library().rt_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),

@@ -1,4 +1,4 @@
-"""Shared building blocks: inits, rmsnorm, the swiglu MLP, rotary
+"""Shared building blocks: inits, rmsnorm, the swiglu and gelu MLPs, rotary
 embeddings, the depthwise causal conv with its slot-state helpers, and
 the cross-entropy loss (``repro/models/layers.py``)."""
 from __future__ import annotations
@@ -43,12 +43,14 @@ def apply_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def apply_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """swiglu when the params hold a gate, else gelu in its tanh form
+    (``jax.nn.gelu``'s default, which the reference calls)."""
     if "w_gate" in params:
         g = x @ params["w_gate"].to(x.dtype)
         u = x @ params["w_up"].to(x.dtype)
         h = F.silu(g) * u
     else:
-        h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="none")
+        h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="tanh")
     return h @ params["w_down"].to(x.dtype)
 
 

@@ -1,7 +1,7 @@
-"""Model interface of the port for the dense, ssm and MLA + MoE families
-and ResNet (``repro/models/model.py``): ``build_model(cfg)`` returns a
-``Model`` whose members are plain functions over a nested dict of
-tensors.  ResNet trains only: its serving members are None, as the
+"""Model interface of the port for the dense, ssm, MLA + MoE and RG-LRU
+hybrid families and ResNet (``repro/models/model.py``):
+``build_model(cfg)`` returns a ``Model`` whose members are plain
+functions over a nested dict of tensors.  ResNet trains only: its serving members are None, as the
 reference's are.
 
   init(seed, device)                        -> params
@@ -34,11 +34,13 @@ class PagedSpec:
     family keeps per-token K/V block pools and no recurrent state, the
     MLA family per-token latent block pools (they page alike); the ssm
     family keeps one recurrent-state slot per sequence and no block
-    pools (the engine still meters its tokens in host-side blocks).
+    pools (the engine still meters its tokens in host-side blocks); the
+    RG-LRU hybrid keeps both, block pools for its local-attention layers
+    and state slots for its recurrent ones.
 
       reclaim_window  positions after which a block is dead for every
-                      layer (the sliding window, when every layer has
-                      one), else 0
+                      block-pooled layer (the largest window, when every
+                      such layer has one), else 0
       kernel_spec     which of the port's kernel wrappers serve each
                       layer kind's hot path: (kind, "view_op/paged_op")
                       pairs, named as in ``repro_torch.kernels``
@@ -80,10 +82,37 @@ def seeded_init(seed: int, device, *, cfg, init_params=transformer.init_params,
 
 
 def _loss_not_ported(params, batch, *, cfg):
+    if cfg.rglru is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training the RG-LRU hybrid needs the scan's "
+            "backward under the reference's loss; queued in ROADMAP.md §1")
     raise NotImplementedError(
         f"{cfg.name}: training the MoE / multi-token-prediction family "
         "needs the MoE aux loss and the MTP term of the reference's loss; "
         "queued in ROADMAP.md ('Next')")
+
+
+def paged_spec(cfg: ModelConfig) -> PagedSpec:
+    """The reference's rule: block pools for any (local) attention layer,
+    state slots for any ssm / rglru layer, and the reclaim window the
+    largest window when every block-pooled layer has one."""
+    transformer.runs_of(cfg)                       # raises if not ported
+    kinds = cfg.layer_kinds()
+    windows = [transformer._layer_window(cfg, k) for k in kinds
+               if k in transformer._ATTN_KINDS]
+    kspec = {"sampling": "greedy_sample/gumbel_sample"}
+    for k in set(kinds):
+        if k in transformer._ATTN_KINDS:
+            kspec[k] = ("mla_decode_views/mla_decode_paged" if cfg.mla
+                        else "decode_view_attend/flash_decode_paged")
+        else:
+            kspec[k] = "slot_gather/slot_scatter"
+    return PagedSpec(
+        has_blocks=bool(windows),
+        has_state=any(k in ("ssm", "rglru") for k in kinds),
+        reclaim_window=(max(windows)
+                        if windows and all(w > 0 for w in windows) else 0),
+        kernel_spec=tuple(sorted(kspec.items())))
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -92,17 +121,7 @@ def build_model(cfg: ModelConfig) -> Model:
                      init=functools.partial(seeded_init, cfg=cfg,
                                             init_params=resnet.init_params),
                      loss=functools.partial(resnet.loss, cfg=cfg))
-    kinds = {k for k, _, _ in transformer.runs_of(cfg)}   # raises if not
-    kspec = {"sampling": "greedy_sample/gumbel_sample"}    # ported
-    if "attn" in kinds:
-        kspec["attn"] = ("mla_decode_views/mla_decode_paged" if cfg.mla
-                         else "decode_view_attend/flash_decode_paged")
-    if "ssm" in kinds:
-        kspec["ssm"] = "slot_gather/slot_scatter"
-    spec = PagedSpec(
-        has_blocks="attn" in kinds, has_state="ssm" in kinds,
-        reclaim_window=cfg.sliding_window if "attn" in kinds else 0,
-        kernel_spec=tuple(sorted(kspec.items())))
+    spec = paged_spec(cfg)
     return Model(
         cfg=cfg,
         init=functools.partial(seeded_init, cfg=cfg),
@@ -116,5 +135,6 @@ def build_model(cfg: ModelConfig) -> Model:
                                             cfg=cfg),
         paged_spec=spec,
         loss=functools.partial(
-            _loss_not_ported if cfg.moe is not None or cfg.mtp_depth
+            _loss_not_ported if (cfg.moe is not None or cfg.mtp_depth
+                                 or cfg.rglru is not None)
             else transformer.lm_loss, cfg=cfg))

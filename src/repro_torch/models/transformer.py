@@ -1,6 +1,7 @@
 """Decoder-only stacks of the port (``repro/models/transformer.py``): the
-dense GQA family, the Mamba-2 (ssm) family and the MLA + MoE family
-(deepseek-v3).  Params, forward in four cache modes, the non-paged
+dense GQA family, the Mamba-2 (ssm) family, the MLA + MoE family
+(deepseek-v3) and the Griffin hybrid (recurrentgemma: RG-LRU blocks and
+local-window MQA).  Params, forward in four cache modes, the non-paged
 ``prefill`` / ``decode_step`` entry point over contiguous caches, the
 fused serving step, the N-step on-device decode loop and the
 language-model loss.
@@ -14,15 +15,17 @@ reference's ``lax.scan``).
 The contiguous cache (``init_cache``, ``prefill``) holds, per run, K/V
 ``{"k", "v"}`` of (L, B, Sc, KV, hd), MLA latents ``{"ckv", "krope"}``
 of (L, B, Sc, r) / (L, B, Sc, rope), or mamba state ``{"conv",
-"state"}`` of (L, B, ...), and ``decode_step`` updates it in place.
-The paged cache holds, per run, K/V block pools ``{"k", "v"}`` of (L,
-nb, bs, KV, hd) for attention, latent block pools ``{"ckv", "krope"}``
-of (L, nb, bs, r) / (L, nb, bs, rope) for MLA, or slot-state pools
-``{"conv", "state"}`` of (L, S, ...) for ssm layers, and is updated in
-place.  Block tables are passed to each call directly: the reference
-broadcasts them into the cache pytree (``with_block_tables``/
-``_canonical_block_tables``) only to keep its jit signatures stable,
-which eager PyTorch does not need, and slot-state runs carry none.
+"state"}`` or RG-LRU state ``{"conv", "h"}`` of (L, B, ...), and
+``decode_step`` updates it in place.  The paged cache holds, per run,
+K/V block pools ``{"k", "v"}`` of (L, nb, bs, KV, hd) for attention
+(global or local), latent block pools ``{"ckv", "krope"}`` of (L, nb,
+bs, r) / (L, nb, bs, rope) for MLA, or slot-state pools ``{"conv",
+"state"}`` / ``{"conv", "h"}`` of (L, S, ...) for ssm / rglru layers,
+and is updated in place.  Block tables are passed to each call
+directly: the reference broadcasts them into the cache pytree
+(``with_block_tables``/ ``_canonical_block_tables``) only to keep its
+jit signatures stable, which eager PyTorch does not need, and
+slot-state runs carry none.
 """
 from __future__ import annotations
 
@@ -37,14 +40,18 @@ from repro_torch.kernels.slot_state import slot_gather, slot_scatter
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_init)
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
-# dense MLP, MLA with an MoE FFN, and mamba layers
-_PORTED_RUNS = {("attn", "dense"), ("attn", "moe"), ("ssm", "none")}
+# dense MLP, MLA with an MoE FFN, mamba layers, and the hybrid's RG-LRU
+# and local-attention layers with a dense MLP
+_PORTED_RUNS = {("attn", "dense"), ("attn", "moe"), ("ssm", "none"),
+                ("rglru", "dense"), ("local_attn", "dense")}
+_ATTN_KINDS = ("attn", "local_attn")
 
 
 def runs_of(cfg) -> List[Tuple[str, str, int]]:
@@ -63,13 +70,21 @@ def runs_of(cfg) -> List[Tuple[str, str, int]]:
     runs = [tuple(r) for r in out]
     if (any((k, f) not in _PORTED_RUNS for k, f, _ in runs)
             or (cfg.mla is None and any(f == "moe" for _, f, _ in runs))
-            or (cfg.activation != "swiglu"
+            or (cfg.activation not in ("swiglu", "gelu")
                 and any(f != "none" for _, f, _ in runs))):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA, the mamba (ssm) "
-            "and the MLA + MoE families only; the other families are "
-            "queued in ROADMAP.md §1")
+            f"{cfg.name}: the port serves the dense GQA, the mamba (ssm), "
+            "the MLA + MoE and the RG-LRU hybrid families only; the other "
+            "families are queued in ROADMAP.md §1")
     return runs
+
+
+def _layer_window(cfg, kind: str) -> int:
+    """The attention window of a layer kind: the hybrid's local window for
+    ``local_attn``, else the config's sliding window (0: none)."""
+    if kind == "local_attn":
+        return cfg.rglru.local_window if cfg.rglru else cfg.sliding_window
+    return cfg.sliding_window
 
 
 # ---------------------------------------------------------------------------
@@ -82,10 +97,20 @@ def _stack(per_layer):
                     *per_layer[1:])
 
 
-def _init_attn_run(cfg, generator, device, n, ffn="dense"):
-    """n attention layers (GQA, or MLA when the config has it) with a
-    dense MLP or an MoE FFN, stacked."""
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+def _init_mlp(cfg, stacked):
+    """A dense MLP of ``stacked`` leaves: swiglu (gate, up, down) or gelu
+    (up, down), as ``cfg.activation`` says."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.activation == "swiglu":
+        return {"w_gate": stacked((d, f)), "w_up": stacked((d, f)),
+                "w_down": stacked((f, d))}
+    return {"w_up": stacked((d, f)), "w_down": stacked((f, d))}
+
+
+def _init_attn_run(cfg, generator, device, n, ffn="dense", kind="attn"):
+    """n attention layers (GQA, or MLA when the config has it and the
+    layers are global) with a dense MLP or an MoE FFN, stacked."""
+    d, hd = cfg.d_model, cfg.head_dim
     h, kv, pd = cfg.num_heads, cfg.num_kv_heads, cfg.pdtype
 
     def stacked(shape, **kw):
@@ -95,7 +120,7 @@ def _init_attn_run(cfg, generator, device, n, ffn="dense"):
     def const(shape, value):
         return torch.full((n,) + shape, value, dtype=pd, device=device)
 
-    if cfg.mla is not None:
+    if cfg.mla is not None and kind == "attn":
         attn = _stack([mla_mod.init_mla(generator, cfg, device)
                        for _ in range(n)])
     else:
@@ -109,8 +134,7 @@ def _init_attn_run(cfg, generator, device, n, ffn="dense"):
     if ffn == "moe":
         out["moe"] = moe_mod.init_moe(generator, cfg, device, n)
     else:
-        out["mlp"] = {"w_gate": stacked((d, f)), "w_up": stacked((d, f)),
-                      "w_down": stacked((f, d))}
+        out["mlp"] = _init_mlp(cfg, stacked)
     return out
 
 
@@ -124,14 +148,31 @@ def _init_ssm_run(cfg, generator, device, n):
                    for _ in range(n)])
 
 
+def _init_rglru_run(cfg, generator, device, n):
+    """n RG-LRU layers with a dense MLP, each drawn whole, stacked."""
+    def layer():
+        def one(shape):
+            return dense_init(generator, shape, cfg.pdtype, device)
+        ones = {"scale": torch.ones((cfg.d_model,), dtype=cfg.pdtype,
+                                    device=device)}
+        return {"ln1": ones, "rglru": rglru_mod.init_rglru(generator, cfg,
+                                                         device),
+                "ln2": dict(ones), "mlp": _init_mlp(cfg, one)}
+    return _stack([layer() for _ in range(n)])
+
+
 def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random params from ``generator`` (same shapes, inits and nesting as
     the reference; the numbers differ — torch and jax draw differently)."""
     layers = {}
     for i, (kind, ffn, n) in enumerate(runs_of(cfg)):
-        layers[f"run_{i}"] = (
-            _init_attn_run(cfg, generator, device, n, ffn) if kind == "attn"
-            else _init_ssm_run(cfg, generator, device, n))
+        if kind in _ATTN_KINDS:
+            run = _init_attn_run(cfg, generator, device, n, ffn, kind)
+        elif kind == "rglru":
+            run = _init_rglru_run(cfg, generator, device, n)
+        else:
+            run = _init_ssm_run(cfg, generator, device, n)
+        layers[f"run_{i}"] = run
     d, pd = cfg.d_model, cfg.pdtype
     params: Dict[str, Any] = {
         "embed": {"embedding": embed_init(generator, (cfg.vocab_size, d), pd,
@@ -191,8 +232,9 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
                 cache=None, block_tables=None, pos=None, valid_len=None,
                 state_slots=None, dropless=False, make_cache=False,
                 cache_len=0):
-    """One layer: the mixer (GQA or MLA attention, or mamba) and the FFN
-    (dense MLP or MoE), each pre-normed and residual.  Returns (h, the
+    """One layer: the mixer (GQA or MLA attention, global or local, mamba
+    or RG-LRU) and the FFN (dense MLP or MoE), each pre-normed and
+    residual.  Returns (h, the
     layer's cache): the given cache, updated in place, or with
     ``make_cache`` a fresh contiguous one of ``cache_len`` slots (the
     window's at most).  The MoE runs dropless whenever there is a cache
@@ -204,12 +246,17 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
                                  cache=cache, block_tables=block_tables,
                                  pos=pos, make_cache=make_cache,
                                  cache_len=cache_len)
-    elif kind == "attn":
+    elif kind in _ATTN_KINDS:
         y, c = attn_mod.apply_attention(
             lp["attn"], x, cfg, rope=rope, write=write,
-            window=cfg.sliding_window, cache=cache,
+            window=_layer_window(cfg, kind), cache=cache,
             block_tables=block_tables, pos=pos, make_cache=make_cache,
             cache_len=cache_len)
+    elif kind == "rglru":
+        y, c = rglru_mod.apply_rglru(lp["rglru"], x, cfg, cache=cache,
+                                     make_cache=make_cache, pos=pos,
+                                     valid_len=valid_len,
+                                     state_slots=state_slots)
     else:
         y, c = ssm_mod.apply_ssm(lp["ssm"], x, cfg, cache=cache,
                                  make_cache=make_cache, pos=pos,
@@ -248,12 +295,16 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
     h = embed_tokens(params, tokens, cfg)
     if pos is not None:
         pos = torch.as_tensor(pos, device=h.device)
-    rope = write = None
+    rope = write = window = None
     new_cache = {} if make_cache else cache
     for ri, (kind, ffn, n) in enumerate(runs_of(cfg)):
         rp = params["layers"][f"run_{ri}"]
         rc = cache[f"run_{ri}"] if cache is not None else None
-        if kind == "attn" and rope is None:
+        # one rope table and write target for every attention run of a
+        # window (a contiguous cache's length, so its ring slot, follows
+        # the window)
+        if kind in _ATTN_KINDS and window != _layer_window(cfg, kind):
+            window = _layer_window(cfg, kind)
             rope, write = attn_mod.shared_inputs(
                 cfg, tokens.shape[1], h.device,
                 cache=_layer(rc, 0) if rc else None,
@@ -290,21 +341,24 @@ def init_layer_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
                      device):
     """One layer's zero contiguous cache (the reference's
     ``init_layer_cache``): K/V of (batch, Sc, KV, hd), Sc = cache_len cut
-    to the window; MLA latents of (batch, cache_len, r) and (...,
+    to the layer's window; MLA latents of (batch, cache_len, r) and (...,
     rope); mamba's conv window and float32 SSD state
-    (``ssm.init_ssm_cache``)."""
+    (``ssm.init_ssm_cache``); the RG-LRU's conv window and hidden state
+    (``rglru.init_rglru_cache``)."""
     if kind == "attn" and cfg.mla is not None:
         a = cfg.mla
         return {name: torch.zeros((batch, cache_len, width), dtype=dtype,
                                   device=device)
                 for name, width in (("ckv", a.kv_lora_rank),
                                     ("krope", a.qk_rope_head_dim))}
-    if kind == "attn":
-        window = cfg.sliding_window
+    if kind in _ATTN_KINDS:
+        window = _layer_window(cfg, kind)
         sc = min(cache_len, window) if window else cache_len
         shape = (batch, sc, cfg.num_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rglru":
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
     return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
 
 
@@ -387,7 +441,8 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
                      device=None) -> Dict[str, Any]:
     """Paged per-layer decode state, by run kind:
 
-      attn  K/V block pools (L, num_blocks, block_size, KV, hd), or with
+      attn, local_attn
+            K/V block pools (L, num_blocks, block_size, KV, hd), or with
             MLA latent block pools ``ckv`` (L, num_blocks, block_size,
             kv_lora_rank) and ``krope`` (..., qk_rope_head_dim); physical
             block 0 is the trash block inactive rows write to
@@ -395,6 +450,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
             (L, S, K-1, convdim) and the SSD state (L, S, H, P, N), the
             latter in float32 (``ssm.init_ssm_cache``); slot 0 is the
             trash slot
+      rglru slot-state pools as for ssm: the conv window (L, S, K-1, W)
+            and the hidden state (L, S, W), the latter in float32
+            (``rglru.init_rglru_cache``)
     """
     dtype = dtype or cfg.cdtype
     out = {}
@@ -407,7 +465,7 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
                 for name, width in (("ckv", a.kv_lora_rank),
                                     ("krope", a.qk_rope_head_dim))}
             continue
-        if kind == "attn":
+        if kind in _ATTN_KINDS:
             shape = (n, num_blocks, block_size, cfg.num_kv_heads,
                      cfg.head_dim)
             out[f"run_{i}"] = {
@@ -417,7 +475,9 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
         if num_state_slots < 2:
             raise ValueError("slot-state runs need num_state_slots >= 2 "
                              "(slot 0 is the trash slot)")
-        single = ssm_mod.init_ssm_cache(cfg, num_state_slots, dtype, "meta")
+        init_state = (rglru_mod.init_rglru_cache if kind == "rglru"
+                      else ssm_mod.init_ssm_cache)
+        single = init_state(cfg, num_state_slots, dtype, "meta")
         out[f"run_{i}"] = {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
                                           device=device)
                            for k, v in single.items()}
@@ -448,7 +508,8 @@ def paged_step(params, cache, slot_buf, tokens, block_tables, meta, cfg, *,
     tokens (B,C) int32; block_tables (B,NB) int32; meta (6,B) int32 rows
     pos / valid_len / src_slot / dst_slot / state_slot / rid (see the
     reference's ``paged_step``; state_slot indexes the slot-state pools
-    of ssm runs, 0 the trash slot, and is unused by attention runs; rid
+    of ssm / rglru runs, 0 the trash slot, and is unused by attention
+    runs; rid
     keys the draw at temperature > 0); slot_buf (S+1,) int32, the
     last sampled token per slot (slot S is the spare that rows with
     dst_slot < 0 write).

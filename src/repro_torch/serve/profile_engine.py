@@ -1,7 +1,7 @@
 """Where a serving step's time goes on the card: serves a fixed workload
-through a full-width model (qwen2-1.5b, or ``--arch mamba2-370m`` or
-``deepseek-v3-671b``, the latter cut to its first 4 layers to fit one
-card; random bf16 weights from a seed) at
+through a full-width model (qwen2-1.5b, or ``--arch mamba2-370m``,
+``recurrentgemma-2b`` or ``deepseek-v3-671b``, the latter cut to its
+first 4 layers to fit one card; random bf16 weights from a seed) at
 steps_per_dispatch 1 and 8 under ``torch.profiler`` (device activity
 only: recording every host operator slows the run about fourfold), and
 prints, per depth, the wall time, the device's busy share (summed
@@ -135,7 +135,7 @@ def main() -> int:
                     help="directory for the Chrome traces")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    choices=("qwen2-1.5b", "mamba2-370m",
+                    choices=("qwen2-1.5b", "mamba2-370m", "recurrentgemma-2b",
                              "deepseek-v3-671b"))
     args = ap.parse_args()
     if not torch.cuda.is_available():

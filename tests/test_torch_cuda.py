@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, over
-the shapes the CPU tests sweep (head dims 64/128, GQA groups 1/2/6,
+the shapes the CPU tests sweep (head dims 64/128/256, GQA groups
+1/2/6/10,
 windows, chunks of queries, float32 and bfloat16, trash and frontier
 garbage).  They need a CUDA card and skip elsewhere; on the card
 (``--noconftest``: the suite's conftest imports jax, which the card's
@@ -72,6 +73,16 @@ PAGED = [
     (40, 16, 1, 8, 64, 3, 3, 9, 25),
     (81, 16, 2, 6, 128, 2, 128, 40, 300),
     (120, 16, 2, 6, 128, 3, 1, 36, 300),
+    # hd 256 at recurrentgemma's MQA (G = 10 over one kv head): the decode
+    # bucket over 160-block tables with the 2048 window masking keys, the
+    # 2 x 128 prefill chunk (wide, 32-key chunks), a mixed step of 136
+    # rows (unsplit), a ragged wide tile under a short window, and G = 1
+    # wide
+    (1281, 16, 1, 10, 256, 8, 1, 160, 2048),
+    (321, 16, 1, 10, 256, 2, 128, 160, 2048),
+    (1361, 16, 1, 10, 256, 136, 1, 10, 2048),
+    (121, 16, 1, 10, 256, 3, 37, 40, 100),
+    (41, 16, 1, 1, 256, 2, 40, 20, 0),
 ]
 
 
@@ -102,7 +113,7 @@ def test_flash_decode_paged_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
 
 
-@pytest.mark.parametrize("case", [PAGED[5], PAGED[9]])
+@pytest.mark.parametrize("case", [PAGED[5], PAGED[9], PAGED[13], PAGED[14]])
 def test_flash_decode_bf16_split_launches_repeat_bit_for_bit(dev, case):
     """The split partials are merged in split order, never in arrival
     order, so two launches of a split bf16 case (wide: the prefill
@@ -111,7 +122,7 @@ def test_flash_decode_bf16_split_launches_repeat_bit_for_bit(dev, case):
     _, bs, kv, g, hd, b, c, nb_seq, window = case
     _, nsplit = flash_decode.launch_splits(
         b, c, kv * g, kv, nb_seq * bs, window, dtype=torch.bfloat16,
-        sms=sm_count(dev))
+        sms=sm_count(dev), hd=hd)
     assert nsplit > 1
     q, kp, vp, bt, pos = _paged_inputs(dev, case, torch.bfloat16)
     first = flash_decode.flash_decode_paged(q, kp, vp, bt, pos, window=window)
@@ -124,7 +135,7 @@ def test_flash_decode_bf16_split_launches_repeat_bit_for_bit(dev, case):
     qd = q[:, 0].contiguous()
     assert flash_decode.launch_splits(b, 1, kv * g, kv, s,
                                       dtype=torch.bfloat16,
-                                      sms=sm_count(dev))[1] > 1
+                                      sms=sm_count(dev), hd=hd)[1] > 1
     assert torch.equal(flash_decode.flash_decode(qd, kc, vc, ln),
                        flash_decode.flash_decode(qd, kc, vc, ln))
 
@@ -134,7 +145,11 @@ def test_flash_decode_bf16_split_launches_repeat_bit_for_bit(dev, case):
 # a chunk edge) and G = 8 at hd 64 with a window
 VIEW = [(3, 41, 2, 3, 64, 0), (2, 129, 1, 6, 128, 0), (2, 65, 2, 2, 128, 20),
         (4, 33, 2, 1, 64, 7), (3, 641, 2, 6, 128, 300),
-        (2, 300, 1, 8, 64, 45)]
+        (2, 300, 1, 8, 64, 45),
+        # hd 256, G = 10: views of 2561 slots past the 2048 window, and
+        # shorter ones with and without a window
+        (8, 2561, 1, 10, 256, 2048), (2, 300, 1, 10, 256, 0),
+        (3, 641, 1, 10, 256, 100)]
 
 
 @pytest.mark.parametrize("case", VIEW)
@@ -1055,6 +1070,13 @@ FLASH = [
     (3, 131, 131, 6, 1, 64, True, 0),
     (2, 65, 193, 4, 4, 128, False, 0),
     (2, 193, 193, 1, 1, 128, True, 70),
+    # hd 256 (32-key chunks in bf16, 32-row tiles in f32): recurrentgemma's
+    # static prefill at S = 2304 past its 2048 window, G = 10 causal, rows
+    # without a key, non-causal Sq != Sk
+    (1, 2304, 2304, 10, 1, 256, True, 2048),
+    (2, 300, 300, 10, 1, 256, True, 0),
+    (2, 150, 100, 10, 1, 256, True, 20),
+    (1, 65, 193, 4, 2, 256, False, 0),
 ]
 
 
@@ -1107,6 +1129,12 @@ DECODE = [
     (8, 627, 12, 2, 128, 700),          # a full ring: every slot valid
     (8, 128, 12, 2, 128, 100),
     (160, 256, 12, 2, 128, 200),
+    # hd 256, G = 10: a 2048-slot ring at length 1, full and wrapped
+    # (every slot valid), and many rows over a short cache (unsplit)
+    (8, 2048, 10, 1, 256, 1),
+    (8, 2048, 10, 1, 256, 2048),
+    (8, 2048, 10, 1, 256, 3000),
+    (160, 256, 10, 1, 256, 200),
 ]
 
 
@@ -1127,11 +1155,13 @@ def test_flash_decode_kernel_matches_plain(dev, case, dt):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_flash_decode_cases_reach_both_epilogues(dev, dt):
-    def split(*args):
-        return flash_decode.launch_splits(*args, dtype=dt,
-                                          sms=sm_count(dev))[1] > 1
-    assert {split(b, 1, h, kv, s) for b, s, h, kv, _, _ in DECODE} == {
-        False, True}
-    assert {split(b, c, kv * g, kv, nb_seq * bs, window)
-            for _, bs, kv, g, _, b, c, nb_seq, window in PAGED} == {
-        False, True}
+    def split(*args, hd):
+        return flash_decode.launch_splits(*args, dtype=dt, sms=sm_count(dev),
+                                          hd=hd)[1] > 1
+    for dims in ((64, 128), (256,)):
+        assert {split(b, 1, h, kv, s, hd=hd)
+                for b, s, h, kv, hd, _ in DECODE if hd in dims} == {
+            False, True}
+        assert {split(b, c, kv * g, kv, nb_seq * bs, window, hd=hd)
+                for _, bs, kv, g, hd, b, c, nb_seq, window in PAGED
+                if hd in dims} == {False, True}

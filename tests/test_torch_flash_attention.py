@@ -3,7 +3,8 @@ package on the CPU: the plain versions of kernel 6 (flash attention) and
 kernel 7 (one-token decode over a contiguous cache) against
 ``repro.kernels.ref`` at every shape of ``tests/test_kernels.py``'s
 sweeps and against the Pallas kernels (interpret mode, through ``ops``),
-and at shapes with query rows that see no key, which get ``ref.py``'s
+at head dim 256 (recurrentgemma's), and at shapes with query rows that
+see no key, which get ``ref.py``'s
 mean of v (the Pallas path's padded keys shift that mean where Sk is
 not a multiple of 128: a deliberate deviation, pinned here);
 ``blocked_attention`` and ``decode_attention`` against the reference's;
@@ -61,6 +62,21 @@ NO_KEY_SHAPES = [
     (2, 100, 70, 2, 1, 32, False, 8),
     (1, 300, 256, 6, 1, 64, True, 40),
 ]
+# head dim 256 (recurrentgemma's local MQA: 10 heads over one kv head,
+# a window): beyond test_kernels.py's sweeps, the ports' kernels 6 and 7
+# take it since its hd-256 templates
+HD256_SHAPES = [
+    # b, sq, sk, h, kv, hd, causal, window
+    (1, 160, 160, 10, 1, 256, True, 64),
+    (2, 96, 96, 4, 2, 256, True, 0),
+]
+HD256_DECODE = [
+    # b, s, h, kv, hd, length (past s: a full ring; s a multiple of the
+    # Pallas path's 512-slot block, which would otherwise pad the ring
+    # with zero keys that a length past s makes visible)
+    (2, 256, 10, 1, 256, 200),
+    (2, 512, 10, 1, 256, 700),
+]
 DTYPES = {"float32": (jnp.float32, torch.float32, F32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16)}
 
@@ -92,7 +108,8 @@ def _normal(seed, *shapes):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", SHAPES + NO_KEY_SHAPES, ids=str)
+@pytest.mark.parametrize("case", SHAPES + NO_KEY_SHAPES + HD256_SHAPES,
+                         ids=str)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_plain_matches_ref(case, dtype):
     b, sq, sk, h, kv, hd, causal, window = case
@@ -107,7 +124,7 @@ def test_flash_attention_plain_matches_ref(case, dtype):
 
 
 @pytest.mark.parametrize("case", [SHAPES[0], SHAPES[4]] + [
-    c for c in NO_KEY_SHAPES if c[2] % 128 == 0], ids=str)
+    c for c in NO_KEY_SHAPES if c[2] % 128 == 0] + HD256_SHAPES, ids=str)
 def test_flash_attention_wrapper_matches_pallas_kernel(case):
     """The wrapper's (B,S,H,hd) layout on the CPU against the Pallas
     kernel through ``ops.flash_attention`` (interpret mode); with rows
@@ -160,7 +177,7 @@ def test_flash_attention_refuses_a_gradient():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", DECODE_SHAPES, ids=str)
+@pytest.mark.parametrize("case", DECODE_SHAPES + HD256_DECODE, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_decode_plain_matches_ref(case, dtype):
     b, s, h, kv, hd, length = case
@@ -174,8 +191,8 @@ def test_flash_decode_plain_matches_ref(case, dtype):
     _close(got, want, DTYPES[dtype][2])
 
 
-@pytest.mark.parametrize("case", [DECODE_SHAPES[0], DECODE_SHAPES[2]],
-                         ids=str)
+@pytest.mark.parametrize("case", [DECODE_SHAPES[0], DECODE_SHAPES[2]]
+                         + HD256_DECODE, ids=str)
 def test_flash_decode_wrapper_matches_pallas_kernel(case):
     b, s, h, kv, hd, length = case
     q, k, v = _normal(11, (b, h, hd), (b, s, kv, hd), (b, s, kv, hd))

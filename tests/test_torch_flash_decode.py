@@ -1,9 +1,12 @@
 """The split plan of kernels 1, 2 and 7 (``flash_decode.launch_splits``,
 ``decode_view.launch_splits``): tiles of query rows and key splits per
 template, from static shapes alone, pinned at the layouts the serving
-engine and the static path give them on a 132-SM card (an H100 SXM).
-No card and no JAX needed."""
+engine and the static path give them on a 132-SM card (an H100 SXM):
+qwen2-1.5b's (hd 128) and recurrentgemma-2b's (hd 256, where the wide
+bf16 layout stages 32-key chunks).  No card and no JAX needed."""
 import math
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -49,9 +52,10 @@ def test_launch_splits_at_the_engine_layouts(b, c, dtype):
         assert tiles == (1 if rows <= flash_decode.NARROW_ROWS
                          else math.ceil(rows / flash_decode.WIDE_ROWS))
         if nsplit > 1:   # at a full table: 1-2 chunks a split, none empty
-            per = _chunks_a_split(KEYS, nsplit, flash_decode.TC_KEYS)
-            assert per <= flash_decode.WIDE_SPLIT_CHUNKS
-            assert (nsplit - 1) * per * flash_decode.TC_KEYS < KEYS
+            ck = flash_decode.chunk_keys(128, rows <= flash_decode.NARROW_ROWS)
+            per = _chunks_a_split(KEYS, nsplit, ck)
+            assert ck == 64 and per * ck <= flash_decode.WIDE_SPLIT_KEYS
+            assert (nsplit - 1) * per * ck < KEYS
     else:
         assert tiles == math.ceil(c * H // KV / _common.TILE_ROWS)
 
@@ -63,7 +67,8 @@ def test_launch_splits_at_the_static_decode(s, dtype):
     assert flash_decode.launch_splits(8, 1, H, KV, s, dtype=dtype,
                                       sms=SMS) == (tiles, nsplit)
     if dtype == torch.bfloat16:   # one 64-key chunk a split
-        assert _chunks_a_split(s, nsplit, flash_decode.TC_KEYS) == 1
+        assert _chunks_a_split(s, nsplit,
+                               flash_decode.chunk_keys(128, True)) == 1
 
 
 def test_launch_splits_windowed_and_unbuilt_shapes():
@@ -103,3 +108,126 @@ def test_decode_view_launch_splits_at_the_decode_buckets(b, dtype):
     else:
         assert _common.launch_splits(b, 1, H, KV, VIEW_S1,
                                      sms=SMS) == plan[1] + 1
+
+
+# recurrentgemma-2b: 10 heads over 1 kv head (G = 10), hd 256, a 2048
+# window; the hybrid engine's layouts (decode buckets, the 2 x 128
+# prefill, the 10 chunk-wide mixed rows) over tables of 40 blocks of 16
+# (640 keys, the serving workload) and 160 (2,560 keys, past the window)
+RG_H, RG_KV, RG_HD, RG_W = 10, 1, 256, 2048
+RG_ENGINE = {
+    640: {torch.bfloat16: {(8, 1): (1, 10), (4, 1): (1, 10),
+                           (2, 1): (1, 10), (2, 128): (20, 5),
+                           (10, 128): (20, 5)},
+          torch.float32: {(8, 1): (2, 5), (4, 1): (2, 5), (2, 1): (2, 5),
+                          (2, 128): (160, 1), (10, 128): (160, 1)}},
+    2560: {torch.bfloat16: {(8, 1): (1, 17), (4, 1): (1, 33),
+                            (2, 1): (1, 33), (2, 128): (20, 17),
+                            (10, 128): (20, 17)},
+           torch.float32: {(8, 1): (2, 17), (4, 1): (2, 17),
+                           (2, 1): (2, 17), (2, 128): (160, 1),
+                           (10, 128): (160, 1)}},
+}
+
+
+@pytest.mark.parametrize("keys", list(RG_ENGINE))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,c", list(RG_ENGINE[640][torch.bfloat16]))
+def test_launch_splits_at_head_dim_256(keys, dtype, b, c):
+    tiles, nsplit = RG_ENGINE[keys][dtype][(b, c)]
+    assert flash_decode.launch_splits(b, c, RG_H, RG_KV, keys, RG_W,
+                                      dtype=dtype, sms=SMS,
+                                      hd=RG_HD) == (tiles, nsplit)
+    if dtype == torch.float32:       # the f32 plan has no head dim in it
+        assert flash_decode.launch_splits(b, c, RG_H, RG_KV, keys, RG_W,
+                                          dtype=dtype, sms=SMS) == (tiles,
+                                                                    nsplit)
+        return
+    narrow = c * RG_H // RG_KV <= flash_decode.NARROW_ROWS
+    ck = flash_decode.chunk_keys(RG_HD, narrow)
+    assert ck == (64 if narrow else 32)
+    seen = min(keys, RG_W + c)
+    per = _chunks_a_split(seen, nsplit, ck)
+    assert (nsplit - 1) * per * ck < seen          # no split is empty
+    if not narrow:                   # at most WIDE_SPLIT_KEYS keys a split
+        assert per * ck <= flash_decode.WIDE_SPLIT_KEYS
+    else:                            # the narrow plan is hd 128's
+        assert flash_decode.launch_splits(b, c, RG_H, RG_KV, keys, RG_W,
+                                          dtype=dtype, sms=SMS,
+                                          hd=128) == (tiles, nsplit)
+
+
+@pytest.mark.parametrize("keys", list(RG_ENGINE))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [8, 4, 2])
+def test_decode_view_launch_splits_at_head_dim_256(keys, dtype, b):
+    """Kernel 2 at the decode buckets over views of keys + 1 slots takes
+    kernel 1's plan at ``keys``, window and all."""
+    assert decode_view.launch_splits(b, RG_H, RG_KV, keys + 1, RG_W,
+                                     dtype=dtype, sms=SMS, hd=RG_HD) == \
+        RG_ENGINE[keys][dtype][(b, 1)]
+
+
+@pytest.mark.parametrize("dtype,plan", [(torch.bfloat16, (1, 32)),
+                                        (torch.float32, (2, 16))])
+def test_launch_splits_over_a_full_2048_ring(dtype, plan):
+    """Kernel 7 at B = 8 over recurrentgemma's 2,048-slot ring (the
+    window): one 64-key chunk a bf16 split."""
+    assert flash_decode.launch_splits(8, 1, RG_H, RG_KV, RG_W, dtype=dtype,
+                                      sms=SMS, hd=RG_HD) == plan
+    if dtype == torch.bfloat16:
+        assert _chunks_a_split(RG_W, plan[1],
+                               flash_decode.chunk_keys(RG_HD, True)) == 1
+
+
+# kernel 7 at recurrentgemma's static decode: B = 8 over caches of 570 /
+# 627 slots (its two static batches, inside the window: no ring yet)
+RG_STATIC = {torch.bfloat16: {570: (1, 9), 627: (1, 10)},
+             torch.float32: {570: (2, 5), 627: (2, 5)}}
+
+
+@pytest.mark.parametrize("dtype", list(RG_STATIC))
+@pytest.mark.parametrize("s", [570, 627])
+def test_launch_splits_at_the_static_decode_head_dim_256(s, dtype):
+    assert flash_decode.launch_splits(8, 1, RG_H, RG_KV, s, dtype=dtype,
+                                      sms=SMS, hd=RG_HD) == \
+        RG_STATIC[dtype][s]
+
+
+def test_wrappers_gate_head_dims():
+    assert _common.HEAD_DIMS == (64, 128, 256)
+    for hd in _common.HEAD_DIMS:
+        _common.require_head_dim("flash_decode", hd)
+    for hd in (32, 96, 120, 192, 512):
+        with pytest.raises(ValueError, match="not built"):
+            _common.require_head_dim("flash_decode", hd)
+
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+
+
+def _keys_rule(path, pattern):
+    """The (threshold, small, default) of a ``kKeys`` rule ``HD >
+    threshold ? small : default`` in a CUDA source."""
+    m = re.search(pattern, (CSRC / path).read_text())
+    assert m, f"no kKeys rule in {path}"
+    return tuple(int(x) for x in m.groups())
+
+
+def test_chunk_keys_match_the_cuda_sources():
+    """``chunk_keys`` (the split plan's staged chunk) copies kernel 1's
+    ``Layout<HD, NARROW>::kKeys`` (wide only); kernel 6's
+    ``Shape<HD>::kKeys`` stages its chunks by the wide rule too."""
+    hd_max, small, default = _keys_rule(
+        "flash_decode.cu",
+        r"kKeys = !NARROW && HD > (\d+) \? (\d+) : (\d+);")
+    kernel6 = _keys_rule("flash_attention.cu",
+                         r"kKeys = HD > (\d+) \? (\d+) : (\d+);")
+    assert kernel6 == (hd_max, small, default)
+    for hd in _common.HEAD_DIMS:
+        assert flash_decode.chunk_keys(hd, True) == default
+        assert flash_decode.chunk_keys(hd, False) == (
+            small if hd > hd_max else default)
+    assert flash_decode.NARROW_ROWS == int(re.search(
+        r"constexpr int kNarrowRows = (\d+);",
+        (CSRC / "flash_decode.cu").read_text()).group(1))

@@ -14,6 +14,7 @@ SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
 
 MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
+           "repro_torch.configs.recurrentgemma_2b",
            "repro_torch.tree",
            "repro_torch.kernels", "repro_torch.kernels._build",
            "repro_torch.kernels.prng", "repro_torch.kernels.sampling",
@@ -23,7 +24,8 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.kernels.flash_decode",
            "repro_torch.kernels.flash_attention",
            "repro_torch.models.layers", "repro_torch.models.attention",
-           "repro_torch.models.ssm", "repro_torch.models.mla",
+           "repro_torch.models.ssm", "repro_torch.models.rglru",
+           "repro_torch.models.mla",
            "repro_torch.models.moe",
            "repro_torch.models.transformer", "repro_torch.models.model",
            "repro_torch.models.resnet",
@@ -50,6 +52,7 @@ def test_port_imports_with_jax_and_repro_blocked():
             "get_config('deepseek-v3-671b')\n"
             "get_config('resnet50')\n"
             "get_config('qwen1.5-0.5b')\n"
+            "get_config('recurrentgemma-2b')\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=SRC,

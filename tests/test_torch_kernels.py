@@ -37,6 +37,8 @@ PAGED_CASES = [
     (32, 8, 2, 6, 128, 2, 1, 6, 20),     # qwen2's group 6 + window
     (16, 8, 2, 2, 64, 3, 5, 4, 0),       # odd chunk of queries (prefill)
     (32, 8, 1, 6, 64, 2, 8, 6, 11),      # chunk + window
+    (24, 8, 1, 10, 256, 2, 1, 10, 48),   # recurrentgemma: G 10, hd 256
+    (24, 8, 1, 10, 256, 2, 9, 10, 30),   # its prefill chunk past a window
 ]
 
 
@@ -101,6 +103,7 @@ VIEW_CASES = [
     (2, 129, 1, 6, 128, 0),
     (2, 65, 2, 2, 128, 20),    # sliding window
     (4, 33, 2, 1, 64, 7),
+    (3, 97, 1, 10, 256, 40),   # recurrentgemma: G 10, hd 256, window
 ]
 
 
