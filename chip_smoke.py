@@ -30,7 +30,16 @@
    stream.  Then the same model in float32 (weights and compute, TF32
    off) serves the requests at depths 1 and 8, greedy and sampled, and
    depth 1 must equal depth 8 token for token (in bf16 the depths part,
-   printed and not gated: their kernels sum in other orders).
+   printed and not gated: their kernels sum in other orders).  Then the
+   cluster layer: two qwen2-1.5b replicas share the card through
+   ``ServeCluster.for_replicas`` at depth 8, fault-free, with replica 0
+   killed mid-generation (greedy and sampled) and with replica 1 hung
+   past a 3 s hard heartbeat deadline; every request must end exactly
+   once with no fault result, every bf16 stream passes the
+   teacher-forced check, and in float32 the kill and hang runs must
+   equal the fault-free cluster and one engine token for token (the
+   cluster's tok/s beside one engine's, and the bf16 streams that part
+   from the fault-free run's, printed).
 4. Trains full-width qwen2-1.5b for 8 LSGD steps with the fused SGD
    update through ``repro_torch.launch.train``, then runs the virtual
    CSGD and LSGD (4 workers, groups of 2) from one set of weights and
@@ -209,6 +218,19 @@ STATIC_BATCH = 8
 STATIC_PAD = 16
 
 SEED = 0
+
+# the cluster phase: two replicas share cuda:0 (ServeCluster's
+# round-robin single-device slices) at depth 8; a kill or a hang at a
+# replica's third dispatch (mid-generation); the hang is declared after
+# CLUSTER_HANG_HEALTH's hard deadline, the other runs never reach theirs
+CLUSTER_REPLICAS = 2
+CLUSTER_DEPTH = 8
+CLUSTER_FAULT_AT = 2
+CLUSTER_HEALTH = dict(soft_deadline_s=60.0, hard_deadline_s=120.0,
+                      interval_s=0.01)
+CLUSTER_HANG_HEALTH = dict(soft_deadline_s=1.0, hard_deadline_s=3.0,
+                           interval_s=0.02)
+CLUSTER_JOIN_S = 120.0
 
 
 def fail(msg: str):
@@ -1401,6 +1423,218 @@ def phase_depth_f32(torch, cfg):
             fail(f"{cfg.name} f32 {mode}: depth 1 and depth 8 part at "
                  f"request {rid} token {t} ({one[rid][t]} against "
                  f"{eight[rid][t]})")
+    del params
+
+
+# ---------------------------------------------------------------------------
+# the cluster layer: two replicas share the card
+# ---------------------------------------------------------------------------
+
+
+def _cluster_once(torch, model, params, work, label, *, plan=None,
+                  health=None, **sample):
+    """One main-path run through ``ServeCluster.for_replicas`` with
+    CLUSTER_REPLICAS replicas sharing cuda:0 (the reference's round-robin
+    single-device slices), CLUSTER_DEPTH, ENGINE_CONFIG.  Every launch
+    count set to 0 just before it and read just after.  Every request
+    must end exactly once with all its tokens and no fault result; a
+    planned fault must fire and fail over.  Returns (streams, counts,
+    tok/s)."""
+    from repro_torch import kernels
+    from repro_torch.serve import (EngineConfig, HealthConfig, Request,
+                                   ServeCluster)
+    from repro_torch.serve.profile_engine import ENGINE_CONFIG
+    cluster = ServeCluster.for_replicas(
+        model, params, EngineConfig(steps_per_dispatch=CLUSTER_DEPTH,
+                                    **sample, **ENGINE_CONFIG),
+        num_replicas=CLUSTER_REPLICAS, devices=[torch.device("cuda", 0)],
+        faults=plan, health=health or HealthConfig(**CLUSTER_HEALTH),
+        join_timeout_s=CLUSTER_JOIN_S)
+    try:
+        if [str(e.device) for e in cluster.engines] != \
+                ["cuda:0"] * CLUSTER_REPLICAS:
+            fail(f"cluster {label}: replicas on "
+                 f"{[str(e.device) for e in cluster.engines]}")
+        cluster.warmup()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cluster.run([Request(prompt=p.copy(), max_new_tokens=n, rid=i)
+                           for i, (p, n) in enumerate(work)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        if plan is not None:
+            plan.release_hangs()
+    m = cluster.metrics()
+    book = cluster.telemetry.requests
+    ntok = sum(len(r.tokens) for r in res.values())
+    per = {i: m["per_replica"][i]["counters"]["generated_tokens"]
+           for i in range(CLUSTER_REPLICAS)}
+    health = {i: (h["state"], h["reason"]) for i, h in m["health"].items()}
+    fired = [] if plan is None else [(a.replica, a.dispatch, a.kind)
+                                     for a in plan.fired()]
+    print(f"[cluster] {model.cfg.name} {label}: requests={len(res)} "
+          f"tokens={ntok} wall_s={wall:.3f} tok_s={ntok / wall:.1f} "
+          f"tokens_by_replica={per} failovers="
+          f"{m['failover']['failovers']} redispatched="
+          f"{m['failover']['redispatched']} health={health} fired={fired} "
+          f"launches={json.dumps(counts)}", flush=True)
+    if sorted(res) != list(range(len(work))):
+        fail(f"cluster {label}: {len(res)} of {len(work)} requests ended")
+    for i, (_, n) in enumerate(work):
+        if res[i].fault is not None or len(res[i].tokens) != n:
+            fail(f"cluster {label}: request {i} ended with fault "
+                 f"{res[i].fault} and {len(res[i].tokens)} of {n} tokens")
+    if book.double_terminals.value != 0:
+        fail(f"cluster {label}: {book.double_terminals.value} double "
+             "terminals")
+    if any(t.terminal != "complete" for t in book.traces()):
+        fail(f"cluster {label}: a request's trace ended other than "
+             "complete")
+    if plan is not None:
+        if not plan.fired():
+            fail(f"cluster {label}: the planned fault never fired")
+        if m["failover"]["failovers"] < 1:
+            fail(f"cluster {label}: a fault fired and nothing failed over")
+    if sum(cluster.loads().values()) != 0:
+        fail(f"cluster {label}: router loads {cluster.loads()} after the "
+             "run")
+    del cluster
+    return {i: res[i].tokens for i in range(len(work))}, counts, ntok / wall
+
+
+def _kill_plan():
+    from repro_torch.serve import FaultPlan
+    return FaultPlan.kill_at(replica=0, dispatch=CLUSTER_FAULT_AT)
+
+
+def _hang_plan():
+    from repro_torch.serve import FaultAction, FaultPlan
+    return FaultPlan([FaultAction(1, CLUSTER_FAULT_AT, "hang")],
+                     hang_timeout_s=CLUSTER_JOIN_S)
+
+
+def _mismatches(a, b):
+    """(requests, tokens) on which two stream sets differ."""
+    reqs = [i for i in a if a[i] != b[i]]
+    toks = sum(sum(x != y for x, y in zip(a[i], b[i]))
+               + abs(len(a[i]) - len(b[i])) for i in reqs)
+    return len(reqs), toks
+
+
+def phase_serve_cluster(torch, cfg, card):
+    """The cluster layer on the card: full-width ``cfg`` (qwen2-1.5b,
+    bf16, random weights from SEED) served by two replicas sharing cuda:0
+    at depth CLUSTER_DEPTH with ENGINE_CONFIG and phase_serve's workload:
+    fault-free greedy, greedy and sampled under a kill of replica 0 at
+    its CLUSTER_FAULT_AT-th dispatch, and greedy with replica 1 hung
+    there under a hard heartbeat deadline of a few seconds.  Each run
+    must end every request exactly once with no fault result and launch
+    kernels 1-3 (greedy) or 1, 2 and 4 (sampled); every stream passes the
+    teacher-forced f32 check.  One engine serves the same workload for
+    the tok/s beside the cluster's; the bf16 mismatch count of the kill
+    run against the fault-free run is printed, not gated (two replicas
+    batch the requests otherwise, and a failover re-prefills).  Then
+    float32 (``_cluster_f32``), where the kill and hang runs must equal
+    the fault-free cluster's streams and one engine's.  Returns the
+    launches of the four bf16 cluster runs, summed."""
+    from repro_torch import kernels
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    from repro_torch.serve import HealthConfig
+    model = build_model(cfg)
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    work = workload(cfg.vocab_size, SEED)
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+    hang = HealthConfig(**CLUSTER_HANG_HEALTH)
+    launches = {fn.__name__: 0 for fn in kernels.KERNELS}
+    runs = {}
+    for label, kw in (("fault-free greedy", {}),
+                      ("kill greedy", dict(plan=_kill_plan())),
+                      ("kill sampled", dict(plan=_kill_plan(), **sample)),
+                      ("hang greedy", dict(plan=_hang_plan(), health=hang))):
+        stream, counts, rate = _cluster_once(torch, model, params, work,
+                                             label, **kw)
+        need = ["flash_decode_paged", "decode_view_attend",
+                "gumbel_sample" if "sampled" in label else "greedy_sample"]
+        for name in need:
+            if counts[name] <= 0:
+                fail(f"cluster {label}: {name} never launched")
+        if counts["gumbel_sample" if "greedy" in label
+                  else "greedy_sample"]:
+            fail(f"cluster {label}: launched the other sampler")
+        for k, v in counts.items():
+            launches[k] += v
+        runs[label] = (stream, rate)
+    single, _, single_rate, line = _serve_once(torch, model, params, work,
+                                               CLUSTER_DEPTH)
+    print(f"[cluster] {cfg.name} one engine, depth {CLUSTER_DEPTH}: {line}",
+          flush=True)
+    free = runs["fault-free greedy"][0]
+    kreq, ktok = _mismatches(runs["kill greedy"][0], free)
+    hreq, htok = _mismatches(runs["hang greedy"][0], free)
+    sreq, stok = _mismatches(single, free)
+    print(f"[cluster] {cfg.name} bf16 tok/s: two replicas on one card "
+          f"{runs['fault-free greedy'][1]:.1f} (kill "
+          f"{runs['kill greedy'][1]:.1f}, kill sampled "
+          f"{runs['kill sampled'][1]:.1f}, hang {runs['hang greedy'][1]:.1f}"
+          f"), one engine {single_rate:.1f}; streams unlike the fault-free "
+          f"cluster's: kill {kreq} requests / {ktok} tokens, hang {hreq} / "
+          f"{htok}, one engine {sreq} / {stok} (printed, not gated); "
+          f"card: {card}", flush=True)
+    _teacher_forced_check(
+        torch, model, params, work,
+        [runs[k][0] for k in ("fault-free greedy", "kill greedy",
+                              "hang greedy")],
+        [runs["kill sampled"][0]])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cluster_f32(torch, cfg, work)
+    return launches
+
+
+@float32_exact()
+def _cluster_f32(torch, cfg, work):
+    """float32 weights and compute (TF32 off): the kill and the hang
+    cluster runs must equal the fault-free cluster run and one engine,
+    token for token, greedy, at CLUSTER_DEPTH and ``cfg``'s full depth
+    (phase_depth_f32's)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import HealthConfig
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    single, _, rate, line = _serve_once(torch, model, params, work,
+                                        CLUSTER_DEPTH)
+    print(f"[cluster] {cfg.name} f32 one engine: {line}", flush=True)
+    got = {}
+    for label, kw in (("f32 fault-free greedy", {}),
+                      ("f32 kill greedy", dict(plan=_kill_plan())),
+                      ("f32 hang greedy", dict(
+                          plan=_hang_plan(),
+                          health=HealthConfig(**CLUSTER_HANG_HEALTH)))):
+        got[label], counts, _ = _cluster_once(torch, model, params, work,
+                                              label, **kw)
+        for name in ("flash_decode_paged", "decode_view_attend",
+                     "greedy_sample"):
+            if counts[name] <= 0:
+                fail(f"cluster {label}: {name} never launched")
+    for label, stream in got.items():
+        req, tok = _mismatches(stream, single)
+        print(f"[cluster] {cfg.name} {label} == one engine in float32: "
+              f"{req == 0} ({req} requests / {tok} tokens differ)",
+              flush=True)
+        if req:
+            rid, t = next((r, i) for r in sorted(stream)
+                          for i, (a, b) in enumerate(zip(stream[r],
+                                                         single[r]))
+                          if a != b)
+            fail(f"{label}: request {rid} parts from one engine's stream "
+                 f"at token {t} ({stream[rid][t]} against {single[rid][t]})")
     del params
 
 
@@ -2962,6 +3196,10 @@ def main() -> int:
     fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
     launches = phase(phase_serve, torch, cfg)
     phase(phase_depth_f32, torch, cfg)
+    c_launches = phase(phase_serve_cluster, torch, cfg, card)
+    for name in ("flash_decode_paged", "decode_view_attend", "greedy_sample",
+                 "gumbel_sample"):
+        launches[name] += c_launches[name]
     tr = phase(phase_train, torch)
     phase(phase_virtual, torch, cfg)
     rn = phase(phase_resnet_train, torch)

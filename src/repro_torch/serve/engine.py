@@ -21,12 +21,22 @@ pipelining): each
 dispatch's tokens are copied into pinned host memory behind a CUDA event
 at dispatch time, and the fetch waits on that event only.
 
+What the cluster layer (``serve.dispatcher.ServeCluster``) calls on an
+engine is here too: request deadlines (``deadline_s`` /
+``queue_deadline_s``, enforced at every dispatch boundary with fault
+results ``deadline`` / ``queue_deadline``), ``reclaim_requests`` (the
+post-mortem salvage of a dead replica) and ``drain_progress`` (tokens
+fetched per request, the router's load decay).  On CUDA every engine
+owns a stream: construction, ``warmup`` and ``step`` run on it, so the
+engines of several replicas on one card do not queue behind each other
+on the default stream.
+
 Not ported yet (each raises, see ROADMAP.md §1): the unfused
-``fused=False`` baseline, tensor-parallel device slices,
-``reclaim_requests`` and request deadlines (the cluster slice).
+``fused=False`` baseline and tensor-parallel device slices (item 9).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -57,6 +67,7 @@ class _EngineMetrics:
         # kept for parity with the reference's snapshot: eager PyTorch
         # compiles nothing while serving, so it stays 0
         self.jit_compiles = registry.counter("engine_jit_compiles", **labels)
+        self.tp_degree = registry.gauge("engine_tp_degree", **labels)
         self.live_seqs = registry.gauge("engine_live_seqs", **labels)
         self.state_slots_free = registry.gauge("engine_state_slots_free",
                                                **labels)
@@ -193,19 +204,26 @@ def _default_device() -> torch.device:
     return torch.device("cuda")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1)")
+def _not_ported(what: str, item: str = "") -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1"
+                               f"{item})")
 
 
 # analysis: single-writer — an Engine is thread-confined: one thread
-# drives warmup/submit/step after construction.
+# (the owning ServeCluster worker, or the caller in single-engine use)
+# drives warmup/submit/step/drain_progress after construction.
 class Engine:
     """Continuous-batching engine on one device (``cuda`` unless the
-    caller passes another)."""
+    caller passes another).
+
+    ``devices`` gives the replica a device slice (one fast-fabric group
+    of ``launch.mesh.replica_slices``), as in the reference; the port
+    serves a slice of one device (``tp_degree`` 1), and a wider slice
+    raises.  ``device`` names that one device directly."""
 
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(),
                  device=None, telemetry: Optional[Telemetry] = None,
-                 replica_id: int = 0):
+                 replica_id: int = 0, devices: Optional[Sequence] = None):
         if model.paged_spec is None:
             raise ValueError(f"{model.cfg.name}: the {model.cfg.family!r} "
                              "family trains only and has no serving path")
@@ -213,14 +231,48 @@ class Engine:
             raise ValueError("steps_per_dispatch must be >= 1")
         if not cfg.fused:
             raise _not_ported("the unfused fused=False baseline")
+        if devices is not None:
+            devices = tuple(torch.device(d) for d in devices)
+            if len(devices) > 1:
+                raise _not_ported(
+                    f"a tensor-parallel slice of {len(devices)} devices",
+                    " item 9")
+            if not devices or (device is not None
+                               and torch.device(device) != devices[0]):
+                raise ValueError(f"devices={devices} and device={device} "
+                                 "name no single device")
+            device = devices[0]
         self.device = (torch.device(device) if device is not None
                        else _default_device())
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.devices = (self.device,)
+        self.tp_degree = 1
+        # one stream per engine; it first waits for the caller's stream,
+        # where the params it is handed were written
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self.on_stream():
+            self._build(model, params, cfg, telemetry, replica_id)
+
+    def on_stream(self):
+        """Make this engine's stream current on the calling thread (a
+        no-op off CUDA).  The kernels launch on the current stream, which
+        is per thread."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _build(self, model, params, cfg, telemetry, replica_id) -> None:
         self.model = model
         self.spec = model.paged_spec
         self.telemetry = telemetry or Telemetry()
         self.replica_id = replica_id
         self._m = _EngineMetrics(self.telemetry.registry,
                                  replica=replica_id, arch=model.cfg.name)
+        self._m.tp_degree.set(self.tp_degree)
         self._host_track = f"replica{replica_id}/host"
         self._dev_track = f"replica{replica_id}/device"
         self._dev_tail = 0.0
@@ -260,6 +312,11 @@ class Engine:
         self._desynced: List[_Seq] = []
         self._preempt_counts: Dict[int, int] = {}
         self._first_token_times: Dict[int, float] = {}
+        # tokens fetched per request since the last drain_progress: the
+        # dispatcher turns them into router progress
+        self._progress_tokens: Dict[int, int] = {}
+        # the deadline sweep runs only once a request with a budget came
+        self._has_deadlines = False
 
     # -- metrics ------------------------------------------------------------
 
@@ -284,14 +341,14 @@ class Engine:
             raise ValueError(
                 f"request {req.rid}: prompt+max_new_tokens={total} exceeds "
                 f"max_seq_len={self.cfg.max_seq_len}")
-        if req.deadline_s is not None or req.queue_deadline_s is not None:
-            raise _not_ported("request deadlines")
+        # first-wins no-ops when the dispatcher stamped and armed the
+        # request at the cluster's front door (a re-dispatch after a
+        # replica death keeps the original absolute deadlines)
         self.telemetry.requests.stamp(req.rid, "submit")
         req.start_clock()
+        if req.deadline_at is not None or req.queue_deadline_at is not None:
+            self._has_deadlines = True
         self.scheduler.add(req)
-
-    def reclaim_requests(self):
-        raise _not_ported("reclaim_requests (replica failover)")
 
     # -- internals ----------------------------------------------------------
 
@@ -376,6 +433,138 @@ class Engine:
             return True
         return False
 
+    # -- fault terminals / deadline enforcement -----------------------------
+
+    def _fault_result(self, req: Request, reason: str, out: Sequence[int],
+                      first_token_time: float = 0.0,
+                      finished: Optional[List[RequestResult]] = None
+                      ) -> RequestResult:
+        """End a request with a fault verdict (``deadline``,
+        ``queue_deadline``): its partial output (recompute-prompt suffix
+        and host tokens), the ``fault`` terminal, the count."""
+        regen = list(req.prompt[req.orig_prompt_len:])
+        res = RequestResult(
+            rid=req.rid, prompt_len=req.orig_prompt_len,
+            tokens=regen + list(out), arrival_time=req.arrival_time,
+            first_token_time=first_token_time,
+            finish_time=time.perf_counter(),
+            preempted=self._preempt_counts.pop(req.rid, 0), fault=reason)
+        self._m.faulted.inc()
+        self.telemetry.requests.finish(
+            req.rid, "fault", tokens=len(res.tokens),
+            replica=self.replica_id)
+        if finished is not None:
+            finished.append(res)
+        return res
+
+    def _evict_fault(self, seq: _Seq, reason: str,
+                     finished: List[RequestResult]) -> None:
+        """``_evict`` with a fault verdict.  The caller has flushed the
+        in-flight steps, so ``seq.out`` holds every token."""
+        assert not self._pending
+        self._live.remove(seq)
+        self._free_slots.append(seq.slot)
+        self.kv.free_seq(seq.req.rid)
+        self._free_state_slot(seq.req.rid)
+        self.scheduler.forget(seq.req)
+        self._first_token_times.pop(seq.req.rid, None)
+        self._fault_result(seq.req, reason, seq.out,
+                           first_token_time=seq.first_token_time,
+                           finished=finished)
+        self._m.live_seqs.set(len(self._live))
+
+    def _expire_deadlines(self, finished: List[RequestResult]) -> None:
+        """Queue-wait and e2e budgets at the dispatch boundary: a waiting
+        request past either ends with no tokens; a live sequence past its
+        e2e deadline is flushed first, so its partial output lands in the
+        fault result."""
+        mono = time.monotonic()
+        for req in self.scheduler.expire(mono):
+            # a refused first-chunk admission can leave an empty table
+            self.kv.free_seq(req.rid)
+            reason = ("queue_deadline"
+                      if req.queue_deadline_at is not None
+                      and mono > req.queue_deadline_at else "deadline")
+            self._fault_result(req, reason, (), finished=finished)
+        expired = [s for s in self._live
+                   if not s.done and s.req.deadline_at is not None
+                   and mono > s.req.deadline_at]
+        if expired:
+            self._flush(finished)
+            for seq in expired:
+                if seq in self._live and not seq.done:
+                    self._evict_fault(seq, "deadline", finished)
+
+    # -- post-mortem reclaim ------------------------------------------------
+
+    def reclaim_requests(self) -> Tuple[List[Request], List[RequestResult]]:
+        """Empty this engine and hand its requests back for re-dispatch:
+        the failover path once the replica's worker died.  Call it only
+        after the owning thread stopped driving the engine.
+
+        In-flight dispatches are dropped unread; the sampling keys are
+        ``fold_in(rid, position)``, so a re-dispatch regenerates their
+        tokens.  On CUDA the engine's stream is synchronised first, so no
+        dispatch still running writes into a pinned buffer dropped here.
+        Each live sequence's host tokens fold into its prompt (recompute,
+        as preemption); sequences already finished (eos on the host, or
+        their budget spent) come back as results.  Returns
+        ``(requests_to_redispatch, finished_results)``."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        requests: List[Request] = []
+        finished: List[RequestResult] = []
+        self._pending.clear()
+        self._desynced.clear()
+        now = time.perf_counter()
+        for seq in list(self._live):
+            req, out = seq.req, list(seq.out)
+            if req.eos_id is not None and req.eos_id in out:
+                out = out[:out.index(req.eos_id) + 1]
+            remaining = req.max_new_tokens - len(out)
+            regen = list(req.prompt[req.orig_prompt_len:])
+            if (req.eos_id is not None and req.eos_id in out) \
+                    or remaining <= 0:
+                finished.append(RequestResult(
+                    rid=req.rid, prompt_len=req.orig_prompt_len,
+                    tokens=regen + out, arrival_time=req.arrival_time,
+                    first_token_time=seq.first_token_time, finish_time=now,
+                    preempted=self._preempt_counts.pop(req.rid, 0)))
+                self.telemetry.requests.finish(
+                    req.rid, "complete", tokens=len(regen) + len(out),
+                    replica=self.replica_id, hists=self._m.latency)
+                continue
+            req.prompt = np.concatenate(
+                [req.prompt, np.asarray(out, np.int32)])
+            req.max_new_tokens = remaining
+            requests.append(req)
+        requests.extend(self.scheduler.reset())
+        self._live = []
+        self.kv.release_all()
+        if self.state_slots is not None:
+            self.state_slots.release_all()
+            self._m.state_slots_free.set(self.state_slots.num_free)
+        self._free_slots = list(range(self.cfg.num_slots - 1, -1, -1))
+        self._first_token_times.clear()
+        self._progress_tokens.clear()
+        self._m.live_seqs.set(0)
+        return requests, finished
+
+    # -- in-flight bookkeeping ----------------------------------------------
+
+    def _note_tokens(self, rid: int, n: int) -> None:
+        """Count ``n`` tokens fetched for ``rid``: at fetch, not dispatch,
+        so tokens past an eos or refused by the device never count."""
+        self._progress_tokens[rid] = self._progress_tokens.get(rid, 0) + n
+        self._m.generated_tokens.inc(n)
+
+    def drain_progress(self) -> Dict[int, int]:
+        """Tokens fetched per request since the last drain: the
+        dispatcher feeds them to ``ReplicaRouter.progress``, so routed
+        load decays as the work is done."""
+        out, self._progress_tokens = self._progress_tokens, {}
+        return out
+
     def _fetch_one(self, finished: List[RequestResult]) -> None:
         """Read the oldest dispatched step's tokens, apply the stop
         conditions the device applied, and evict sequences whose last
@@ -401,7 +590,7 @@ class Engine:
                     continue
                 c = int(counts[row])
                 seq.out.extend(int(t) for t in toks[row, :c])
-                self._m.generated_tokens.inc(c)
+                self._note_tokens(seq.req.rid, c)
                 planned = rec.planned[row]
                 if eos_hit[row]:
                     seq.done = True
@@ -423,7 +612,7 @@ class Engine:
                 continue
             tok = int(toks[row])
             seq.out.append(tok)
-            self._m.generated_tokens.inc()
+            self._note_tokens(seq.req.rid, 1)
             if is_first:
                 seq.first_token_time = self._first_token_times.pop(
                     seq.req.rid, rec.now)
@@ -694,6 +883,10 @@ class Engine:
         every write),
         so the kernel library is built and loaded, the allocator holds
         its working set and no first-use cost lands mid-serving."""
+        with self.on_stream():
+            self._warmup()
+
+    def _warmup(self) -> None:
         cfg = self.cfg
         shapes = [(b, 1) for b in cfg.decode_buckets]
         shapes += [(cfg.prefill_rows, cfg.prefill_chunk)]
@@ -733,7 +926,10 @@ class Engine:
         """One engine iteration; returns requests finished this step."""
         now = time.perf_counter() if now is None else now
         finished: List[RequestResult] = []
-        self._step_fused(now, finished)
+        with self.on_stream():
+            if self._has_deadlines:
+                self._expire_deadlines(finished)
+            self._step_fused(now, finished)
         self._m.steps.inc()
         return finished
 

@@ -119,9 +119,14 @@ def test_engine_rejects_what_is_not_ported(setup):
     p, g = work[0]
     res = hot.run([Request(prompt=p.copy(), max_new_tokens=g, rid=0)])
     assert len(res[0].tokens) == g
-    eng = Engine(tmodel, tparams, EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(Request(prompt=np.arange(3), max_new_tokens=2,
-                           deadline_s=1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.reclaim_requests()
+    # a tensor-parallel slice is not ported (ROADMAP §1 item 9)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        Engine(tmodel, tparams, EngineConfig(),
+               devices=[torch.device("cpu")] * 2)
+    # request deadlines and reclaim_requests are ported (the cluster
+    # layer's tests are tests/test_torch_cluster.py)
+    eng = Engine(tmodel, tparams, EngineConfig(**WIDE), device="cpu")
+    res = eng.run([Request(prompt=p.copy(), max_new_tokens=g, rid=1,
+                           deadline_s=1e6, queue_deadline_s=1e6)])
+    assert len(res[1].tokens) == g and res[1].fault is None
+    assert eng.reclaim_requests() == ([], [])

@@ -32,6 +32,8 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.serve.profile_engine",
+           "repro_torch.serve.faults", "repro_torch.serve.router",
+           "repro_torch.serve.dispatcher", "repro_torch.launch.mesh",
            "repro_torch.optim.sgd", "repro_torch.optim.schedules",
            "repro_torch.core", "repro_torch.core.autodiff",
            "repro_torch.core.topology", "repro_torch.core.virtual",
@@ -85,3 +87,25 @@ def test_trainer_entry_point_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--smoke", "--steps", "1"])
+
+
+def test_cluster_without_devices_raises_when_cuda_is_absent(monkeypatch):
+    """``ServeCluster`` and ``replica_slices`` take every visible CUDA
+    device by default; with none visible and none named they raise
+    rather than serve on the CPU."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.topology import Topology
+    from repro_torch.launch.mesh import replica_slices
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeCluster
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(smoke_variant(get_config("qwen2-1.5b")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replica_slices(Topology())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeCluster.for_replicas(model, {}, num_replicas=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeCluster(model, {})
+    # named devices serve where they are
+    assert replica_slices(Topology(), 1, ["cpu"]) == [
+        (torch.device("cpu"),)]
