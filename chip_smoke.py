@@ -1437,9 +1437,11 @@ def _cluster_once(torch, model, params, work, label, *, plan=None,
     CLUSTER_REPLICAS replicas sharing cuda:0 (the reference's round-robin
     single-device slices), CLUSTER_DEPTH, ENGINE_CONFIG.  Every launch
     count set to 0 just before it and read just after.  Every request
-    must end exactly once with all its tokens and no fault result; a
-    planned fault must fire and fail over.  Returns (streams, counts,
-    tok/s)."""
+    must end exactly once with all its tokens and no fault result; each
+    planned fault must fire and fail its replica over once, with that
+    fault as the replica's reason, while every other replica retires
+    drained (a fault-free run: no failover, every replica drained).
+    Returns (streams, counts, tok/s)."""
     from repro_torch import kernels
     from repro_torch.serve import (EngineConfig, HealthConfig, Request,
                                    ServeCluster)
@@ -1492,11 +1494,28 @@ def _cluster_once(torch, model, params, work, label, *, plan=None,
     if any(t.terminal != "complete" for t in book.traces()):
         fail(f"cluster {label}: a request's trace ended other than "
              "complete")
-    if plan is not None:
-        if not plan.fired():
-            fail(f"cluster {label}: the planned fault never fired")
-        if m["failover"]["failovers"] < 1:
-            fail(f"cluster {label}: a fault fired and nothing failed over")
+    # no failure may hide behind a failover: the planned replicas (and
+    # only they) die, each of its planned fault, and every other replica
+    # retires cleanly; a fault-free run fails nothing over
+    planned = [] if plan is None else plan.planned()
+    if [(a.replica, a.dispatch, a.kind) for a in planned] != fired:
+        fail(f"cluster {label}: planned {planned}, fired {fired}")
+    want = {i: ("dead", "drained") for i in range(CLUSTER_REPLICAS)}
+    exc = {"kill": "ReplicaKilled", "error": "FaultInjected"}
+    for a in planned:
+        want[a.replica] = ("dead", "hung" if a.kind == "hang" else
+                           f"{exc[a.kind]}: injected {a.kind} at replica "
+                           f"{a.replica} dispatch {a.dispatch}")
+    if health != want:
+        fail(f"cluster {label}: replica health {health}, expected {want}")
+    if m["failover"]["failovers"] != len(planned):
+        fail(f"cluster {label}: {m['failover']['failovers']} failovers "
+             f"for {len(planned)} planned faults")
+    if m["failover"]["shed"] or m["failover"]["forced_drains"]:
+        fail(f"cluster {label}: shed or forced drains in {m['failover']}")
+    if (m["failover"]["redispatched"] > 0) != bool(planned):
+        fail(f"cluster {label}: {m['failover']['redispatched']} requests "
+             f"redispatched for {len(planned)} planned faults")
     if sum(cluster.loads().values()) != 0:
         fail(f"cluster {label}: router loads {cluster.loads()} after the "
              "run")

@@ -18,11 +18,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.decode_view import decode_view_attend
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
-from repro_torch.models.layers import apply_rope, dense, rope_table
+from repro_torch.models.layers import apply_rope, rope_table
 
 NEG_INF = -1e30
 
@@ -167,8 +168,9 @@ def _qkv(params, x, cfg, num_heads, num_kv):
     dt = x.dtype
 
     def proj(w, bias):
-        return dense(x, params[w].to(dt),
-                     params[bias].to(dt) if bias in params else None)
+        # x @ w (+ bias) as one product with the bias in its epilogue
+        return F.linear(x, params[w].to(dt).t(),
+                        params[bias].to(dt) if bias in params else None)
 
     q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
     b, s = x.shape[:2]
@@ -256,7 +258,7 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
         else:
             o = naive_attention(_group(q, kv), k, v, causal=True,
                                 window=window)
-        y = dense(o.reshape(b, c, h * hd), params["wo"].to(x.dtype))
+        y = o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype)
         return y, (_contiguous_cache(k, v, cache_len, window)
                    if make_cache else None)
 
@@ -267,7 +269,7 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
         vc.index_put_((rows, write), v[:, 0].to(vc.dtype))
         o = decode_view_attend(q[:, 0].contiguous(), kc, vc, pos,
                                window=window)
-        y = dense(o.reshape(b, 1, h * hd), params["wo"].to(x.dtype))
+        y = o.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype)
         return y, cache
 
     if block_tables is None:
@@ -284,7 +286,7 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
                              (pos + 1).to(torch.int32))
         else:
             o = decode_attention(_group(q, kv), kc, vc, pos, window=window)
-        y = dense(o.reshape(b, 1, h * hd), params["wo"].to(x.dtype))
+        y = o.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype)
         return y, cache
 
     kpool, vpool = cache["k"], cache["v"]
@@ -292,7 +294,7 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
     vpool.index_put_(write, v.to(vpool.dtype))
     o = flash_decode_paged(q.contiguous(), kpool, vpool, block_tables, pos,
                            window=window)
-    y = dense(o.reshape(b, c, h * hd), params["wo"].to(x.dtype))
+    y = o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype)
     return y, cache
 
 

@@ -42,32 +42,16 @@ def apply_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w`` (``+ bias``, in the product's epilogue) over x's last
-    axis.  Each row comes out as it would among other rows: on the CPU a
-    product of one row goes to a matrix-vector routine that sums in
-    another order than the matrix product (and than the reference's
-    dot), which would give a sequence decoding alone in a one-row step
-    other float32 logits than the same sequence in a batch; so there the
-    row is doubled and the first of the two kept."""
-    if x.is_cpu and x.numel() == x.shape[-1]:
-        row = x.reshape(1, -1)
-        y = dense(torch.cat([row, row]), w, bias)[:1]
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    return x @ w if bias is None else F.linear(x, w.t(), bias)
-
-
 def apply_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
     """swiglu when the params hold a gate, else gelu in its tanh form
     (``jax.nn.gelu``'s default, which the reference calls)."""
     if "w_gate" in params:
-        g = dense(x, params["w_gate"].to(x.dtype))
-        u = dense(x, params["w_up"].to(x.dtype))
+        g = x @ params["w_gate"].to(x.dtype)
+        u = x @ params["w_up"].to(x.dtype)
         h = F.silu(g) * u
     else:
-        h = F.gelu(dense(x, params["w_up"].to(x.dtype)), approximate="tanh")
-    return dense(h, params["w_down"].to(x.dtype))
+        h = F.gelu(x @ params["w_up"].to(x.dtype), approximate="tanh")
+    return h @ params["w_down"].to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -33,7 +33,7 @@ import math
 import torch
 
 from repro_torch.kernels.mla_decode import mla_decode_paged, mla_decode_views
-from repro_torch.models.layers import apply_norm, apply_rope, dense, dense_init
+from repro_torch.models.layers import apply_norm, apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -66,8 +66,8 @@ def _project_q(params, x, cfg):
     """x (B,S,D) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope)."""
     a = cfg.mla
     dt = x.dtype
-    cq = apply_norm(params["q_norm"], dense(x, params["wq_a"].to(dt)), cfg)
-    q = dense(cq, params["wq_b"].to(dt)).reshape(
+    cq = apply_norm(params["q_norm"], x @ params["wq_a"].to(dt), cfg)
+    q = (cq @ params["wq_b"].to(dt)).reshape(
         *x.shape[:2], cfg.num_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
     return q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
 
@@ -75,7 +75,7 @@ def _project_q(params, x, cfg):
 def _latent_kv(params, x, cfg):
     """x (B,S,D) -> the normed latent c (B,S,r), k_rope (B,S,rope)."""
     a = cfg.mla
-    ckv = dense(x, params["wkv_a"].to(x.dtype))
+    ckv = x @ params["wkv_a"].to(x.dtype)
     c, k_rope = ckv[..., :a.kv_lora_rank], ckv[..., a.kv_lora_rank:]
     return apply_norm(params["kv_norm"], c, cfg), k_rope
 
@@ -135,7 +135,7 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
                              torch.full((), NEG_INF, device=x.device))
         probs = torch.softmax(logits, dim=-1).to(dt)
         o = torch.einsum("bhqs,bshv->bqhv", probs, v)
-        y = dense(o.reshape(b, s, h * a.v_head_dim), params["wo"].to(dt))
+        y = o.reshape(b, s, h * a.v_head_dim) @ params["wo"].to(dt)
         new_cache = None
         if make_cache:
             sc = cache_len or s
@@ -179,5 +179,5 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
         o_lat = mla_decode_paged(q_lat, q_rope, ckv_pool, kr_pool,
                                  block_tables, pos, scale=scale)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(dt), wv)
-    y = dense(o.reshape(b, s, h * a.v_head_dim), params["wo"].to(dt))
+    y = o.reshape(b, s, h * a.v_head_dim) @ params["wo"].to(dt)
     return y, cache

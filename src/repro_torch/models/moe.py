@@ -17,7 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_mlp, dense, dense_init
+from repro_torch.models.layers import apply_mlp, dense_init
 
 # an expert pass over weights of another dtype than its activations (the
 # f32 oracle over bf16 weights) casts the experts in groups of about
@@ -71,7 +71,7 @@ def _segment_rank(sorted_ids: torch.Tensor, n: int) -> torch.Tensor:
 def route(params, xt: torch.Tensor, cfg):
     """The f32 softmax router over tokens xt (T, D): (probs (T, E),
     renormalised top-k gates (T, K), expert ids (T, K))."""
-    logits = dense(xt.float(), params["router"]["w"].float())
+    logits = xt.float() @ params["router"]["w"].float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, cfg.moe.num_experts_per_tok,
                                        dim=-1)

@@ -23,9 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.slot_state import slot_gather
-from repro_torch.models.layers import (apply_conv1d, dense, dense_init,
-                                       init_conv1d, slot_conv_window,
-                                       slot_state_scatter)
+from repro_torch.models.layers import (apply_conv1d, dense_init, init_conv1d,
+                                       slot_conv_window, slot_state_scatter)
 
 
 def init_rglru(gen: torch.Generator, cfg, device):
@@ -109,8 +108,8 @@ def apply_rglru(params, x, cfg, *, cache=None, make_cache=False, pos=None,
     view = cache is not None and "conv_view" in cache
     paged = state_slots is not None and cache is not None and not view
 
-    gate = F.gelu(dense(x, params["w_gate"].to(dt)), approximate="tanh")
-    xr = dense(x, params["w_x"].to(dt))
+    gate = F.gelu(x @ params["w_gate"].to(dt), approximate="tanh")
+    xr = x @ params["w_x"].to(dt)
     if view:
         conv0 = cache["conv_view"].to(dt)
         h0 = cache["h_view"].float()
@@ -128,8 +127,8 @@ def apply_rglru(params, x, cfg, *, cache=None, make_cache=False, pos=None,
                                  "conv_b": params["conv_b"]}, xr,
                                 cache=conv_cache)
 
-    r = torch.sigmoid(dense(xr, params["w_r"].to(dt)) + params["b_r"].to(dt))
-    i = torch.sigmoid(dense(xr, params["w_i"].to(dt)) + params["b_i"].to(dt))
+    r = torch.sigmoid(xr @ params["w_r"].to(dt) + params["b_r"].to(dt))
+    i = torch.sigmoid(xr @ params["w_i"].to(dt) + params["b_i"].to(dt))
     lam = params["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -g.gate_c * softplus * r.float()
@@ -150,7 +149,7 @@ def apply_rglru(params, x, cfg, *, cache=None, make_cache=False, pos=None,
         hseq = lru_scan(a, bterm, h0)
         h_last = hseq[:, -1]
 
-    out = dense(hseq.to(dt) * gate, params["w_out"].to(dt))
+    out = (hseq.to(dt) * gate) @ params["w_out"].to(dt)
     if view:
         cache["conv_view"].copy_(slot_conv_window(conv0, xr_raw, valid_len))
         cache["h_view"].copy_(h_last)

@@ -23,9 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.slot_state import slot_gather
 from repro_torch.kernels.ssd_chunk import ssd_chunk_bchp
-from repro_torch.models.layers import (apply_conv1d, apply_norm, dense,
-                                       dense_init, init_conv1d,
-                                       slot_conv_window, slot_state_scatter)
+from repro_torch.models.layers import (apply_conv1d, apply_norm, dense_init,
+                                       init_conv1d, slot_conv_window,
+                                       slot_state_scatter)
 
 
 def _dims(cfg):
@@ -223,7 +223,7 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
     view = cache is not None and "conv_view" in cache
     paged = state_slots is not None and cache is not None and not view
 
-    zxbcdt = dense(x, params["in_proj"].to(dt_))
+    zxbcdt = x @ params["in_proj"].to(dt_)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
     dt_raw = zxbcdt[..., -n_heads:]
@@ -273,7 +273,7 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
     y = y.reshape(b, slen, d_inner)
     # gated RMSNorm (Mamba-2): norm(y * silu(z))
     y = apply_norm(params["norm"], y * F.silu(z), cfg)
-    out = dense(y, params["out_proj"].to(dt_))
+    out = y @ params["out_proj"].to(dt_)
 
     if view:
         cache["conv_view"].copy_(slot_conv_window(conv0, xBC_raw, valid_len))

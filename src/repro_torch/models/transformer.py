@@ -43,7 +43,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
-                                       dense, dense_init, embed_init)
+                                       dense_init, embed_init)
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
@@ -215,8 +215,8 @@ def _unstack(tree, n: int):
 def _logits(params, h, cfg):
     dt = h.dtype
     if cfg.tie_embeddings:
-        return dense(h, params["embed"]["embedding"].to(dt).t())
-    return dense(h, params["lm_head"]["w"].to(dt))
+        return h @ params["embed"]["embedding"].to(dt).t()
+    return h @ params["lm_head"]["w"].to(dt)
 
 
 def embed_tokens(params, tokens, cfg):

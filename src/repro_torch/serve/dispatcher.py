@@ -32,9 +32,13 @@ reclaimed — post-mortem from its quiescent engine after a crash, from
 dispatcher-held submit snapshots after a hang (the engine of a hung
 worker can never be touched again) — and re-dispatched to survivors
 with bounded backoff.  Because the engine samples with stateless
-``fold_in(rid, position)`` keys, the re-decode reproduces the identical
-token stream on any replica: failover is correctness-preserving, and a
-request terminates exactly once (the trace book refuses double
+``fold_in(rid, position)`` keys, the re-decode draws the same keys on
+any replica: in float32 (and on the CPU, where the engine pads one-row
+steps) it reproduces the identical token stream.  In bf16 a row's
+logits depend on the other rows of its batch (the attention sums run in
+another order), so a failed-over stream may part from the fault-free
+one where two logits nearly tie.  Either way a request terminates
+exactly once (the trace book refuses double
 terminals).  Requests whose replica dies under them ``max_attempts``
 times are quarantined with a ``poison`` fault result instead of
 retried forever; per-request queue-wait and e2e deadline budgets are
@@ -623,7 +627,8 @@ class ServeCluster:
         """A fresh Request from a submit snapshot (hang failover: the
         wedged engine's partial progress is unreachable, so the request
         restarts from the original prompt — ``fold_in(rid, position)``
-        sampling regenerates the identical stream).  Absolute deadline
+        sampling draws the same keys, so in float32 it regenerates the
+        identical stream).  Absolute deadline
         instants carry over unchanged."""
         req = Request(prompt=snap.prompt.copy(),
                       max_new_tokens=snap.max_new_tokens, rid=rid,

@@ -636,6 +636,14 @@ class Engine:
                 seq.desync = False
             self._desynced.clear()
 
+    def _rows(self, n: int) -> int:
+        """Rows of a step's tensors for a layout of ``n`` rows.  On the
+        CPU a product of one row goes to a matrix-vector routine that sums
+        in another order than the matrix product, so a sequence alone in
+        a step would get other float32 logits than in a batch (and than
+        the reference's); there a one-row step carries a padding row."""
+        return 2 if n == 1 and self.device.type == "cpu" else n
+
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting on the device: a
         copy from pageable memory would first wait for the stream to
@@ -690,10 +698,10 @@ class Engine:
         n_dec = len(active)
         n_pre = sum(ch.length for ch in plan)
         if n_pre == 0:
-            rows, width = min(k for k in cfg.decode_buckets
-                              if k >= n_dec), 1
+            rows, width = self._rows(min(k for k in cfg.decode_buckets
+                                         if k >= n_dec)), 1
         elif n_dec == 0:
-            rows, width = cfg.prefill_rows, cfg.prefill_chunk
+            rows, width = self._rows(cfg.prefill_rows), cfg.prefill_chunk
         elif self.spec.width1_mixed:
             rows, width = min(k for k in cfg.mixed_buckets
                               if k >= n_dec + n_pre), 1
@@ -824,7 +832,8 @@ class Engine:
         if not rows_seqs:
             self._flush(finished)
             return
-        rows = min(k for k in cfg.decode_buckets if k >= len(rows_seqs))
+        rows = self._rows(min(k for k in cfg.decode_buckets
+                              if k >= len(rows_seqs)))
         meta = np.zeros((6, rows), np.int32)
         pos0, steps, slot, state, rid_row, eos = meta
         eos[:] = -1
@@ -888,8 +897,8 @@ class Engine:
 
     def _warmup(self) -> None:
         cfg = self.cfg
-        shapes = [(b, 1) for b in cfg.decode_buckets]
-        shapes += [(cfg.prefill_rows, cfg.prefill_chunk)]
+        shapes = [(self._rows(b), 1) for b in cfg.decode_buckets]
+        shapes += [(self._rows(cfg.prefill_rows), cfg.prefill_chunk)]
         if self.spec.width1_mixed:
             shapes += [(b, 1) for b in cfg.mixed_buckets]
         else:
@@ -900,7 +909,7 @@ class Engine:
             self._dispatch(np.zeros((rows, width), np.int32), meta,
                            self.kv.table_array([None] * rows))
         if cfg.steps_per_dispatch > 1:
-            for rows in cfg.decode_buckets:
+            for rows in map(self._rows, cfg.decode_buckets):
                 meta = np.zeros((6, rows), np.int32)
                 meta[5] = -1
                 _, _, _, self._slot_buf, self.cache = \

@@ -497,20 +497,17 @@ def test_engine_takes_a_slice_of_one_device(lm):
         Engine(model, params, _ecfg(), devices=())
 
 
-@pytest.mark.parametrize("bias", [False, True])
-def test_dense_rows_do_not_depend_on_the_batch(bias):
-    """``layers.dense``: a row's product is the same bits alone as among
-    other rows (on the CPU a lone row would otherwise go to a
-    matrix-vector routine that sums in another order), so a request's
-    float32 stream does not depend on which replica's batch it rides."""
-    from repro_torch.models.layers import dense
-    g = torch.Generator().manual_seed(0)
-    w = torch.randn(64, 96, generator=g)
-    b = torch.randn(96, generator=g) if bias else None
-    x = torch.randn(9, 1, 64, generator=g)
-    alone = [dense(x[i:i + 1], w, b) for i in range(9)]
-    for m in (2, 3, 8, 9):
-        rows = dense(x[:m], w, b)
-        for i in range(m):
-            assert torch.equal(rows[i:i + 1], alone[i]), (m, i)
-    assert alone[0].shape == (1, 1, 96)
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+def test_a_request_alone_gets_its_batched_stream(lm, mode):
+    """A request served alone runs one-row steps, which the engine pads
+    to two rows on the CPU (a one-row product would go to a
+    matrix-vector routine that sums in another order), so its float32
+    stream is the JAX engine's from the batched run: it does not depend
+    on which replica's batch it rides."""
+    model, params, work, want = lm
+    eng = Engine(model, params, _ecfg(**(SAMPLED if mode == "sampled"
+                                         else {})), device="cpu")
+    assert eng._rows(1) == 2 and eng._rows(3) == 3
+    for i, (p, g) in enumerate(work):
+        res = eng.run([Request(prompt=p.copy(), max_new_tokens=g, rid=i)])
+        assert res[i].tokens == want[mode][i], i

@@ -32,6 +32,7 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.serve.profile_engine",
+           "repro_torch.serve.profile_cluster",
            "repro_torch.serve.faults", "repro_torch.serve.router",
            "repro_torch.serve.dispatcher", "repro_torch.launch.mesh",
            "repro_torch.optim.sgd", "repro_torch.optim.schedules",
