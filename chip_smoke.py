@@ -108,14 +108,29 @@
    all 26 layers; and
    its static path under "pallas" (two batches of 8, kernels 6, 7 and 3
    at hd 256), whose float32 tokens must equal the plain attention's.
-9. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
+   Then it trains full-width recurrentgemma-2b (2.383B params, bf16,
+   remat, "blocked" attention, autograd through the RG-LRU scan) for 8
+   LSGD steps of 4 x 512 tokens through the launcher: finite losses,
+   exactly its kernel-5 launches.
+9. whisper-tiny, the encoder-decoder: kernel 6 at its encoder's shape
+   (B = 8, 1,500 frames, not causal, one query head per kv head at hd
+   64) and its decoder prefills, kernel 7 over its 448-slot self cache
+   and kernel 3 at its 51,865-token vocabulary (a row no 16-byte copy
+   tiles), each against its plain version in both dtypes; then full
+   width under "pallas" serves 16 requests (decoder prompts of 4-64
+   tokens, 32-128 new, each over 1,500 stub frames) as two static
+   batches of 8, twice, with exact launch counts, every bf16 token held
+   to a teacher-forced f32 forward and the float32 tokens equal to the
+   plain attention's; then 8 LSGD steps of 8 x 448 tokens through the
+   launcher, gated as the other trainers.
+10. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
    bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
    gumbel sample (with and without top-k) and a greedy sample each run
    their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
-10. Prints the ``kernels`` JSON line, the card's name and power limit, and
+11. Prints the ``kernels`` JSON line, the card's name and power limit, and
    as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -173,6 +188,13 @@ TRAIN_ARGV = ["--arch", "qwen2-1.5b", "--steps", "8", "--batch", "4",
               "--seq", "512", "--sync-mode", "lsgd", "--optimizer", "sgd",
               "--base-lr", "0.01", "--schedule", "const", "--log-every", "1",
               "--seed", "0", "--device", "cuda"]
+# the same phase for the RG-LRU hybrid (full width, 26 layers: remat,
+# "blocked" attention, autograd through the RG-LRU scan) and for
+# whisper-tiny (full width: 4 + 4 layers over 1,500 stub frames, batch 8
+# x 448 decoder tokens)
+RG_TRAIN_ARGV = ["--arch", "recurrentgemma-2b"] + TRAIN_ARGV[2:]
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--steps", "8", "--batch",
+                      "8", "--seq", "448"] + TRAIN_ARGV[8:]
 # virtual CSGD vs LSGD on the card: full width cut to 2 layers, float32
 # (TF32 off), 4 workers of 1 x 256 tokens in groups of 2, 3 steps; the
 # bound of tests/test_equivalence.py
@@ -218,6 +240,14 @@ STATIC_BATCH = 8
 STATIC_PAD = 16
 
 SEED = 0
+
+# whisper-tiny's static path: 16 requests of 4-64 decoder prompt tokens
+# and 32-128 new tokens, each over its own 1,500 stub frames, served as
+# two static batches of 8 with a 448-slot self cache (Whisper's decoder
+# context)
+WHISPER = "whisper-tiny"
+WHISPER_PROMPT_LENS = (4, 64)
+WHISPER_CACHE = 448
 
 # the cluster phase: two replicas share cuda:0 (ServeCluster's
 # round-robin single-device slices) at depth 8; a kill or a hang at a
@@ -802,33 +832,36 @@ def phase_decode_view(torch, timer, cfg, ec):
     return results
 
 
-def phase_greedy(torch, timer, cfg, ec):
-    """Kernel 3 at every row count the engine samples (its step shapes)
-    and at 1 and 64 rows, with exact ties planted across the threads'
-    stride, on both sides of every edge between the slices of the plan's
-    cluster size (``greedy_plan``) and at the ragged vocab edge: the
-    lowest column must win.  Then NaN and all -inf rows.  Each layout is
+def phase_greedy(torch, timer, cfg, ec, rows=None):
+    """Kernel 3 at every row count the engine samples (its step shapes;
+    ``rows`` where no engine serves ``cfg``) and at 1 and 64 rows, with
+    exact ties planted across the threads' stride, on both sides of
+    every edge between the slices of the plan's cluster size
+    (``greedy_plan``) and at the ragged vocab edge: the lowest column
+    must win.  Then NaN and all -inf rows.  Each layout is
     one kernel node a call in a captured CUDA graph."""
     from repro_torch.kernels import sampling as sp
     from repro_torch.kernels._common import sm_count
     V = cfg.vocab_size
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     out = {}
-    for b in sorted({1, 64} | {rows for rows, _ in step_shapes(ec, cfg)}):
+    if rows is None:
+        rows = [b for b, _ in step_shapes(ec, cfg)]
+    for b in sorted({1, 64} | set(rows)):
         lg = torch.randn((b, V), generator=g, device="cuda") * 3
         top = lg.max().item() + 1.0
         plan = sp.greedy_plan(b, V, sm_count(0))
         sl = sp.gumbel_slice(V, plan)
         # the first column of each slice but the first (or the middle)
         starts = [k * sl for k in range(1, plan) if k * sl < V] or [V // 2]
-        rows, cols = [], []
+        at, cols = [], []
         for r in range(b):
             e = starts[r % len(starts)]
             planted = ([(7 + 256 * r) % V, V - 1, (5000 + 33 * r) % V],
                        [e - 1, e, V - 1], [e, V - 1])[r % 3]
-            rows += [r] * len(planted)
+            at += [r] * len(planted)
             cols += planted
-        lg[torch.tensor(rows, device="cuda"),
+        lg[torch.tensor(at, device="cuda"),
            torch.tensor(cols, device="cuda")] = top
         got = sp.greedy_sample(lg)
         want = sp.greedy_sample_plain(lg)
@@ -1210,22 +1243,28 @@ def _fused_update_ragged(torch):
 
 
 def phase_fused_update(torch, timer, cfg):
-    """Kernel 5 at two layouts: every leaf of full-width qwen2-1.5b (14
-    leaves, bf16 w), whose numbers fill the kernel's JSON row, and every
-    leaf of ResNet-50 (161 leaves, f32 w; 106 of them batch-norm scales
-    and biases of 64-2048 floats); then the ragged set."""
+    """Kernel 5 over every leaf of each tree the trainers update, at full
+    width: qwen2-1.5b (14 leaves, bf16 w), whose numbers fill the
+    kernel's JSON row; ResNet-50 (161 leaves, f32 w; 106 of them
+    batch-norm scales and biases of 64-2048 floats); recurrentgemma-2b
+    (bf16 w, 2.383B params, a 655M-element embedding); whisper-tiny (bf16
+    w, the stacked encoder and decoder leaves, 384-wide layernorm biases,
+    a 51,865 x 384 embedding); then the ragged set.  The JSON row's error
+    is the worst over all of them."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     out = {}
-    for label, c in (("qwen2-1.5b", cfg), ("resnet50",
-                                           get_config("resnet50"))):
+    for label in (cfg.name, "resnet50", RGEMMA, WHISPER):
+        c = cfg if label == cfg.name else get_config(label)
         params = build_model(c).init(SEED, "cuda")
         out[label] = _fused_update_layout(torch, timer, label,
                                           list(_leaves(params)))
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
     row = out[cfg.name]
-    row["max_abs_err"] = max(row["max_abs_err"], out["resnet50"][
-        "max_abs_err"], _fused_update_ragged(torch))
+    row["max_abs_err"] = max([r["max_abs_err"] for r in out.values()]
+                             + [_fused_update_ragged(torch)])
     return row
 
 
@@ -1673,18 +1712,20 @@ def _update_launches(state) -> int:
     return fu.launches_per_call(keys)
 
 
-def phase_train(torch):
+def phase_train(torch, argv=TRAIN_ARGV):
     """The training main path: ``repro_torch.launch.train`` with
-    TRAIN_ARGV (LSGD, fused SGD), every launch count set to 0 just before
-    and read just after.  The loss must be finite at every step, and
-    kernel 5 must have launched exactly its launches a call for each of
-    the 7 deferred updates and ``finalize``."""
+    ``argv`` (TRAIN_ARGV, RG_TRAIN_ARGV or WHISPER_TRAIN_ARGV: LSGD,
+    fused SGD), every launch count set to 0 just before and read just
+    after.  The loss must be finite at every step, and kernel 5 must
+    have launched exactly its launches a call for each of the 7 deferred
+    updates and ``finalize``."""
     import statistics
 
     from repro_torch import kernels
     from repro_torch.launch import train
+    args = train.parse_args(argv)
     kernels.reset_launch_counts()
-    out = train.main(TRAIN_ARGV)
+    out = train.main(argv)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     losses, step_s = out["losses"], out["step_s"]
@@ -1699,8 +1740,9 @@ def phase_train(torch):
     res = dict(loss_first=losses[0], loss_last=losses[-1], step_ms=med * 1e3,
                tokens_per_s=out["tokens_per_step"] / med,
                peak_gb=out["peak_mem_bytes"] / 1e9, launches=counts)
-    print(f"[train] qwen2-1.5b full width, {out['params'] / 1e9:.3f}B params"
-          f" bf16, batch 4 x 512, lsgd, fused sgd: loss first "
+    print(f"[train] {args.arch} full width, {out['params'] / 1e9:.3f}B "
+          f"params bf16, batch {args.batch} x {args.seq}, lsgd, fused sgd: "
+          f"loss first "
           f"{losses[0]:.4f} last {losses[-1]:.4f}; step ms (median of the "
           f"last 6) {res['step_ms']:.1f}; train tok/s "
           f"{res['tokens_per_s']:.0f}; peak memory {res['peak_gb']:.2f} GB;"
@@ -1869,17 +1911,22 @@ def phase_flash_attention(torch, timer, cfg, work):
     float32, plus a 512-token window-128 case, a window case whose rows
     past Sk + window - 1 see no key (bf16 and f32: they must get the
     plain version's mean of v), a non-causal Sq 64 / Sk 320 case and an
-    hd-64 case, and with a window a LONG_PREFILL-token prefill past it
-    (B = 2, both dtypes), each held to the plain version within
-    ``compare_attn``'s bound for its dtype; each prints the share of the
-    bf16 tensor-core rate and of the byte bound its time reaches.
+    hd-64 case, with a window a LONG_PREFILL-token prefill past it (B =
+    2, both dtypes), and for an encoder-decoder its encoder's self
+    attention (B = 8, Sq = Sk = the stub frames, not causal, both
+    dtypes), each held to the plain version within ``compare_attn``'s
+    bound for its dtype; each prints the share of the bf16 tensor-core
+    rate and of the byte bound its time reaches.
     Library yardstick: scaled_dot_product_attention (is_causal,
     enable_gqa; a boolean mask for the windows)."""
     from repro_torch.kernels import flash_attention as fa
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     W = attn_window(cfg)
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    cases = []
+    se = cfg.encoder_seq_len
+    cases = [(f"encoder S={se} {str(dt)[6:]}", STATIC_BATCH, se, se, H, KV,
+              HD, False, 0, dt) for dt in (torch.bfloat16, torch.float32)
+             if cfg.is_encoder_decoder]
     for _, _, pmax, _ in static_batches(work):
         for dt in (torch.bfloat16, torch.float32):
             cases.append((f"prefill S={pmax} {str(dt)[6:]}", STATIC_BATCH,
@@ -1948,10 +1995,11 @@ def phase_flash_attention(torch, timer, cfg, work):
     return results
 
 
-def phase_flash_decode_bhd(torch, timer, cfg, work):
+def phase_flash_decode_bhd(torch, timer, cfg, work, cache_len=0):
     """Kernel 7 at the static decode's shape for ``cfg`` (B = 8, its
-    heads, kv heads and head dim, S = each static batch's cache_len, cut
-    to the attention window where one binds: the cache is then a ring)
+    heads, kv heads and head dim, S = each static batch's cache_len, or
+    ``cache_len`` where the path fixes one, cut to the attention window
+    where one binds: the cache is then a ring)
     with ``length`` 1, S // 2 and S, in bfloat16 (tensor cores) and
     float32 (CUDA cores), plus a case per template that runs unsplit
     (160 / KV rows; 8 rows over 128 slots), and with a window a full
@@ -1968,8 +2016,10 @@ def phase_flash_decode_bhd(torch, timer, cfg, work):
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     b = STATIC_BATCH
     cases = []
-    for _, _, pmax, gmax in static_batches(work):
-        s = min(pmax + gmax, W) if W else pmax + gmax
+    sizes = dict.fromkeys(cache_len or pmax + gmax
+                          for _, _, pmax, gmax in static_batches(work))
+    for s in sizes:
+        s = min(s, W) if W else s
         for dt in (torch.bfloat16, torch.float32):
             for length in (1, s // 2, s):
                 cases.append((f"S={s} length={length} {str(dt)[6:]}", b, s,
@@ -2035,10 +2085,12 @@ def phase_flash_decode_bhd(torch, timer, cfg, work):
     return results
 
 
-def _static_once(torch, model, params, batches):
+def _static_once(torch, model, params, batches, cache_len=0, audio=None):
     """One static-batch run through the non-paged entry point (as
-    run_static): per batch ``prefill`` with cache_len = pmax + gmax, the
-    first token greedy from the last prompt position, then gmax - 1
+    run_static): per batch ``prefill`` with cache_len = pmax + gmax (or
+    ``cache_len``; an encoder-decoder's prefill also reads the rows of
+    ``audio``, the requests' stub frames), the first token greedy from
+    the last prompt position, then gmax - 1
     ``decode_step`` calls at positions pmax, pmax + 1, ... (a device
     tensor: no host read inside the loop), every token through
     ``greedy_sample``.  Every launch count is set to 0 just before and
@@ -2053,8 +2105,11 @@ def _static_once(torch, model, params, batches):
     for toks, rows, pmax, gmax in batches:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        logits, cache = model.prefill(params, torch.from_numpy(toks).cuda(),
-                                      cache_len=pmax + gmax)
+        inputs = torch.from_numpy(toks).cuda()
+        if audio is not None:
+            inputs = {"audio_embeds": audio[rows], "tokens": inputs}
+        logits, cache = model.prefill(params, inputs,
+                                      cache_len=cache_len or pmax + gmax)
         tok = greedy_sample(logits[:, -1].float().contiguous())
         ev[1].record()
         out = [tok]
@@ -2077,42 +2132,58 @@ def _static_once(torch, model, params, batches):
 
 
 def phase_serve_static(torch, cfg, f32_equal=False):
-    """The static-batch main path: full-width ``cfg`` (qwen2-1.5b, or
-    recurrentgemma-2b) under attn_impl="pallas" (bf16, random weights
-    from SEED), the serving phase's 16 requests in two static batches of
-    8, run twice (the streams must repeat), with exact launch counts —
-    flash_attention once per attention layer and batch, flash_decode
-    once per attention layer and decode step, greedy_sample once per
-    step, nothing else — so no plain version ran on the card; then every
+    """The static-batch main path: full-width ``cfg`` (qwen2-1.5b,
+    recurrentgemma-2b or whisper-tiny) under attn_impl="pallas" (bf16,
+    random weights from SEED), 16 requests in two static batches of 8
+    (the serving phase's; for an encoder-decoder prompts of
+    WHISPER_PROMPT_LENS tokens, each request over its own stub frames
+    from SEED, with a WHISPER_CACHE-slot
+    self cache), run twice (the streams must repeat), with exact launch
+    counts — flash_attention once per attention layer (encoder layers
+    included, not causal) and batch, flash_decode once per decoder
+    attention layer and decode step, greedy_sample once per step,
+    nothing else — so no plain version ran on the card; then every
     emitted token against a teacher-forced f32 forward of the plain
     (naive) model over the padded prompt and the emitted stream.  With
     ``f32_equal`` the same batches run once more in float32 (TF32 off)
     under "pallas" (the kernels' f32 templates) and under "naive" (the
-    plain attention, no kernel), whose greedy tokens must be equal."""
+    plain attention, no kernel), whose greedy tokens must be equal.  An
+    encoder-decoder's cross attention is plain PyTorch on every path, as
+    in the reference."""
     from repro_torch import kernels
     from repro_torch.models.model import build_model
-    from repro_torch.serve.profile_engine import workload
+    from repro_torch.serve.profile_engine import PROMPT_LENS, workload
     pcfg = cfg.replace(attn_impl="pallas")
     model = build_model(pcfg)
     params = model.init(SEED, "cuda")
-    work = workload(pcfg.vocab_size, SEED)
+    encdec = cfg.is_encoder_decoder
+    work = workload(pcfg.vocab_size, SEED,
+                    WHISPER_PROMPT_LENS if encdec else PROMPT_LENS)
+    cache_len, audio32 = 0, None
+    if encdec:
+        cache_len = WHISPER_CACHE
+        g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        audio32 = torch.randn((len(work), cfg.encoder_seq_len, cfg.d_model),
+                              generator=g, device="cuda")
+    audio = audio32.to(pcfg.cdtype) if encdec else None
     batches = static_batches(work)
     L = sum(n for kind, _, n in _runs(pcfg)
             if kind in ("attn", "local_attn"))
     want = {fn.__name__: 0 for fn in kernels.KERNELS}
-    want.update(flash_attention=L * len(batches),
+    want.update(flash_attention=(L + cfg.encoder_layers) * len(batches),
                 flash_decode=L * sum(g - 1 for *_, g in batches),
                 greedy_sample=sum(g for *_, g in batches))
     useful = sum(n for _, n in work)
     runs = []
     for rep in range(2):
         streams, counts, wall, pre_ms, dec_ms = _static_once(
-            torch, model, params, batches)
+            torch, model, params, batches, cache_len, audio)
         if counts != want:
             fail(f"static run {rep}: launches {counts}, want {want}")
         runs.append(streams)
         print(f"[serve_static] run={rep} {pcfg.name} pallas batches="
               f"{[(p, g) for _, _, p, g in batches]} (pmax, gmax) "
+              f"cache_len={cache_len or 'pmax + gmax'} "
               f"requests={len(work)} useful_tokens={useful} wall_s="
               f"{wall:.3f} tok_s={useful / wall:.1f} prefill_ms per batch "
               f"{[round(x, 2) for x in pre_ms]} decode_ms per step "
@@ -2122,8 +2193,12 @@ def phase_serve_static(torch, cfg, f32_equal=False):
         fail("static serving: a repeat gave other streams")
     padded = [(toks[j], gmax) for toks, rows, _, gmax in batches
               for j in range(len(rows))]
-    _teacher_forced_check(torch, build_model(cfg.replace(attn_impl="naive")),
-                          params, padded, [runs[0]], [])
+    if encdec:
+        _teacher_forced_encdec(torch, pcfg, params, audio, padded, runs[0])
+    else:
+        _teacher_forced_check(torch,
+                              build_model(cfg.replace(attn_impl="naive")),
+                              params, padded, [runs[0]], [])
     if f32_equal:
         p32 = _cast(params, torch.float32)
         del params
@@ -2134,7 +2209,7 @@ def phase_serve_static(torch, cfg, f32_equal=False):
                                               param_dtype="float32",
                                               compute_dtype="float32"))
                 streams, got, wall, pre_ms, dec_ms = _static_once(
-                    torch, m32, p32, batches)
+                    torch, m32, p32, batches, cache_len, audio32)
                 if got != (want if impl == "pallas" else
                            dict(want, flash_attention=0, flash_decode=0)):
                     fail(f"static f32 {impl}: launches {got}")
@@ -2154,6 +2229,41 @@ def phase_serve_static(torch, cfg, f32_equal=False):
     else:
         del params
     return counts
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder's static path: its teacher-forced check
+# ---------------------------------------------------------------------------
+
+
+@float32_exact()
+def _teacher_forced_encdec(torch, cfg, params, audio, padded, streams):
+    """Every emitted token of an encoder-decoder against a plain (naive)
+    f32 forward of the same weights over request i's stub frames
+    (``audio[i]``, the served bf16 frames upcast), padded prompt
+    (``padded[i]``) and emitted stream (``streams[i]``): its logit
+    within TF_LOGIT_TOL of the row max, and at least TF_ARGMAX_FLOOR of
+    them the row's argmax."""
+    from repro_torch.models import encdec
+    cfg32 = cfg.replace(attn_impl="naive", param_dtype="float32",
+                        compute_dtype="float32")
+    p32 = _cast(params, torch.float32)
+    worst, agree, total = 0.0, 0, 0
+    with torch.no_grad():
+        for i, (prompt, _) in enumerate(padded):
+            seq = list(prompt) + streams[i]
+            toks = torch.tensor([seq[:-1]], device="cuda")
+            enc = encdec.encode(p32, audio[i:i + 1].float(), cfg32)
+            logits, _ = encdec.decoder_forward(p32, toks, enc, cfg32)
+            w, a = _greedy_scores(logits[0, len(prompt) - 1:].float(),
+                                  torch.tensor(streams[i], device="cuda"))
+            worst, agree = max(worst, w), agree + a
+            total += len(streams[i])
+    del p32
+    print(f"[serve] {cfg.name} teacher-forced f32 check: greedy {total} "
+          f"tokens, {agree / total:.4f} equal to the f32 argmax (floor "
+          f"{TF_ARGMAX_FLOOR}), worst logit deficit {worst:.4f} (tolerance "
+          f"{TF_LOGIT_TOL})", flush=True)
+    _greedy_gates(cfg.name, worst, agree, total)
 
 
 # ---------------------------------------------------------------------------
@@ -2796,6 +2906,27 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def _greedy_scores(rows, emitted):
+    """f32 logit rows (T, V) of a stream against its emitted greedy tokens
+    (T,): (the worst deficit of an emitted token's logit below its row's
+    max, how many of them are the row's argmax)."""
+    chosen = rows.gather(1, emitted[:, None])[:, 0]
+    return ((rows.max(-1).values - chosen).max().item(),
+            int((rows.argmax(-1) == emitted).sum().item()))
+
+
+def _greedy_gates(label, worst, agree, total, argmax_floor=TF_ARGMAX_FLOOR):
+    """The teacher-forced gates of greedy tokens: the worst deficit within
+    TF_LOGIT_TOL, and at least ``argmax_floor`` of the tokens (None: no
+    floor) the f32 argmax."""
+    if not (worst <= TF_LOGIT_TOL):
+        fail(f"{label}: emitted token logit deficit {worst} > "
+             f"{TF_LOGIT_TOL}")
+    if argmax_floor is not None and not (agree / total >= argmax_floor):
+        fail(f"{label}: emitted tokens equal to the f32 argmax: "
+             f"{agree / total} < {argmax_floor}")
+
+
 @float32_exact()
 def _teacher_forced_check(torch, model, params, work, greedy, sampled,
                           argmax_floor=TF_ARGMAX_FLOOR, routes=None):
@@ -2853,7 +2984,7 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
                     if routes is not None:
                         # the f32 router's own choice, then the served one
                         natural.clear()
-                        own, _, _ = transformer.forward(p32, toks, cfg32,
+                        own, _, _, _ = transformer.forward(p32, toks, cfg32,
                                                         dropless=True)
                         try:
                             per_pos = [routes[j][(i, p)]
@@ -2870,17 +3001,16 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
                             flips += int(differ.sum().item())
                             routed += a.shape[0]
                     natural.clear()
-                    logits, _, _ = transformer.forward(
+                    logits, _, _, _ = transformer.forward(
                         p32, toks, cfg32, dropless=routes is not None)
                     rows = logits[0, len(prompt) - 1:].float()
                     emitted = torch.tensor(out[i], device="cuda")
-                    chosen = rows.gather(1, emitted[:, None])[:, 0]
                     if is_greedy:
-                        gap = rows.max(-1).values - chosen
-                        worst = max(worst, gap.max().item())
-                        agree += int((rows.argmax(-1) == emitted).sum().item())
+                        w, a = _greedy_scores(rows, emitted)
+                        worst, agree = max(worst, w), agree + a
                         total += len(out[i])
                     else:
+                        chosen = rows.gather(1, emitted[:, None])[:, 0]
                         kth = torch.topk(rows, SAMPLE_TOP_K, -1).values
                         gap = kth[:, -1] - chosen
                         worst_k = max(worst_k, gap.max().item())
@@ -2920,11 +3050,7 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
               f"{by_flip[False][2]}, {by_flip[False][0]:.4f}, "
               f"{by_flip[False][1]:.4f}; peak memory of the check "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    if not (worst <= TF_LOGIT_TOL):
-        fail(f"emitted token logit deficit {worst} > {TF_LOGIT_TOL}")
-    if argmax_floor is not None and not (agree / total >= argmax_floor):
-        fail(f"emitted tokens equal to the f32 argmax: {agree / total} < "
-             f"{argmax_floor}")
+    _greedy_gates(model.cfg.name, worst, agree, total, argmax_floor)
     if not (worst_k <= TF_TOPK_MARGIN):
         fail(f"a sampled token's logit sits {worst_k} below the f32 "
              f"top-{SAMPLE_TOP_K} kth value (margin {TF_TOPK_MARGIN})")
@@ -3260,6 +3386,19 @@ def main() -> int:
         launches[name] += r_launches[name]
     for name in ("flash_attention", "flash_decode"):
         launches[name] += rs_launches[name]
+    rt = phase(phase_train, torch, RG_TRAIN_ARGV)
+    wcfg = get_config(WHISPER)
+    wwork = workload(wcfg.vocab_size, SEED, WHISPER_PROMPT_LENS)
+    fa += phase(phase_flash_attention, torch, timer, wcfg, wwork)
+    fdb += phase(phase_flash_decode_bhd, torch, timer, wcfg, wwork,
+                 WHISPER_CACHE)
+    phase(phase_greedy, torch, timer, wcfg, ec, [STATIC_BATCH])
+    w_launches = phase(phase_serve_static, torch, wcfg, True)
+    wt = phase(phase_train, torch, WHISPER_TRAIN_ARGV)
+    for name in ("flash_attention", "flash_decode", "greedy_sample"):
+        launches[name] += w_launches[name]
+    launches["fused_sgd_update"] += (rt["launches"]["fused_sgd_update"]
+                                     + wt["launches"]["fused_sgd_update"])
     phase(phase_census, torch, cfg, mcfg, ec)
 
     def row(results, label):

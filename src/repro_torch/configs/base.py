@@ -168,7 +168,8 @@ def _load_all():
     # the port registers only the archs it runs so far (ROADMAP §1)
     from repro_torch.configs import (deepseek_v3_671b,  # noqa: F401
                                      mamba2_370m, qwen1_5_0_5b, qwen2_1_5b,
-                                     recurrentgemma_2b, resnet50)
+                                     recurrentgemma_2b, resnet50,
+                                     whisper_tiny)
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

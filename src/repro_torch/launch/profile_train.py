@@ -1,8 +1,11 @@
 """Where a training step's time goes on the card: builds the trainer of
 ``repro_torch.launch.train`` from the same flags (default: full-width
 qwen2-1.5b, batch 4 x 512, LSGD, fused SGD, lr 0.01; ``--arch resnet50
---batch 64`` trains ResNet-50 on 224 x 224 images), takes a few warm
-steps on batches already on the card (no host loader), then profiles
+--batch 64`` trains ResNet-50 on 224 x 224 images, ``--arch
+recurrentgemma-2b`` the RG-LRU hybrid, ``--arch whisper-tiny --batch 8
+--seq 448`` the encoder-decoder over 1,500 stub frames a row), takes a
+few warm steps on batches already on the card (no host loader), then
+profiles
 ``--steps`` steps under ``torch.profiler`` (device activity only) and
 prints one JSON line: step time, the device's busy and idle shares,
 kernel time by group and the top kernels.  The groups, first match

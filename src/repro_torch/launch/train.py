@@ -12,15 +12,23 @@
         --device cpu --sync-mode lsgd --intra-group-size 2
 
     # ResNet-50, the paper's model: 224 x 224 images, batch 64, f32
-    python -m repro_torch.launch.train --arch resnet50 --steps 8 \
+    python -m repro_torch.launch.train --arch resnet50 --steps 8 \\
         --batch 64 --ckpt-dir ckpt --ckpt-every 4
+
+    # the RG-LRU hybrid, and whisper-tiny (each row 1,500 stub frames
+    # and --seq decoder tokens)
+    python -m repro_torch.launch.train --arch recurrentgemma-2b \\
+        --steps 8 --batch 4 --seq 512 --base-lr 0.01
+    python -m repro_torch.launch.train --arch whisper-tiny --steps 8 \\
+        --batch 8 --seq 448 --base-lr 0.01
 
 One process per rank: under ``torchrun`` (``WORLD_SIZE`` > 1) each rank
 joins the process group at ``MASTER_ADDR:MASTER_PORT``, takes rows
 [r*B/N, (r+1)*B/N) of each global batch, and the trainer syncs
 gradients across ranks.  The data is the reference's synthetic stream
-(``data_config_for``: zipf tokens, or images and labels for ResNet), a
-pure function of (seed, step).  SGD and LARS run through the fused CUDA
+(``data_config_for``: zipf tokens, frame embeddings and tokens for
+whisper, or images and labels for ResNet), a pure function of (seed,
+step).  SGD and LARS run through the fused CUDA
 update.  With ``--ckpt-dir`` the run restores the newest checkpoint
 there when one exists, saves every ``--ckpt-every`` steps and after
 ``finalize``, as the reference does (its data stream, too, starts again

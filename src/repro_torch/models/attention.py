@@ -1,14 +1,20 @@
-"""Attention of the dense GQA decoder (``repro/models/attention.py``):
-QKV projection with optional bias, rope, and four forms — full sequence
-(training and the non-paged prefill, which can also build a contiguous
-cache), one-token decode over that contiguous cache (the non-paged
-``decode_step``), paged block pools (the fused serving step) and per-row
-contiguous views (the N-step decode loop).
+"""Attention of the dense GQA decoder and of the encoder-decoder
+(``repro/models/attention.py``): QKV projection with optional bias, rope
+(or none: the encoder-decoder adds sinusoidal positions to its
+embeddings), and four self-attention forms — full sequence, causal or
+not (training and the non-paged prefill, which can also build a
+contiguous cache), one-token decode over that contiguous cache (the
+non-paged ``decode_step``), paged block pools (the fused serving step)
+and per-row contiguous views (the N-step decode loop) — plus cross
+attention over the K/V that ``make_cross_cache`` projects from an
+encoder output (``cross=True``, at any query length).
 
-The full-sequence form follows ``cfg.attn_impl`` as the reference does:
-``"pallas"`` runs the flash-attention kernel (forward only),
-``"blocked"`` the online-softmax ``blocked_attention``, anything else
-``naive_attention``.  The cache forms update their K/V storage in place
+The full-sequence self-attention follows ``cfg.attn_impl`` as the
+reference does: ``"pallas"`` runs the flash-attention kernel (forward
+only), ``"blocked"`` the online-softmax ``blocked_attention``, anything
+else ``naive_attention``.  Cross attention is ``naive_attention`` in
+every form, as in the reference, whose kernels are self-attention only.
+The cache forms update their K/V storage in place
 (``index_put_`` / ``index_copy_``) instead of returning fresh copies as
 the JAX package does: caches, pools and views are large and owned by the
 caller, who gets the same tensors back.
@@ -23,9 +29,28 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_view import decode_view_attend
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
-from repro_torch.models.layers import apply_rope, rope_table
+from repro_torch.models.layers import apply_rope, dense_init, rope_table
 
 NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg, device, n: int):
+    """n layers' GQA attention params, each leaf drawn for its n layers
+    in turn and stacked: wq, wk, wv, wo, and zero q/k/v biases under
+    ``cfg.qkv_bias``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv, pd = cfg.num_heads, cfg.num_kv_heads, cfg.pdtype
+
+    def stacked(shape):
+        return torch.stack([dense_init(gen, shape, pd, device)
+                            for _ in range(n)])
+
+    p = {"wq": stacked((d, h * hd)), "wk": stacked((d, kv * hd)),
+         "wv": stacked((d, kv * hd)), "wo": stacked((h * hd, d))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = torch.zeros((n, width), dtype=pd, device=device)
+    return p
 
 
 def _group(q: torch.Tensor, num_kv: int) -> torch.Tensor:
@@ -163,19 +188,30 @@ def paged_write_indices(positions, block_tables, block_size, valid_len):
     return blk, (positions % block_size).long()
 
 
-def _qkv(params, x, cfg, num_heads, num_kv):
-    hd = cfg.head_dim
+def _proj(params, x, w, bias):
+    """x @ w (+ bias) as one product with the bias in its epilogue."""
     dt = x.dtype
+    return F.linear(x, params[w].to(dt).t(),
+                    params[bias].to(dt) if bias in params else None)
 
-    def proj(w, bias):
-        # x @ w (+ bias) as one product with the bias in its epilogue
-        return F.linear(x, params[w].to(dt).t(),
-                        params[bias].to(dt) if bias in params else None)
 
-    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+def _qkv(params, x, cfg, num_heads, num_kv):
+    """Q, K and V of x."""
+    hd = cfg.head_dim
+    q = _proj(params, x, "wq", "bq")
+    k, v = _proj(params, x, "wk", "bk"), _proj(params, x, "wv", "bv")
     b, s = x.shape[:2]
     return (q.reshape(b, s, num_heads, hd), k.reshape(b, s, num_kv, hd),
             v.reshape(b, s, num_kv, hd))
+
+
+def make_cross_cache(params, kv_x, cfg):
+    """Cross-attention K/V of an encoder output kv_x (B, S, D), no rope:
+    {"k", "v"} of (B, S, KV, hd), what every decode step attends."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    b, s = kv_x.shape[:2]
+    return {"k": _proj(params, kv_x, "wk", "bk").reshape(b, s, kv, hd),
+            "v": _proj(params, kv_x, "wv", "bv").reshape(b, s, kv, hd)}
 
 
 def shared_inputs(cfg, x_len: int, device, *, cache=None,
@@ -219,16 +255,22 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
 
 
 def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
+                    causal: bool = True, cross: bool = False,
                     cache=None, block_tables=None, pos=None,
                     make_cache: bool = False, cache_len: int = 0):
     """Returns (y, cache).  ``rope`` and ``write`` come from
-    ``shared_inputs`` for the same cache form.
+    ``shared_inputs`` for the same cache form; ``rope`` None applies
+    none.
 
-    cache None: full-sequence causal attention over x (B,S,D) by
-      ``cfg.attn_impl``; with ``make_cache`` the returned cache is a
+    cache None: full-sequence attention over x (B,S,D) by
+      ``cfg.attn_impl``, causal unless ``causal`` is False (the
+      encoder); with ``make_cache`` the returned cache is a
       fresh contiguous {"k", "v"} of (B, Sc, KV, hd), Sc = ``cache_len``
       (or S) cut to the window, position p at slot p % Sc (the last Sc
       positions when S >= Sc).
+    cache {"k", "v"}, ``cross``: cross attention of x (B,C,D) over the
+      K/V of ``make_cross_cache``, unmasked, no rope; nothing is
+      written (the encoder-decoder's training, prefill and decode).
     cache {"k", "v"} without block_tables: the non-paged decode; x
       (B,1,D), pos a 0-d int tensor on x's device; the token's K/V go to slot pos % Sc
       (``write``), then it attends the cache — through the
@@ -244,19 +286,25 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b, c = x.shape[:2]
+    if cross and cache is not None:
+        q = _proj(params, x, "wq", "bq").reshape(b, c, h, hd)
+        o = naive_attention(_group(q, kv), cache["k"], cache["v"],
+                            causal=False)
+        return o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype), cache
     q, k, v = _qkv(params, x, cfg, h, kv)
-    q = apply_rope(q, rope)
-    k = apply_rope(k, rope)
+    if rope is not None:
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
 
     if cache is None:
         if cfg.attn_impl == "pallas":
-            o = flash_attention(q, k, v, causal=True, window=window)
+            o = flash_attention(q, k, v, causal=causal, window=window)
         elif cfg.attn_impl == "blocked":
-            o = blocked_attention(_group(q, kv), k, v, causal=True,
+            o = blocked_attention(_group(q, kv), k, v, causal=causal,
                                   window=window, block_q=cfg.attn_block_q,
                                   block_kv=cfg.attn_block_kv)
         else:
-            o = naive_attention(_group(q, kv), k, v, causal=True,
+            o = naive_attention(_group(q, kv), k, v, causal=causal,
                                 window=window)
         y = o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype)
         return y, (_contiguous_cache(k, v, cache_len, window)

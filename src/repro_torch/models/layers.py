@@ -1,6 +1,7 @@
-"""Shared building blocks: inits, rmsnorm, the swiglu and gelu MLPs, rotary
-embeddings, the depthwise causal conv with its slot-state helpers, and
-the cross-entropy loss (``repro/models/layers.py``)."""
+"""Shared building blocks: inits, rmsnorm and layernorm, the swiglu and
+gelu MLPs, rotary and sinusoidal position embeddings, the depthwise
+causal conv with its slot-state helpers, and the cross-entropy loss
+(``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
@@ -28,6 +29,16 @@ def embed_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
     return (w * scale).to(dtype)
+
+
+def init_norm(dim: int, cfg, device, n: int = 0):
+    """A norm's params: a unit scale, and for ``cfg.norm == "layernorm"``
+    a zero bias; stacked on a leading axis of n layers when n > 0."""
+    shape = ((n,) if n else ()) + (dim,)
+    p = {"scale": torch.ones(shape, dtype=cfg.pdtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=cfg.pdtype, device=device)
+    return p
 
 
 def apply_norm(params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -79,6 +90,22 @@ def apply_rope(x: torch.Tensor, table) -> torch.Tensor:
     x32 = x.float()
     out = x32 * cos + x32.roll(x.shape[-1] // 2, dims=-1) * sin
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(positions: torch.Tensor, dim: int, dtype):
+    """The classic transformer's sinusoidal embeddings, (..., S, dim) for
+    positions (..., S): [sin, cos] of position x 10000^(-i / (dim/2 -
+    1)), zero-padded by one column for an odd dim."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(half - 1, 1))
+    args = positions[..., None].float() * freqs
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb.to(dtype)
 
 
 # ---------------------------------------------------------------------------

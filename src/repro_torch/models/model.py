@@ -1,11 +1,15 @@
 """Model interface of the port for the dense, ssm, MLA + MoE and RG-LRU
-hybrid families and ResNet (``repro/models/model.py``):
-``build_model(cfg)`` returns a ``Model`` whose members are plain
-functions over a nested dict of tensors.  ResNet trains only: its serving members are None, as the
-reference's are.
+hybrid families, the encoder-decoder (audio) family and ResNet
+(``repro/models/model.py``): ``build_model(cfg)`` returns a ``Model``
+whose members are plain functions over a nested dict of tensors.
+ResNet trains only: its serving members are None, as the reference's
+are.  The audio family (whisper) trains and serves through the static
+entry point only: its forward and paged members and ``paged_spec`` are
+None, as the reference gives it no paged engine; its ``prefill`` takes
+a batch {"audio_embeds", "tokens"} in place of the tokens.
 
   init(seed, device)                        -> params
-  forward(params, tokens, ...)              -> (logits, cache, h)
+  forward(params, tokens, ...)              -> (logits, cache, aux, h)
   init_cache(batch, cache_len, device=...)  -> contiguous decode state
   prefill(params, tokens, cache_len)        -> (logits, cache)
   decode_step(params, cache, tokens, pos)   -> (logits (B,V), cache)
@@ -25,7 +29,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import resnet, transformer
+from repro_torch.models import encdec, resnet, transformer
 
 
 @dataclass(frozen=True)
@@ -81,17 +85,6 @@ def seeded_init(seed: int, device, *, cfg, init_params=transformer.init_params,
     return init_params(cfg, gen, device, **kw)
 
 
-def _loss_not_ported(params, batch, *, cfg):
-    if cfg.rglru is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training the RG-LRU hybrid needs the scan's "
-            "backward under the reference's loss; queued in ROADMAP.md §1")
-    raise NotImplementedError(
-        f"{cfg.name}: training the MoE / multi-token-prediction family "
-        "needs the MoE aux loss and the MTP term of the reference's loss; "
-        "queued in ROADMAP.md ('Next')")
-
-
 def paged_spec(cfg: ModelConfig) -> PagedSpec:
     """The reference's rule: block pools for any (local) attention layer,
     state slots for any ssm / rglru layer, and the reclaim window the
@@ -121,6 +114,15 @@ def build_model(cfg: ModelConfig) -> Model:
                      init=functools.partial(seeded_init, cfg=cfg,
                                             init_params=resnet.init_params),
                      loss=functools.partial(resnet.loss, cfg=cfg))
+    if cfg.family == "audio":
+        return Model(cfg=cfg,
+                     init=functools.partial(seeded_init, cfg=cfg,
+                                            init_params=encdec.init_params),
+                     loss=functools.partial(encdec.loss, cfg=cfg),
+                     init_cache=functools.partial(encdec.init_cache, cfg),
+                     prefill=functools.partial(encdec.prefill, cfg=cfg),
+                     decode_step=functools.partial(encdec.decode_step,
+                                                   cfg=cfg))
     spec = paged_spec(cfg)
     return Model(
         cfg=cfg,
@@ -134,7 +136,4 @@ def build_model(cfg: ModelConfig) -> Model:
         paged_decode_loop=functools.partial(transformer.paged_decode_loop,
                                             cfg=cfg),
         paged_spec=spec,
-        loss=functools.partial(
-            _loss_not_ported if (cfg.moe is not None or cfg.mtp_depth
-                                 or cfg.rglru is not None)
-            else transformer.lm_loss, cfg=cfg))
+        loss=functools.partial(transformer.lm_loss, cfg=cfg))

@@ -4,7 +4,8 @@ dense GQA family, the Mamba-2 (ssm) family, the MLA + MoE family
 local-window MQA).  Params, forward in four cache modes, the non-paged
 ``prefill`` / ``decode_step`` entry point over contiguous caches, the
 fused serving step, the N-step on-device decode loop and the
-language-model loss.
+language-model loss (next-token cross-entropy, the MoE load-balance
+auxiliary loss, and DeepSeek's multi-token-prediction term).
 
 Layers are grouped into runs of identical (mixer, ffn) kinds, each
 parameter-stacked with a leading layer axis (``params["layers"]["run_0"]
@@ -43,7 +44,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
-                                       dense_init, embed_init)
+                                       dense_init, embed_init, init_norm)
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
@@ -52,6 +53,7 @@ from repro_torch.tree import tree_map
 _PORTED_RUNS = {("attn", "dense"), ("attn", "moe"), ("ssm", "none"),
                 ("rglru", "dense"), ("local_attn", "dense")}
 _ATTN_KINDS = ("attn", "local_attn")
+MTP_WEIGHT = 0.3  # DeepSeek-V3's weight of the multi-token-prediction CE
 
 
 def runs_of(cfg) -> List[Tuple[str, str, int]]:
@@ -110,27 +112,19 @@ def _init_mlp(cfg, stacked):
 def _init_attn_run(cfg, generator, device, n, ffn="dense", kind="attn"):
     """n attention layers (GQA, or MLA when the config has it and the
     layers are global) with a dense MLP or an MoE FFN, stacked."""
-    d, hd = cfg.d_model, cfg.head_dim
-    h, kv, pd = cfg.num_heads, cfg.num_kv_heads, cfg.pdtype
+    d, pd = cfg.d_model, cfg.pdtype
 
     def stacked(shape, **kw):
         return torch.stack([dense_init(generator, shape, pd, device, **kw)
                             for _ in range(n)])
 
-    def const(shape, value):
-        return torch.full((n,) + shape, value, dtype=pd, device=device)
-
     if cfg.mla is not None and kind == "attn":
         attn = _stack([mla_mod.init_mla(generator, cfg, device)
                        for _ in range(n)])
     else:
-        attn = {"wq": stacked((d, h * hd)), "wk": stacked((d, kv * hd)),
-                "wv": stacked((d, kv * hd)), "wo": stacked((h * hd, d))}
-        if cfg.qkv_bias:
-            attn.update(bq=const((h * hd,), 0.0), bk=const((kv * hd,), 0.0),
-                        bv=const((kv * hd,), 0.0))
-    out = {"ln1": {"scale": const((d,), 1.0)}, "attn": attn,
-           "ln2": {"scale": const((d,), 1.0)}}
+        attn = attn_mod.init_attention(generator, cfg, device, n)
+    out = {"ln1": init_norm(d, cfg, device, n), "attn": attn,
+           "ln2": init_norm(d, cfg, device, n)}
     if ffn == "moe":
         out["moe"] = moe_mod.init_moe(generator, cfg, device, n)
     else:
@@ -141,9 +135,7 @@ def _init_attn_run(cfg, generator, device, n, ffn="dense", kind="attn"):
 def _init_ssm_run(cfg, generator, device, n):
     """n mamba layers drawn one after another (the reference's vmapped
     ``init_layer``), stacked."""
-    return _stack([{"ln1": {"scale": torch.ones((cfg.d_model,),
-                                                dtype=cfg.pdtype,
-                                                device=device)},
+    return _stack([{"ln1": init_norm(cfg.d_model, cfg, device),
                     "ssm": ssm_mod.init_ssm(generator, cfg, device)}
                    for _ in range(n)])
 
@@ -153,11 +145,10 @@ def _init_rglru_run(cfg, generator, device, n):
     def layer():
         def one(shape):
             return dense_init(generator, shape, cfg.pdtype, device)
-        ones = {"scale": torch.ones((cfg.d_model,), dtype=cfg.pdtype,
-                                    device=device)}
-        return {"ln1": ones, "rglru": rglru_mod.init_rglru(generator, cfg,
-                                                         device),
-                "ln2": dict(ones), "mlp": _init_mlp(cfg, one)}
+        return {"ln1": init_norm(cfg.d_model, cfg, device),
+                "rglru": rglru_mod.init_rglru(generator, cfg, device),
+                "ln2": init_norm(cfg.d_model, cfg, device),
+                "mlp": _init_mlp(cfg, one)}
     return _stack([layer() for _ in range(n)])
 
 
@@ -177,7 +168,7 @@ def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
     params: Dict[str, Any] = {
         "embed": {"embedding": embed_init(generator, (cfg.vocab_size, d), pd,
                                           device)},
-        "final_norm": {"scale": torch.ones((d,), dtype=pd, device=device)},
+        "final_norm": init_norm(d, cfg, device),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
@@ -185,8 +176,7 @@ def init_params(cfg, generator: torch.Generator, device) -> Dict[str, Any]:
                                              pd, device)}
     if cfg.mtp_depth:
         # the multi-token-prediction head (one unstacked attn + dense
-        # layer): kept so the tree maps 1:1 onto the reference's; no
-        # serving path reads it
+        # layer): only ``lm_loss`` reads it, no serving path
         params["mtp"] = {
             "proj": dense_init(generator, (2 * d, d), pd, device),
             "layer": _layer(_init_attn_run(cfg, generator, device, 1), 0)}
@@ -234,12 +224,13 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
                 cache_len=0):
     """One layer: the mixer (GQA or MLA attention, global or local, mamba
     or RG-LRU) and the FFN (dense MLP or MoE), each pre-normed and
-    residual.  Returns (h, the
-    layer's cache): the given cache, updated in place, or with
-    ``make_cache`` a fresh contiguous one of ``cache_len`` slots (the
-    window's at most).  The MoE runs dropless whenever there is a cache
-    or one is made (a token's output must not depend on the step it
-    shares) or when ``dropless`` asks for it."""
+    residual.  Returns (h, the layer's cache, aux): the given cache,
+    updated in place, or with ``make_cache`` a fresh contiguous one of
+    ``cache_len`` slots (the window's at most); aux the MoE's
+    load-balance loss (a 0-d f32 tensor), or None for a dense FFN.  The
+    MoE runs dropless whenever there is a cache or one is made (a
+    token's output must not depend on the step it shares) or when
+    ``dropless`` asks for it."""
     x = apply_norm(lp["ln1"], h, cfg)
     if kind == "attn" and cfg.mla is not None:
         y, c = mla_mod.apply_mla(lp["attn"], x, cfg, rope=rope, write=write,
@@ -263,20 +254,24 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
                                  valid_len=valid_len,
                                  state_slots=state_slots)
     h = h + y
+    aux = None
     if ffn == "dense":
         h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg), cfg)
     elif ffn == "moe":
-        y, _ = moe_mod.apply_moe(
+        y, aux = moe_mod.apply_moe(
             lp["moe"], apply_norm(lp["ln2"], h, cfg), cfg,
             dropless=cache is not None or make_cache or dropless)
         h = h + y
-    return h, c
+    return h, c, aux
 
 
 def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
             valid_len=None, state_slots=None, need_logits=True,
             dropless=False, make_cache=False, cache_len=0):
-    """Returns (logits, cache, h).
+    """Returns (logits, cache, aux, h), as the reference's ``forward``:
+    aux the MoE layers' summed load-balance loss, a 0-d f32 tensor, or
+    None without MoE layers (so dense and hybrid serving launch nothing
+    for it); h the final-normed hidden states.
 
     tokens (B,S).  cache None: full-sequence forward (attention by
     ``cfg.attn_impl``, chunked SSD from a zero state; MoE at the training
@@ -297,6 +292,7 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
         pos = torch.as_tensor(pos, device=h.device)
     rope = write = window = None
     new_cache = {} if make_cache else cache
+    aux = None
     for ri, (kind, ffn, n) in enumerate(runs_of(cfg)):
         rp = params["layers"][f"run_{ri}"]
         rc = cache[f"run_{ri}"] if cache is not None else None
@@ -326,15 +322,17 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
         for i, lp in enumerate(_unstack(rp, n)):
             lc = _layer(rc, i) if rc is not None else None
             if remat:
-                h, _ = checkpoint(block, h, lp, lc, use_reentrant=False)
+                h, c, a = checkpoint(block, h, lp, lc, use_reentrant=False)
             else:
-                h, c = block(h, lp, lc)
+                h, c, a = block(h, lp, lc)
                 made.append(c)
+            if a is not None:
+                aux = a if aux is None else aux + a
         if make_cache:
             new_cache[f"run_{ri}"] = _stack(made)
     h = apply_norm(params["final_norm"], h, cfg)
     logits = _logits(params, h, cfg) if need_logits else None
-    return logits, new_cache, h
+    return logits, new_cache, aux, h
 
 
 def init_layer_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
@@ -379,8 +377,8 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=None,
 def prefill(params, tokens, cfg, cache_len: int):
     """The non-paged prefill: tokens (B,S) -> (logits (B,S,V), a fresh
     contiguous cache of ``cache_len`` slots holding the S positions)."""
-    logits, cache, _ = forward(params, tokens, cfg, make_cache=True,
-                               cache_len=cache_len)
+    logits, cache, _, _ = forward(params, tokens, cfg, make_cache=True,
+                                  cache_len=cache_len)
     return logits, cache
 
 
@@ -389,7 +387,7 @@ def decode_step(params, cache, tokens, pos, cfg):
     this token, shared by every row (an int or, to keep the host out of
     the loop, a 0-d int tensor on the device).  Returns (logits (B,V),
     cache), the cache updated in place."""
-    logits, cache, _ = forward(params, tokens, cfg, cache=cache, pos=pos)
+    logits, cache, _, _ = forward(params, tokens, cfg, cache=cache, pos=pos)
     return logits[:, 0], cache
 
 
@@ -422,18 +420,40 @@ def chunked_lm_ce(params, h, labels, cfg, *, mask_from: int = 0):
 
 
 def lm_loss(params, batch, cfg):
-    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S) over
-    the full-sequence forward (text only: MTP and image tokens belong to
-    families the port does not have yet, and the dense family has no
-    auxiliary loss).  Returns (loss, metrics)."""
+    """The reference's text ``lm_loss`` over ``batch["tokens"]`` (B, S):
+    the mean next-token cross-entropy of the full-sequence forward, plus
+    the MoE layers' load-balance loss (zero without them), plus, when
+    ``cfg.mtp_depth`` is set, DeepSeek-V3's multi-token prediction
+    weighted by ``MTP_WEIGHT``: one extra attention + dense layer
+    (``params["mtp"]``) over [h_t ; embed(token_t+1)] projected back to
+    d_model predicts token t+2.  Image tokens (llava) are not ported.
+    Returns (loss, metrics ``ce``, ``aux``, ``mtp_ce`` (with MTP) and
+    ``loss``)."""
     tokens = batch["tokens"]
     chunked = bool(cfg.loss_chunk)
-    logits, _, h = forward(params, tokens, cfg, need_logits=not chunked)
+    logits, _, aux, h = forward(params, tokens, cfg,
+                                need_logits=not chunked)
     if chunked:
         ce = chunked_lm_ce(params, h[:, :-1], tokens[:, 1:], cfg)
     else:
         ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
-    return ce, {"ce": ce, "loss": ce}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp_depth:
+        emb_next = embed_tokens(params, tokens[:, 1:], cfg)
+        h_in = torch.cat([h[:, :-1], emb_next], dim=-1)
+        h_mtp = h_in @ params["mtp"]["proj"].to(h.dtype)
+        rope, _ = attn_mod.shared_inputs(cfg, h_mtp.shape[1], h.device)
+        h_mtp, _, _ = apply_layer(params["mtp"]["layer"], h_mtp, cfg,
+                                  "attn", "dense", rope=rope)
+        mtp_ce = cross_entropy(_logits(params, h_mtp, cfg)[:, :-1],
+                               tokens[:, 2:])
+        loss = loss + MTP_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
@@ -521,7 +541,7 @@ def paged_step(params, cache, slot_buf, tokens, block_tables, meta, cfg, *,
                        tokens[:, 0])
     tokens = tokens.clone()
     tokens[:, 0] = tok0
-    _, cache, h = forward(params, tokens, cfg, cache=cache,
+    _, cache, _, h = forward(params, tokens, cfg, cache=cache,
                           block_tables=block_tables, pos=pos,
                           valid_len=valid_len, state_slots=state_slot,
                           need_logits=False)
@@ -663,7 +683,7 @@ def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
             active &= (lblk < nb) & (entry != 0)
         valid = active.to(torch.int32)
         tokens = slot_buf[slot][:, None]
-        _, views, h = forward(params, tokens, cfg, cache=views, pos=pos,
+        _, views, _, h = forward(params, tokens, cfg, cache=views, pos=pos,
                               valid_len=valid, state_slots=state_slot,
                               need_logits=False)
         logits = _logits(params, h[:, :1], cfg)[:, 0].float()

@@ -226,7 +226,9 @@ class Engine:
                  replica_id: int = 0, devices: Optional[Sequence] = None):
         if model.paged_spec is None:
             raise ValueError(f"{model.cfg.name}: the {model.cfg.family!r} "
-                             "family trains only and has no serving path")
+                             "family has no paged serving path (whisper "
+                             "serves through the static prefill / "
+                             "decode_step only, resnet trains only)")
         if cfg.steps_per_dispatch < 1:
             raise ValueError("steps_per_dispatch must be >= 1")
         if not cfg.fused:

@@ -75,12 +75,17 @@ def served_config(arch: str):
     return cfg
 
 
-def workload(vocab_size: int, seed: int):
-    """16 requests from ``seed``: prompts of 64-512 random tokens, 32-128
-    new tokens each, as (prompt int32 array, max_new_tokens) pairs."""
+PROMPT_LENS = (64, 512)  # the workload's prompt lengths, both ends included
+
+
+def workload(vocab_size: int, seed: int, prompt_lens=PROMPT_LENS):
+    """16 requests from ``seed``: prompts of ``prompt_lens`` (lowest,
+    highest) random tokens, 32-128 new tokens each, as (prompt int32
+    array, max_new_tokens) pairs."""
+    lo, hi = prompt_lens
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, vocab_size, (int(p),)).astype(np.int32), int(n))
-            for p, n in zip(rng.integers(64, 513, 16),
+            for p, n in zip(rng.integers(lo, hi + 1, 16),
                             rng.integers(32, 129, 16))]
 
 

@@ -85,7 +85,7 @@ def _sequential_greedy(tmodel, tparams, prompt, max_new):
     toks = [int(t) for t in prompt]
     out = []
     for _ in range(max_new):
-        logits, _, _ = tmodel.forward(tparams, torch.tensor([toks]))
+        logits, _, _, _ = tmodel.forward(tparams, torch.tensor([toks]))
         out.append(int(torch.argmax(logits[0, -1])))
         toks.append(out[-1])
     return out

@@ -1,7 +1,7 @@
 """The port's RG-LRU hybrid (recurrentgemma's smoke variant: rglru,
 rglru, local_attn over a 64-token window, 4 query heads over one kv
 head, a gelu MLP) against the JAX package on carried-across weights: the
-forward logits; the non-paged ``prefill`` / ``decode_step`` under
+forward logits and the loss; the non-paged ``prefill`` / ``decode_step`` under
 ``attn_impl`` naive, blocked and pallas (8 greedy steps, one cache
 past the window so the local layers' ring wraps); ``paged_step`` and
 ``paged_decode_loop`` over block pools and state slots together; and the
@@ -87,10 +87,17 @@ def test_runs_interop_and_forward_logits(models):
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 80))
     want, _, _, _ = jtf.forward(jparams, {"tokens": jnp.asarray(tokens)},
                                 jcfg)
-    got, _, _ = tmodel.forward(tparams, torch.tensor(tokens))
+    got, _, _, _ = tmodel.forward(tparams, torch.tensor(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.loss(tparams, {"tokens": torch.tensor(tokens)})
+    # the hybrid trains through lm_loss: the reference's CE of these
+    # logits, no aux term (tests/test_torch_trainer.py holds the
+    # gradient to jax.grad)
+    loss, metrics = tmodel.loss(tparams, {"tokens": torch.tensor(tokens)})
+    w = np.asarray(want, np.float64)[:, :-1]
+    z = w.max(-1) + np.log(np.exp(w - w.max(-1, keepdims=True)).sum(-1))
+    ce = (z - np.take_along_axis(w, tokens[:, 1:, None], -1)[..., 0]).mean()
+    assert set(metrics) == {"ce", "aux", "loss"} and float(metrics["aux"]) == 0
+    np.testing.assert_allclose(float(loss), ce, rtol=1e-5)
 
 
 def test_full_width_config_builds():
@@ -114,8 +121,10 @@ def test_paged_spec_follows_the_reference(arch):
     port registers."""
     model = build_model(get_config(arch))
     ref = jax_build_model(jax_get_config(arch))
-    if model.paged_spec is None:          # trains only (resnet)
-        assert not ref.supports_decode
+    if model.paged_spec is None:      # no paged engine: resnet, whisper
+        assert ref.paged_spec is None
+        # static decode where the reference has it (whisper), else none
+        assert (model.decode_step is not None) == ref.supports_decode
         return
     got, want = model.paged_spec, ref.paged_spec
     assert (got.has_blocks, got.has_state, got.reclaim_window) == \

@@ -15,6 +15,7 @@ PORT = SRC / "repro_torch"
 
 MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.configs.recurrentgemma_2b",
+           "repro_torch.configs.whisper_tiny",
            "repro_torch.tree",
            "repro_torch.kernels", "repro_torch.kernels._build",
            "repro_torch.kernels.prng", "repro_torch.kernels.sampling",
@@ -28,7 +29,7 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.models.mla",
            "repro_torch.models.moe",
            "repro_torch.models.transformer", "repro_torch.models.model",
-           "repro_torch.models.resnet",
+           "repro_torch.models.resnet", "repro_torch.models.encdec",
            "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
            "repro_torch.serve", "repro_torch.serve.engine",
            "repro_torch.serve.profile_engine",
@@ -56,6 +57,7 @@ def test_port_imports_with_jax_and_repro_blocked():
             "get_config('resnet50')\n"
             "get_config('qwen1.5-0.5b')\n"
             "get_config('recurrentgemma-2b')\n"
+            "get_config('whisper-tiny')\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=SRC,

@@ -110,9 +110,13 @@ def test_paged_spec_kernel_spec_and_loss(models):
     assert named["attn"] == "mla_decode_views/mla_decode_paged"
     wrappers = {fn.__name__ for fn in kernels.KERNELS}
     assert {n for ops in named.values() for n in ops.split("/")} <= wrappers
-    # training this family needs the aux and MTP terms: not silently
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.loss(tparams, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    # the loss carries the reference's aux and MTP terms
+    # (tests/test_torch_trainer.py holds them and the gradient to jax)
+    loss, m = tmodel.loss(tparams, {"tokens": torch.arange(8)[None] % 7})
+    assert set(m) == {"ce", "aux", "mtp_ce", "loss"}
+    assert float(m["aux"]) > 0 and torch.isfinite(loss)
+    assert float(loss) == float(m["ce"] + m["aux"] + ttf.MTP_WEIGHT
+                                * m["mtp_ce"])
 
 
 def test_engine_keeps_a_resident_tree():
@@ -128,11 +132,11 @@ def test_forward_matches_in_both_moe_forms(models):
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 13))
     want, _, _, _ = jtf.forward(jparams, {"tokens": jnp.asarray(tokens)},
                                 jcfg)
-    got, _, _ = tmodel.forward(tparams, torch.tensor(tokens))
+    got, _, _, _ = tmodel.forward(tparams, torch.tensor(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     want, _ = jtf.prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg,
                           cache_len=13)
-    got, _, _ = tmodel.forward(tparams, torch.tensor(tokens), dropless=True)
+    got, _, _, _ = tmodel.forward(tparams, torch.tensor(tokens), dropless=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

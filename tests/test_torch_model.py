@@ -93,7 +93,7 @@ def test_forward_logits_match(models):
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 19))
     want, _, _, _ = jtf.forward(jparams, {"tokens": jnp.asarray(tokens)},
                                 jcfg)
-    got, _, _ = tmodel.forward(tparams, torch.tensor(tokens))
+    got, _, _, _ = tmodel.forward(tparams, torch.tensor(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -1,9 +1,13 @@
 """The port's training path against the JAX package's, float32 on the CPU.
 
 - ``lm_loss`` and its gradient against ``jax.value_and_grad(lm_loss)``
-  with the same weights (``interop``): the smoke qwen2, and a tiny one
-  plain, checkpointed (``remat``) and chunked; within 1e-5 (two f32
-  stacks of matmuls summing in different orders).
+  with the same weights (``interop``): the smoke qwen2, a tiny one
+  plain, checkpointed (``remat``) and chunked, the smoke RG-LRU hybrid
+  under ``remat`` and ``"blocked"`` attention (16-token blocks, 80
+  tokens past its 64-token window: autograd through the scan), and the
+  smoke MLA + MoE + MTP deepseek (3 layers: the training-capacity MoE's
+  aux loss and the MTP head's CE); loss, metrics and every gradient
+  within 1e-5 (two f32 stacks of matmuls summing in different orders).
 - The port's virtual serial SGD, CSGD and LSGD equal each other and the
   JAX package's ``core/virtual.py`` after T steps from the same weights,
   within ``tests/test_equivalence.py``'s bound (max |diff| < 1e-5).
@@ -44,6 +48,8 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import transformer as ttf
 from repro_torch.optim.sgd import OptimConfig
 from repro_torch.tree import leaves
+from test_torch_hybrid_engine import carried_hybrid
+from test_torch_mla_engine import carried_deepseek
 from test_torch_model import carried_models
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -70,26 +76,43 @@ def tiny():
     return carried_models(TINY)
 
 
-@pytest.mark.parametrize("variant", ["smoke", "plain", "remat", "chunked"])
+# the loss variants: (carried models, config overrides, (B, S))
+LOSS_CASES = {
+    "plain": (None, {}, (3, 13)),
+    "remat": (None, dict(remat=True), (3, 13)),
+    "chunked": (None, dict(loss_chunk=4), (3, 17)),
+    "smoke": (carried_models, {}, (3, 13)),
+    "hybrid": (carried_hybrid, dict(remat=True, attn_impl="blocked",
+                                    attn_block_q=16, attn_block_kv=16),
+               (2, 80)),
+    "moe_mtp": (carried_deepseek, {}, (3, 13)),
+}
+
+
+@pytest.mark.parametrize("variant", list(LOSS_CASES))
 def test_lm_loss_and_grad_match_jax(tiny, variant):
-    """"smoke" is the smoke qwen2 itself (d_model 256, vocab 512); the
-    others the tiny one of the equivalence tests."""
-    jcfg, _, jparams, tcfg, _, tparams = (carried_models()
-                                          if variant == "smoke" else tiny)
-    over = {"remat": dict(remat=True), "chunked": dict(loss_chunk=4)
-            }.get(variant, {})
+    """"smoke" is the smoke qwen2 itself (d_model 256, vocab 512),
+    "hybrid" the smoke recurrentgemma and "moe_mtp" the 3-layer smoke
+    deepseek-v3; the others the tiny qwen2 of the equivalence tests."""
+    carry, over, (b, s) = LOSS_CASES[variant]
+    jcfg, _, jparams, tcfg, _, tparams = carry() if carry else tiny
     jcfg, tcfg = jcfg.replace(**over), tcfg.replace(**over)
-    toks = _tokens(0, 3, 13 if variant != "chunked" else 17,
-                   jcfg.vocab_size)
-    (jl, _), jg = jax.value_and_grad(
+    toks = _tokens(0, b, s, jcfg.vocab_size)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: jtf.lm_loss(p, {"tokens": jnp.asarray(toks)}, jcfg),
-        has_aux=True)(jparams)
+        has_aux=True))(jparams)
     from repro_torch.core.autodiff import value_and_grad
     tl, metrics, tg = value_and_grad(
         lambda p, b: ttf.lm_loss(p, b, tcfg), tparams,
         {"tokens": torch.from_numpy(toks)})
     assert abs(float(tl) - float(jl)) < BOUND
-    assert float(metrics["ce"]) == float(tl)
+    assert metrics.keys() == jm.keys()
+    for k in jm:
+        assert abs(float(metrics[k]) - float(jm[k])) < BOUND, k
+    if variant == "moe_mtp":
+        assert float(metrics["aux"]) > 0 and "mtp_ce" in metrics
+    else:
+        assert float(metrics["ce"]) == float(tl)
     assert _max_diff(tg, jg) < BOUND
 
 
@@ -168,6 +191,23 @@ def test_launcher_loss_falls_on_cpu():
     assert len(losses) == 16 and all(np.isfinite(losses))
     assert np.mean(losses[-4:]) < losses[0] - 0.3
     assert out["state"]["step"] == 16 and out["peak_mem_bytes"] is None
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-tiny"])
+def test_launcher_trains_the_hybrid_and_whisper_on_cpu(arch):
+    """The launcher's LSGD run of the smoke hybrid and the smoke whisper
+    (an audio batch: frame embeddings and tokens) on the CPU: finite
+    losses, and finalize leaves every param moved from its init."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3",
+            "--batch", "2", "--seq", "24", "--base-lr", "0.01",
+            "--log-every", "100"]
+    out = tlaunch.main(argv)
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert out["tokens_per_step"] == 2 * 24 and out["state"]["step"] == 3
+    cfg = tlaunch.model_config(tlaunch.parse_args(argv))
+    w0 = tlaunch.build_model(cfg).init(0, "cpu")
+    assert min(float((a - b).abs().max()) for a, b in
+               zip(leaves(w0), leaves(out["state"]["params"]))) > 0
 
 
 # ---------------------------------------------------------------------------
