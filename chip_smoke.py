@@ -71,11 +71,13 @@
    ``layers.slot_state_scatter`` (timed whole); the SSD intra-chunk
    block at the prefill rows x one 256-token chunk and at 4 x 512
    tokens, and ``ssm.ssd_chunked_pallas`` (its own path) against the
-   plain chunked SSD; then full-width mamba2-370m (bf16, random weights
-   from a seed) serves the same 16 requests at steps_per_dispatch 1 and 8,
+   plain chunked SSD; then mamba2-370m at every width, cut to
+   MAMBA_SERVE_LAYERS of its 48 layers (bf16, random weights from a
+   seed), serves the same 16 requests at steps_per_dispatch 1 and 8,
    greedy twice and sampled once per depth, each token checked against a
    teacher-forced f32 forward, every state slot free at the end; then
-   its float32 depth-1 == depth-8 check, as qwen2's.
+   its float32 depth-1 == depth-8 check, as qwen2's, at
+   F32_GATE_LAYERS layers.
 7. The MLA + MoE path: the absorbed MLA attends over latent views and
    latent block pools at every row layout the engine dispatches, at
    deepseek-v3's widths (128 heads, latent rank 512, rope 64, 640 keys),
@@ -105,7 +107,7 @@
    its counters call for, and one 2,400-token request that passes the
    window and must reclaim blocks, every token held to the
    teacher-forced f32 check; its float32 depth-1 == depth-8 check at
-   all 26 layers; and
+   F32_GATE_LAYERS layers (two of its patterns); and
    its static path under "pallas" (two batches of 8, kernels 6, 7 and 3
    at hd 256), whose float32 tokens must equal the plain attention's.
    Then it trains full-width recurrentgemma-2b (2.383B params, bf16,
@@ -123,15 +125,37 @@
    to a teacher-forced f32 forward and the float32 tokens equal to the
    plain attention's; then 8 LSGD steps of 8 x 448 tokens through the
    launcher, gated as the other trainers.
-10. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
+10. The last four LM configs: kernels 1, 2, 6 and 7 at h2o-danube-3-4b's
+   head dim 120 (32 heads over 8, window 4096: its engine's layouts, its
+   long request's tables and views, a prefill past the window, a full
+   ring, its static path) and 6 and 7 at llava-next-34b's G = 7 over its
+   2,880-token image prefix (static prefills of up to 3,392 positions, a
+   3,520-slot cache), both dtypes, against their plain versions; kernel
+   3 at the four vocabularies (kernel 4's in its own phase); kernels 1
+   and 2 at the engine's layouts of minicpm-2b (G = 1 over 36 kv heads,
+   hd 64), dbrx-132b (G = 6 over 8) and llava-next-34b (G = 7 over 8),
+   both dtypes, against their plain versions; then
+   minicpm-2b (40 layers, G = 1, tied embeddings), dbrx-132b (GQA + MoE,
+   4 of 40 layers), h2o-danube-3-4b and llava-next-34b (30 of 60 layers,
+   text-only through the engine) each serve the 16 requests at depths 1
+   and 8, greedy and sampled, with exact launches and the teacher-forced
+   f32 check (dbrx's routed as served, h2o's 4,400-token request past its
+   window); h2o and llava also through the static path (two batches of
+   8, llava's behind N(0, 1) stub image prefixes, as the reference's data
+   pipeline draws them), h2o's float32 kernels equal to its plain
+   attention, llava's bf16 tokens beside those of the same batches
+   served through the plain attention (``_image_witness``).
+11. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
    bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
    gumbel sample (with and without top-k) and a greedy sample each run
    their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
-11. Prints the ``kernels`` JSON line, the card's name and power limit, and
-   as its last line ``{"ok": true, "device": {...}}``.
+12. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
+   same kernels at the last four configs' shapes, each naming its
+   ``case`` and counting that config's launches), the card's name and
+   power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
 after it.  Any failed check raises, so the script exits non-zero without
@@ -222,16 +246,38 @@ MAMBA = "mamba2-370m"
 SSD_CASES = (("prefill rows x 1 chunk", None, 256), ("4 x 512", 4, 512))
 # the MLA + MoE path; its depth cut is profile_engine.DEPTH_CUTS's
 DEEPSEEK = "deepseek-v3-671b"
-# the RG-LRU hybrid, and one served request of 2,400 prompt and 64 new
-# tokens past its 2048-token window, under an EngineConfig whose
-# max_seq_len (LONG_SEQ, a whole number of prefill chunks) holds it: the
-# attention phases add its 160-block tables (2,560 keys) and 2,561-slot
-# views as extras for a windowed config, and a LONG_PREFILL-token
-# prefill past the window
+# the RG-LRU hybrid
 RGEMMA = "recurrentgemma-2b"
-RG_LONG = (2400, 64)
-LONG_SEQ = -(-sum(RG_LONG) // 128) * 128
-LONG_PREFILL = 2304
+# the last four LM configs: dense MHA at hd 64 (G = 1), GQA at hd 120
+# under a 4096 window, GQA + MoE and the vlm backbone; dbrx and llava at
+# profile_engine.DEPTH_CUTS's depths
+MINICPM = "minicpm-2b"
+H2O = "h2o-danube-3-4b"
+DBRX = "dbrx-132b"
+LLAVA = "llava-next-34b"
+# one served request of each windowed config past its window: (prompt,
+# new tokens), under an EngineConfig whose max_seq_len (``long_seq``, a
+# whole number of prefill chunks) holds it; the attention phases add its
+# tables and views as extras for that config, and a prefill of
+# ``long_prefill`` tokens past the window
+LONG_REQUESTS = {RGEMMA: (2400, 64), H2O: (4400, 64)}
+# a vlm's static path: each request's stub image prefix is drawn N(0, 1),
+# as the reference's data pipeline draws image_embeds.  The witness
+# (_image_witness) serves the same batches in bf16 through the plain
+# attention (attn_impl "naive": no kernel 6 or 7), WITNESS_ROWS rows at a
+# time (the plain version's f32 scores over 8 x 3,392 positions, with
+# their softmax, would not fit beside llava's weights), and holds the
+# kernels' share of tokens equal to the f32 argmax to TF_ARGMAX_FLOOR
+# where the plain path reaches it, else to no less than WITNESS_SIGMAS
+# standard errors of the two shares' difference below the plain path's
+WITNESS_ROWS = 4
+WITNESS_SIGMAS = 3.0
+# layer cuts of earlier paths that keep the script inside its time limit
+# (the last four configs' phases take about 300 s): mamba2-370m serves
+# 24 of its 48 layers, and the float32 depth gates of mamba2-370m and
+# recurrentgemma-2b run 12 and 6 layers; every width as published
+MAMBA_SERVE_LAYERS = 24
+F32_GATE_LAYERS = {MAMBA: 12, RGEMMA: 6}
 # the static-batch path (the non-paged prefill / decode_step, as
 # benchmarks/serve_bench.py's run_static): batches of 8 requests, each
 # prompt right-padded with token 0 to the batch's longest rounded up to
@@ -240,6 +286,18 @@ STATIC_BATCH = 8
 STATIC_PAD = 16
 
 SEED = 0
+
+
+def long_seq(cfg) -> int:
+    """max_seq_len of the EngineConfig that serves ``cfg``'s long request
+    (LONG_REQUESTS), a whole number of 128-token prefill chunks."""
+    return -(-sum(LONG_REQUESTS[cfg.name]) // 128) * 128
+
+
+def long_prefill(cfg) -> int:
+    """A prefill 256 tokens past ``cfg``'s attention window."""
+    return attn_window(cfg) + 256
+
 
 # whisper-tiny's static path: 16 requests of 4-64 decoder prompt tokens
 # and 32-128 new tokens, each over its own 1,500 stub frames, served as
@@ -345,9 +403,11 @@ RES_KERNELS = ("gumbel_cluster_kernel", "slot_gather_kernel",
                "slot_scatter_kernel", "ssd_chunk_tc", "ssd_chunk_f32",
                "fused_sgd_kernel", "lars_norms_kernel", "lars_trust_kernel")
 # bf16 (tensor-core) and f32 templates each family must have: the
-# attention families at head dims 64, 128 and 256
-SASS_FAMILIES = {"flash_attention_": (3, 3), "mla_attend_": (2, 2),
-                 "flash_decode_": (12, 9), "ssd_chunk_": (6, 1)}
+# attention families at head dims 64, 120, 128 and 256
+SASS_FAMILIES = {"flash_attention_": (4, 4), "mla_attend_": (2, 2),
+                 "flash_decode_": (16, 12), "ssd_chunk_": (6, 1)}
+# the attention instances that must not spill: the head-dim-120 ones
+NO_SPILL_HD = "120"
 
 
 def sass_counts(so: Path) -> None:
@@ -356,7 +416,9 @@ def sass_counts(so: Path) -> None:
     SSD-block template in the built library, from ``cuobjdump -sass``; fails
     unless the bf16 templates (``_tc``) issue HMMA and the f32 ones do
     not; then the registers, static shared memory and local memory of
-    ``RES_KERNELS`` (``cuobjdump -res-usage``), failing on a spill."""
+    ``RES_KERNELS`` and of every attention template instance
+    (``cuobjdump -res-usage``), failing on a spill in ``RES_KERNELS``
+    and in the head-dim-120 instances."""
     import re
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -407,9 +469,9 @@ def sass_counts(so: Path) -> None:
             usage.setdefault(cur, []).append(tuple(map(int, m.groups())))
             cur = None
     # and of every attention template instance (SASS_TEMPLATES' names),
-    # printed, not gated: the hd-256 tensor-core instances keep a stack
-    # frame of spilled registers
-    cur = None
+    # printed, gated for hd 120 only: the hd-256 tensor-core instances
+    # keep a stack frame of spilled registers
+    cur, seen_hd = None, 0
     for line in res.stdout.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
@@ -423,7 +485,16 @@ def sass_counts(so: Path) -> None:
             reg, stack, _, local = map(int, m.groups())
             print(f"[res] {cur}: registers {reg}, stack {stack}, local "
                   f"{local}", flush=True)
+            if re.search(rf"<{NO_SPILL_HD}[,>]|,{NO_SPILL_HD}>", cur):
+                seen_hd += 1
+                if stack or local:
+                    fail(f"{cur} spills: stack {stack}, local {local}")
             cur = None
+    # hd 120: kernel 6's two templates, kernel 1/2/7's four tensor-core
+    # instances (narrow, wide x paged, view) and three f32 kernels
+    if seen_hd != 9:
+        fail(f"cuobjdump -res-usage: {seen_hd} hd-{NO_SPILL_HD} attention "
+             "instances, want 9")
     for name in RES_KERNELS:
         rows = usage.get(name)
         if not rows:
@@ -567,7 +638,7 @@ def phase_flash_decode(torch, timer, cfg, ec):
     (``step_shapes``), tables of blocks_per_seq blocks, under the
     config's attention window (``attn_window``) and head dim, plus
     extras: without a window two 2048-key cases; with one, the same
-    layouts over LONG_SEQ-key tables (the long request's, where the
+    layouts over ``long_seq``-key tables (the long request's, where the
     window masks the oldest keys) and 136 width-1 rows, which take the
     bf16 template's direct epilogue.  bf16 (tensor cores) timed beside
     its bound, plain version and SDPA, with its share of the bf16 MMA
@@ -584,8 +655,9 @@ def phase_flash_decode(torch, timer, cfg, ec):
     cases = [(f"B={b} C={c}", b, c, ec.blocks_per_seq)
              for b, c in step_shapes(ec, cfg)]
     if W:
-        cases += [(f"extra B={b} C={c} keys={LONG_SEQ}", b, c,
-                   LONG_SEQ // BS) for b, c in step_shapes(ec, cfg)]
+        n = long_seq(cfg)
+        cases += [(f"extra B={b} C={c} keys={n}", b, c, n // BS)
+                  for b, c in step_shapes(ec, cfg)]
         cases += [("extra B=136 C=1", 136, 1, ec.blocks_per_seq)]
     else:
         cases += [("extra B=8 C=1", 8, 1, 2048 // BS),
@@ -733,8 +805,9 @@ def phase_decode_view(torch, timer, cfg, ec):
     """Kernel 2 at the N-step loop's shapes for ``cfg`` under its
     attention window and head dim: every decode bucket over views of
     blocks_per_seq * block_size + 1 slots, plus extras: without a window
-    a 2049-slot view at B=8; with one, every bucket over LONG_SEQ + 1
-    slots (the long request's, where the window masks the oldest keys).
+    a 2049-slot view at B=8; with one, every bucket over ``long_seq`` +
+    1 slots (the long request's, where the window masks the oldest
+    keys).
     bf16 (kernel 1's tensor-core template over view keys) timed beside
     its bound, plain version and SDPA, with its share of the bf16 MMA
     rate; f32 (CUDA cores) on the same inputs, checked.  At the decode
@@ -751,7 +824,8 @@ def phase_decode_view(torch, timer, cfg, ec):
     s_eng = ec.blocks_per_seq * ec.block_size + 1
     cases = [(f"B={b}", b, s_eng, True) for b in ec.decode_buckets]
     if W:
-        cases += [(f"extra B={b} S+1={LONG_SEQ + 1}", b, LONG_SEQ + 1, True)
+        n = long_seq(cfg) + 1
+        cases += [(f"extra B={b} S+1={n}", b, n, True)
                   for b in ec.decode_buckets]
     else:
         cases.append(("extra B=8", 8, 2049, False))
@@ -913,12 +987,13 @@ def _slice_edges(sp, v, cluster):
                    for c in (r * sl - 1, r * sl)})
 
 
-def phase_gumbel(torch, timer, cfg, mcfg, dcfg, rcfg, ec):
+def phase_gumbel(torch, timer, cfg, others, ec):
     """Kernel 4 at every row count the engine samples and at 1 and 64
     rows, V = qwen2's vocab, T = SAMPLE_T, top_k in GUMBEL_TOP_KS, noise
-    from the reference's threefry draw as the engine makes it; then
-    mamba2-370m's, deepseek-v3's and recurrentgemma-2b's vocabularies at
-    8, 64 and 136 rows.
+    from the reference's threefry draw as the engine makes it; then the
+    vocabularies of the ``others`` configs that serve sampled (mamba,
+    deepseek, recurrentgemma, minicpm, h2o, dbrx, llava) at 8, 64 and
+    136 rows.
     Planted: with top-k, logits equal to the row's kth value on both
     sides of every slice edge of the plan's cluster size
     (``gumbel_plan``), at a thread-stride column and at the last column
@@ -935,7 +1010,7 @@ def phase_gumbel(torch, timer, cfg, mcfg, dcfg, rcfg, ec):
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     qwen_rows = sorted({1, 64} | {rows for rows, _ in step_shapes(ec, cfg)})
     cases = [(cfg.vocab_size, b, GUMBEL_TOP_KS, None) for b in qwen_rows]
-    for other in (mcfg, dcfg, rcfg):
+    for other in others:
         cases += [(other.vocab_size, b, (0, SAMPLE_TOP_K),
                    f"V={other.vocab_size}") for b in (8, 64, 136)]
     out = {}
@@ -1273,6 +1348,25 @@ def phase_fused_update(torch, timer, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _init_params(torch, cfg):
+    """(model, params) of full-width ``cfg`` (bf16, random weights from
+    SEED, on the card), printed with their count and init time."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name} full width: {cfg.num_layers} layers "
+          f"{[(k, f, n) for k, f, n in _runs(cfg)][:3]}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads at hd "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}: {nparams / 1e9:.3f}B "
+          f"params {cfg.param_dtype} ({torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB on the card), init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return model, params
+
+
 def _serve_once(torch, model, params, work, depth, *, engine=None,
                 stats=None, **sample):
     """One main-path run through a fresh Engine (ENGINE_CONFIG, updated by
@@ -1337,18 +1431,9 @@ def phase_serve(torch, cfg):
     same streams.  Returns the launches of each depth's first greedy and
     first sampled run, summed."""
     from repro_torch import kernels
-    from repro_torch.models.model import build_model
     from repro_torch.serve.profile_engine import workload
 
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(SEED, "cuda")
-    torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {cfg.name} full width: {cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, {nparams / 1e9:.3f}B params "
-          f"{cfg.param_dtype}, "
-          f"init {time.perf_counter() - t0:.1f}s", flush=True)
+    model, params = _init_params(torch, cfg)
     work = workload(cfg.vocab_size, SEED)
     launches = {fn.__name__: 0 for fn in kernels.KERNELS}
     greedy_streams, sampled_streams = [], {}
@@ -1408,7 +1493,8 @@ def phase_serve(torch, cfg):
 @float32_exact()
 def phase_depth_f32(torch, cfg):
     """Depth 1 against depth 8 in float32 on the card's kernels: ``cfg``
-    (full width; deepseek at its depth cut) with f32 weights from SEED
+    (full width; deepseek at its depth cut, mamba and recurrentgemma at
+    F32_GATE_LAYERS) with f32 weights from SEED
     and f32 compute, TF32 off, serves the workload through the paged
     Engine at steps_per_dispatch 1 and 8, greedy and at SAMPLE_T /
     SAMPLE_TOP_K.  Depth 1 must equal depth 8 token for token, as the
@@ -1907,12 +1993,15 @@ def _visible_pairs(sq, sk, causal, window):
 def phase_flash_attention(torch, timer, cfg, work):
     """Kernel 6 at the static prefill's shapes for ``cfg`` (B = 8 rows,
     its heads, kv heads and head dim, causal under its attention window,
-    Sq = Sk = each static batch's padded prompt) in bfloat16 and
-    float32, plus a 512-token window-128 case, a window case whose rows
+    Sq = Sk = each static batch's padded prompt, after the image prefix
+    for a vlm) in bfloat16 and float32, plus a 512-token window-128
+    case, a window case whose rows
     past Sk + window - 1 see no key (bf16 and f32: they must get the
     plain version's mean of v), a non-causal Sq 64 / Sk 320 case and an
-    hd-64 case, with a window a LONG_PREFILL-token prefill past it (B =
-    2, both dtypes), and for an encoder-decoder its encoder's self
+    hd-64 case (not for a vlm, whose prefix alone is new: its G = 7 at
+    up to 3,392 positions), with a window a ``long_prefill``-token
+    prefill past it (B = 2, both dtypes), and for an encoder-decoder its
+    encoder's self
     attention (B = 8, Sq = Sk = the stub frames, not causal, both
     dtypes), each held to the plain version within ``compare_attn``'s
     bound for its dtype; each prints the share of the bf16 tensor-core
@@ -1928,23 +2017,24 @@ def phase_flash_attention(torch, timer, cfg, work):
               HD, False, 0, dt) for dt in (torch.bfloat16, torch.float32)
              if cfg.is_encoder_decoder]
     for _, _, pmax, _ in static_batches(work):
+        s = cfg.num_image_tokens + pmax
         for dt in (torch.bfloat16, torch.float32):
-            cases.append((f"prefill S={pmax} {str(dt)[6:]}", STATIC_BATCH,
-                          pmax, pmax, H, KV, HD, True, W, dt))
-    cases += [("window S=512 w=128", STATIC_BATCH, 512, 512, H, KV, HD,
-               True, 128, torch.bfloat16)]
-    cases += [(f"no-key Sq=512 Sk=384 w=64 {str(dt)[6:]}", STATIC_BATCH,
-               512, 384, H, KV, HD, True, 64, dt)
-              for dt in (torch.bfloat16, torch.float32)]
-    cases += [
-              ("cross Sq=64 Sk=320", STATIC_BATCH, 64, 320, H, KV, HD,
-               False, 0, torch.bfloat16),
-              ("hd64 S=512", STATIC_BATCH, 512, 512, H, KV, 64, True, 0,
-               torch.bfloat16)]
-    if W:
-        cases += [(f"long prefill S={LONG_PREFILL} {str(dt)[6:]}", 2,
-                   LONG_PREFILL, LONG_PREFILL, H, KV, HD, True, W, dt)
+            cases.append((f"prefill S={s} {str(dt)[6:]}", STATIC_BATCH,
+                          s, s, H, KV, HD, True, W, dt))
+    if not cfg.num_image_tokens:
+        cases += [("window S=512 w=128", STATIC_BATCH, 512, 512, H, KV, HD,
+                   True, 128, torch.bfloat16)]
+        cases += [(f"no-key Sq=512 Sk=384 w=64 {str(dt)[6:]}",
+                   STATIC_BATCH, 512, 384, H, KV, HD, True, 64, dt)
                   for dt in (torch.bfloat16, torch.float32)]
+        cases += [("cross Sq=64 Sk=320", STATIC_BATCH, 64, 320, H, KV, HD,
+                   False, 0, torch.bfloat16),
+                  ("hd64 S=512", STATIC_BATCH, 512, 512, H, KV, 64, True, 0,
+                   torch.bfloat16)]
+    if W:
+        n = long_prefill(cfg)
+        cases += [(f"long prefill S={n} {str(dt)[6:]}", 2, n, n, H, KV, HD,
+                   True, W, dt) for dt in (torch.bfloat16, torch.float32)]
     results = []
     for label, b, sq, sk, h, kv, hd, causal, window, dt in cases:
         q = torch.randn((b, sq, h, hd), generator=g, device="cuda").to(dt)
@@ -1997,7 +2087,8 @@ def phase_flash_attention(torch, timer, cfg, work):
 
 def phase_flash_decode_bhd(torch, timer, cfg, work, cache_len=0):
     """Kernel 7 at the static decode's shape for ``cfg`` (B = 8, its
-    heads, kv heads and head dim, S = each static batch's cache_len, or
+    heads, kv heads and head dim, S = each static batch's cache_len
+    (the image prefix's positions included for a vlm), or
     ``cache_len`` where the path fixes one, cut to the attention window
     where one binds: the cache is then a ring)
     with ``length`` 1, S // 2 and S, in bfloat16 (tensor cores) and
@@ -2016,7 +2107,7 @@ def phase_flash_decode_bhd(torch, timer, cfg, work, cache_len=0):
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     b = STATIC_BATCH
     cases = []
-    sizes = dict.fromkeys(cache_len or pmax + gmax
+    sizes = dict.fromkeys(cache_len or cfg.num_image_tokens + pmax + gmax
                           for _, _, pmax, gmax in static_batches(work))
     for s in sizes:
         s = min(s, W) if W else s
@@ -2085,12 +2176,15 @@ def phase_flash_decode_bhd(torch, timer, cfg, work, cache_len=0):
     return results
 
 
-def _static_once(torch, model, params, batches, cache_len=0, audio=None):
+def _static_once(torch, model, params, batches, cache_len=0, audio=None,
+                 image=None):
     """One static-batch run through the non-paged entry point (as
     run_static): per batch ``prefill`` with cache_len = pmax + gmax (or
     ``cache_len``; an encoder-decoder's prefill also reads the rows of
-    ``audio``, the requests' stub frames), the first token greedy from
-    the last prompt position, then gmax - 1
+    ``audio``, the requests' stub frames; a vlm's takes the rows of
+    ``image``, the requests' image prefixes, before the prompt, and its
+    positions and cache_len count the prefix), the first token greedy
+    from the last prompt position, then gmax - 1
     ``decode_step`` calls at positions pmax, pmax + 1, ... (a device
     tensor: no host read inside the loop), every token through
     ``greedy_sample``.  Every launch count is set to 0 just before and
@@ -2108,12 +2202,15 @@ def _static_once(torch, model, params, batches, cache_len=0, audio=None):
         inputs = torch.from_numpy(toks).cuda()
         if audio is not None:
             inputs = {"audio_embeds": audio[rows], "tokens": inputs}
-        logits, cache = model.prefill(params, inputs,
-                                      cache_len=cache_len or pmax + gmax)
+        kw, prefix = {}, 0
+        if image is not None:
+            kw, prefix = dict(image_embeds=image[rows]), image.shape[1]
+        logits, cache = model.prefill(
+            params, inputs, cache_len=cache_len or prefix + pmax + gmax, **kw)
         tok = greedy_sample(logits[:, -1].float().contiguous())
         ev[1].record()
         out = [tok]
-        pos = torch.tensor(pmax, dtype=torch.int32, device="cuda")
+        pos = torch.tensor(prefix + pmax, dtype=torch.int32, device="cuda")
         for i in range(gmax - 1):
             lg, cache = model.decode_step(params, cache, tok[:, None],
                                           pos + i)
@@ -2131,20 +2228,24 @@ def _static_once(torch, model, params, batches, cache_len=0, audio=None):
     return streams, kernels.launch_counts(), wall, prefill_ms, decode_ms
 
 
-def phase_serve_static(torch, cfg, f32_equal=False):
+def phase_serve_static(torch, cfg, f32_equal=False, params=None):
     """The static-batch main path: full-width ``cfg`` (qwen2-1.5b,
-    recurrentgemma-2b or whisper-tiny) under attn_impl="pallas" (bf16,
-    random weights from SEED), 16 requests in two static batches of 8
-    (the serving phase's; for an encoder-decoder prompts of
+    recurrentgemma-2b, whisper-tiny, h2o-danube-3-4b, or llava-next-34b
+    at its DEPTH_CUTS depth) under attn_impl="pallas" (bf16, random
+    weights from SEED, or ``params``), 16 requests in two static batches
+    of 8 (the serving phase's; for an encoder-decoder prompts of
     WHISPER_PROMPT_LENS tokens, each request over its own stub frames
-    from SEED, with a WHISPER_CACHE-slot
-    self cache), run twice (the streams must repeat), with exact launch
+    from SEED, with a WHISPER_CACHE-slot self cache; for a vlm each
+    request behind its own ``num_image_tokens``-token stub image prefix
+    drawn N(0, 1) from SEED), run
+    twice (the streams must repeat), with exact launch
     counts — flash_attention once per attention layer (encoder layers
     included, not causal) and batch, flash_decode once per decoder
     attention layer and decode step, greedy_sample once per step,
     nothing else — so no plain version ran on the card; then every
     emitted token against a teacher-forced f32 forward of the plain
-    (naive) model over the padded prompt and the emitted stream.  With
+    (naive) model over the padded prompt and the emitted stream (a vlm's
+    through ``_image_witness``).  With
     ``f32_equal`` the same batches run once more in float32 (TF32 off)
     under "pallas" (the kernels' f32 templates) and under "naive" (the
     plain attention, no kernel), whose greedy tokens must be equal.  An
@@ -2155,7 +2256,8 @@ def phase_serve_static(torch, cfg, f32_equal=False):
     from repro_torch.serve.profile_engine import PROMPT_LENS, workload
     pcfg = cfg.replace(attn_impl="pallas")
     model = build_model(pcfg)
-    params = model.init(SEED, "cuda")
+    if params is None:
+        params = model.init(SEED, "cuda")
     encdec = cfg.is_encoder_decoder
     work = workload(pcfg.vocab_size, SEED,
                     WHISPER_PROMPT_LENS if encdec else PROMPT_LENS)
@@ -2166,6 +2268,11 @@ def phase_serve_static(torch, cfg, f32_equal=False):
         audio32 = torch.randn((len(work), cfg.encoder_seq_len, cfg.d_model),
                               generator=g, device="cuda")
     audio = audio32.to(pcfg.cdtype) if encdec else None
+    image = None
+    if cfg.num_image_tokens:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+        image = torch.randn((len(work), cfg.num_image_tokens, cfg.d_model),
+                            generator=g, device="cuda").to(pcfg.cdtype)
     batches = static_batches(work)
     L = sum(n for kind, _, n in _runs(pcfg)
             if kind in ("attn", "local_attn"))
@@ -2177,13 +2284,14 @@ def phase_serve_static(torch, cfg, f32_equal=False):
     runs = []
     for rep in range(2):
         streams, counts, wall, pre_ms, dec_ms = _static_once(
-            torch, model, params, batches, cache_len, audio)
+            torch, model, params, batches, cache_len, audio, image)
         if counts != want:
             fail(f"static run {rep}: launches {counts}, want {want}")
         runs.append(streams)
         print(f"[serve_static] run={rep} {pcfg.name} pallas batches="
               f"{[(p, g) for _, _, p, g in batches]} (pmax, gmax) "
-              f"cache_len={cache_len or 'pmax + gmax'} "
+              f"image_tokens={cfg.num_image_tokens} "
+              f"cache_len={cache_len or 'image + pmax + gmax'} "
               f"requests={len(work)} useful_tokens={useful} wall_s="
               f"{wall:.3f} tok_s={useful / wall:.1f} prefill_ms per batch "
               f"{[round(x, 2) for x in pre_ms]} decode_ms per step "
@@ -2195,6 +2303,9 @@ def phase_serve_static(torch, cfg, f32_equal=False):
               for j in range(len(rows))]
     if encdec:
         _teacher_forced_encdec(torch, pcfg, params, audio, padded, runs[0])
+    elif image is not None:
+        _image_witness(torch, cfg, params, batches, image, want, padded,
+                       runs[0])
     else:
         _teacher_forced_check(torch,
                               build_model(cfg.replace(attn_impl="naive")),
@@ -2209,7 +2320,8 @@ def phase_serve_static(torch, cfg, f32_equal=False):
                                               param_dtype="float32",
                                               compute_dtype="float32"))
                 streams, got, wall, pre_ms, dec_ms = _static_once(
-                    torch, m32, p32, batches, cache_len, audio32)
+                    torch, m32, p32, batches, cache_len, audio32,
+                    None if image is None else image.float())
                 if got != (want if impl == "pallas" else
                            dict(want, flash_attention=0, flash_decode=0)):
                     fail(f"static f32 {impl}: launches {got}")
@@ -2229,6 +2341,61 @@ def phase_serve_static(torch, cfg, f32_equal=False):
     else:
         del params
     return counts
+
+def _image_witness(torch, cfg, params, batches, image, want, padded,
+                   served):
+    """A vlm's static path against bf16 itself: the same ``batches``
+    behind the same image prefixes, served in bf16 through the plain
+    attention (attn_impl "naive", no kernel 6 or 7; WITNESS_ROWS rows of
+    a batch at a time, each row's pmax and gmax kept), with exact launch
+    counts; then the kernels' streams (``served``) and the witness's
+    through the teacher-forced f32 check.  Both are held to
+    TF_LOGIT_TOL.  The kernels' share of tokens equal to the f32 argmax
+    is held to TF_ARGMAX_FLOOR where the witness reaches it, and
+    otherwise to no less than WITNESS_SIGMAS standard errors of the two
+    shares' difference below the witness's share: the floor then
+    separates what bf16 does to near-ties from what a kernel does."""
+    from repro_torch.models.model import build_model
+    plain = build_model(cfg.replace(attn_impl="naive"))
+    parts = [(toks[i:i + WITNESS_ROWS], rows[i:i + WITNESS_ROWS], pmax, gmax)
+             for toks, rows, pmax, gmax in batches
+             for i in range(0, len(rows), WITNESS_ROWS)]
+    streams, counts, wall, pre_ms, dec_ms = _static_once(
+        torch, plain, params, parts, image=image)
+    plain_want = dict(want, flash_attention=0, flash_decode=0,
+                      greedy_sample=sum(g for *_, g in parts))
+    if counts != plain_want:
+        fail(f"{cfg.name} static witness: launches {counts}, want "
+             f"{plain_want}")
+    same = sum(streams[i] == served[i] for i in streams)
+    print(f"[serve_static] {cfg.name} witness: bfloat16 naive (plain "
+          f"attention) in parts of {WITNESS_ROWS} rows wall_s={wall:.3f} "
+          f"prefill_ms per part {[round(x, 2) for x in pre_ms]} decode_ms "
+          f"per step {[round(x, 3) for x in dec_ms]}; {same} of "
+          f"{len(streams)} streams equal to the kernels'", flush=True)
+    shares = {}
+    for label, out in (("kernels", served), ("witness", streams)):
+        print(f"[serve_static] {cfg.name} {label}:", flush=True)
+        agree, total = _teacher_forced_check(torch, plain, params, padded,
+                                             [out], [], argmax_floor=None,
+                                             images=image)
+        shares[label] = (agree / total, total)
+    (k, nk), (w, nw) = shares["kernels"], shares["witness"]
+    sigma = math.sqrt(k * (1 - k) / nk + w * (1 - w) / nw)
+    floor = (TF_ARGMAX_FLOOR if w >= TF_ARGMAX_FLOOR
+             else w - WITNESS_SIGMAS * sigma)
+    print(f"[serve_static] {cfg.name}: share of bf16 tokens equal to the "
+          f"f32 argmax, kernels {k:.4f} ({nk} tokens), plain attention "
+          f"{w:.4f} ({nw}); standard error of the difference {sigma:.4f}; "
+          f"the kernels' floor {floor:.4f} ("
+          + ("TF_ARGMAX_FLOOR" if w >= TF_ARGMAX_FLOOR else
+             f"the plain path under TF_ARGMAX_FLOOR {TF_ARGMAX_FLOOR}: "
+             f"its share less {WITNESS_SIGMAS} standard errors") + ")",
+          flush=True)
+    if not k >= floor:
+        fail(f"{cfg.name} static: the kernels' tokens equal the f32 argmax "
+             f"at {k}, under {floor} (plain attention {w})")
+
 
 # ---------------------------------------------------------------------------
 # the encoder-decoder's static path: its teacher-forced check
@@ -2537,25 +2704,16 @@ def phase_ssd_chunk(torch, timer, mcfg, ec):
 
 
 def phase_serve_mamba(torch, mcfg):
-    """The mamba serving path, full-width mamba2-370m from SEED, the
-    qwen2 phase's 16 requests: per depth (1 and 8) two greedy runs, which
+    """The mamba serving path, ``mcfg`` (mamba2-370m at every width, its
+    depth as main cuts it) from SEED, the qwen2 phase's 16 requests: per depth (1 and 8) two greedy runs, which
     must repeat token for token, and one at SAMPLE_T / SAMPLE_TOP_K; the
     slot kernels must launch in every run, attention in none, and every
     state slot must be free after each; then the teacher-forced f32
     check (the logit tolerances only).  Returns the launches of each depth's first greedy and its
     sampled run, summed."""
     from repro_torch import kernels
-    from repro_torch.models.model import build_model
     from repro_torch.serve.profile_engine import workload
-    model = build_model(mcfg)
-    t0 = time.perf_counter()
-    params = model.init(SEED, "cuda")
-    torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {mcfg.name} full width: {mcfg.num_layers} layers, "
-          f"d_model {mcfg.d_model}, {nparams / 1e9:.3f}B params "
-          f"{mcfg.param_dtype}, init {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    model, params = _init_params(torch, mcfg)
     work = workload(mcfg.vocab_size, SEED)
     launches = {fn.__name__: 0 for fn in kernels.KERNELS}
     greedy_streams, sampled_streams = [], []
@@ -2834,19 +2992,8 @@ def phase_serve_deepseek(torch, dcfg):
     dropless form.  Returns the launches of the first greedy run of each
     depth and of the sampled run, summed."""
     from repro_torch import kernels
-    from repro_torch.models.model import build_model
     from repro_torch.serve.profile_engine import workload
-    model = build_model(dcfg)
-    t0 = time.perf_counter()
-    params = model.init(SEED, "cuda")
-    torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {dcfg.name} full width cut to {dcfg.num_layers} layers "
-          f"(runs {[(k, f, n) for k, f, n in _runs(dcfg)]}), d_model "
-          f"{dcfg.d_model}, {dcfg.moe.num_experts} experts top-"
-          f"{dcfg.moe.num_experts_per_tok}: {nparams / 1e9:.3f}B params "
-          f"{dcfg.param_dtype} ({torch.cuda.memory_allocated() / 1e9:.2f} GB"
-          f" on the card), init {time.perf_counter() - t0:.1f}s", flush=True)
+    model, params = _init_params(torch, dcfg)
     work = workload(dcfg.vocab_size, SEED)
     launches = {fn.__name__: 0 for fn in kernels.KERNELS}
     greedy, sampled, routes = [], [], {}
@@ -2929,13 +3076,18 @@ def _greedy_gates(label, worst, agree, total, argmax_floor=TF_ARGMAX_FLOOR):
 
 @float32_exact()
 def _teacher_forced_check(torch, model, params, work, greedy, sampled,
-                          argmax_floor=TF_ARGMAX_FLOOR, routes=None):
+                          argmax_floor=TF_ARGMAX_FLOOR, routes=None,
+                          images=None):
     """Every emitted token against a plain f32 forward over the emitted
-    stream.  Greedy: its logit within TF_LOGIT_TOL of the row's max, and
-    at least TF_ARGMAX_FLOOR of them the row's argmax (bf16 kernels need
-    not pick the same token as f32 where random weights leave near-ties,
-    so exact identity is not required).  Sampled: its logit no more than
-    TF_TOPK_MARGIN below the row's f32 SAMPLE_TOP_K-th value.
+    stream (behind request i's image prefix ``images[i]`` for a vlm's
+    static path; the weights as ``_oracle_params`` gives them).
+    Greedy: its logit within TF_LOGIT_TOL of the row's max, and
+    at least ``argmax_floor`` of them (None: printed, not held) the row's
+    argmax (bf16 kernels need not pick the same token as f32 where random
+    weights leave near-ties, so exact identity is not required).
+    Sampled: its logit no more than TF_TOPK_MARGIN below the row's f32
+    SAMPLE_TOP_K-th value.  Returns (greedy tokens equal to the argmax,
+    greedy tokens).
 
     ``routes`` (the MoE family; one ``ServedRouting.resolve()`` per
     stream set, greedy then sampled): the forward runs the MoE in its
@@ -2950,7 +3102,7 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
     are printed beside the check."""
     from repro_torch.models import moe, transformer
     torch.cuda.reset_peak_memory_stats()
-    p32 = _cast(params, torch.float32)
+    p32 = _oracle_params(torch, params)
     cfg32 = model.cfg.replace(param_dtype="float32", compute_dtype="float32")
     worst, agree, total, worst_k, total_k = 0.0, 0, 0, 0.0, 0
     flips = routed = 0
@@ -2978,6 +3130,10 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
                 for i, (prompt, _) in enumerate(work):
                     seq = list(prompt) + out[i]
                     toks = torch.tensor([seq[:-1]], device="cuda")
+                    img = {} if images is None else dict(
+                        image_embeds=images[i:i + 1])
+                    first = len(prompt) - 1 + (0 if images is None
+                                               else images.shape[1])
                     forced.clear()
                     flipped = torch.zeros((toks.shape[1],), dtype=torch.bool,
                                           device="cuda")
@@ -3002,8 +3158,9 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
                             routed += a.shape[0]
                     natural.clear()
                     logits, _, _, _ = transformer.forward(
-                        p32, toks, cfg32, dropless=routes is not None)
-                    rows = logits[0, len(prompt) - 1:].float()
+                        p32, toks, cfg32, dropless=routes is not None, **img)
+                    rows = logits[0, first:].float()
+                    del logits
                     emitted = torch.tensor(out[i], device="cuda")
                     if is_greedy:
                         w, a = _greedy_scores(rows, emitted)
@@ -3054,6 +3211,7 @@ def _teacher_forced_check(torch, model, params, work, greedy, sampled,
     if not (worst_k <= TF_TOPK_MARGIN):
         fail(f"a sampled token's logit sits {worst_k} below the f32 "
              f"top-{SAMPLE_TOP_K} kth value (margin {TF_TOPK_MARGIN})")
+    return agree, total
 
 
 def _cast(tree, dtype):
@@ -3065,8 +3223,29 @@ def _cast(tree, dtype):
             for k, v in tree.items() if k != "mtp"}
 
 
+def _oracle_params(torch, params, spare=16e9):
+    """The weights of the f32 oracle: ``_cast``'s f32 copy where it fits
+    beside ``params`` with ``spare`` bytes left on the card, else the
+    bf16 params themselves, which the f32 forward casts a weight at a
+    time where it reads it: the same f32 numbers (bf16 -> f32 is exact),
+    for llava-next-34b's 30 layers, 35.3 GB in bf16, whose copy would
+    take 70.6 GB more."""
+    def cast(tree):
+        for k, v in tree.items():
+            if k not in ("experts", "mtp"):
+                yield from cast(v) if isinstance(v, dict) else (v,)
+    need = sum(t.numel() * 4 for t in cast(params))
+    if need + spare <= torch.cuda.mem_get_info()[0]:
+        return _cast(params, torch.float32)
+    print(f"[oracle] an f32 copy of the weights ({need / 1e9:.1f} GB) does "
+          "not fit beside them: the f32 forward casts each bf16 weight "
+          "where it reads it", flush=True)
+    return params
+
+
 # ---------------------------------------------------------------------------
-# the RG-LRU hybrid: recurrentgemma-2b served
+# the decoders served after qwen2 and the MLA family: recurrentgemma-2b
+# and the last four LM configs
 # ---------------------------------------------------------------------------
 
 
@@ -3092,95 +3271,95 @@ def _serving_launches(cfg, counters, depth, sampled):
     return want
 
 
-def phase_serve_recurrentgemma(torch, rcfg):
-    """The hybrid's serving path: full-width recurrentgemma-2b (26
-    layers: 18 RG-LRU, 8 local MQA at hd 256; bf16, random weights from
-    SEED) serves the qwen2 phase's 16 requests at depths 1 and 8, greedy
-    twice (the streams must repeat) and once at SAMPLE_T / SAMPLE_TOP_K,
-    each run making exactly the launches its counters call for (kernels
-    1-4 and 10-11, ``_serving_launches``) and freeing every state slot;
-    then one request of RG_LONG's prompt and new tokens under an
-    EngineConfig whose tables hold it, at depths 1 and 8: its queries
-    pass the 2048 window, so the kernels mask keys and the engine must
-    reclaim dead blocks (kv_blocks_reclaimed > 0).  Every emitted token
-    is held to the teacher-forced f32 check.  Returns the launches of
-    each depth's first greedy and its sampled run and of the long runs,
-    summed."""
+def phase_serve_lm(torch, cfg, params=None, greedy_runs=1):
+    """A decoder's paged serving path at full width (recurrentgemma-2b:
+    18 RG-LRU and 8 local MQA layers at hd 256; minicpm-2b; h2o-danube-3-4b
+    at hd 120; dbrx-132b and llava-next-34b at their DEPTH_CUTS depths;
+    bf16, random weights from SEED, or ``params``): the qwen2 phase's 16
+    requests at depths 1 and 8, ``greedy_runs`` greedy runs (their
+    streams must repeat) and one at SAMPLE_T / SAMPLE_TOP_K, each making
+    exactly the launches its counters call for (kernels 1-4 and 10-11,
+    ``_serving_launches``) and freeing every state slot; then, for a
+    config in LONG_REQUESTS, its long request under an EngineConfig whose
+    tables hold it, at depths 1 and 8: its queries pass the window, so
+    the kernels mask keys and the engine must reclaim dead blocks
+    (kv_blocks_reclaimed > 0).  Every emitted token is held to the
+    teacher-forced f32 check; an MoE config's oracle routes as the
+    served run routed (``ServedRouting``, as deepseek's) with no argmax
+    floor.  Returns the launches of each depth's first greedy and its
+    sampled run and of the long runs, summed."""
     from repro_torch import kernels
-    from repro_torch.models.model import build_model
     from repro_torch.serve.profile_engine import workload
-    model = build_model(rcfg)
-    t0 = time.perf_counter()
-    params = model.init(SEED, "cuda")
-    torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {rcfg.name} full width: {rcfg.num_layers} layers "
-          f"{[k for k, _, _ in _runs(rcfg)][:3]}..., d_model "
-          f"{rcfg.d_model}, {nparams / 1e9:.3f}B params "
-          f"{rcfg.param_dtype}, init {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    work = workload(rcfg.vocab_size, SEED)
+    from repro_torch.models.model import build_model
+    model = build_model(cfg)
+    if params is None:
+        params = _init_params(torch, cfg)[1]
+    moe = cfg.moe is not None
+    work = workload(cfg.vocab_size, SEED)
     launches = {fn.__name__: 0 for fn in kernels.KERNELS}
-    greedy_streams, sampled_streams = [], []
+    greedy, sampled, routes = [], [], {}
     sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
 
-    def gate(counts, stats, depth, sampled, label):
-        want = _serving_launches(rcfg, stats, depth, sampled)
+    def serve(work, depth, label, engine=None, **kw):
+        stats = {}
+        with (ServedRouting(torch, model) if moe
+              else contextlib.nullcontext()) as rec:
+            stream, counts, _, line = _serve_once(
+                torch, rec.model if moe else model, params, work, depth,
+                engine=engine, stats=stats, **kw)
+        print(f"[serve] {cfg.name} depth={depth} {label} {line}", flush=True)
+        want = _serving_launches(cfg, stats, depth, bool(kw))
         got = {k: v for k, v in counts.items() if v}
         if got != {k: v for k, v in want.items() if v}:
-            fail(f"{rcfg.name} {label}: launches {got}, want {want}")
+            fail(f"{cfg.name} {label} depth {depth}: launches {got}, want "
+                 f"{want}")
+        if moe:
+            routes[id(stream)] = rec.resolve()
+        return stream, counts, stats
 
     for depth in (1, 8):
         for kw in ({}, sample):
             runs = []
-            for rep in range(1 if kw else 2):
-                stats = {}
-                stream, counts, _, line = _serve_once(
-                    torch, model, params, work, depth, stats=stats, **kw)
-                mode = (f"T={SAMPLE_T} top_k={SAMPLE_TOP_K}" if kw
-                        else "greedy")
-                print(f"[serve] {rcfg.name} depth={depth} {mode} run={rep} "
-                      f"{line}", flush=True)
-                gate(counts, stats, depth, bool(kw), f"depth {depth} {mode}")
+            mode = f"T={SAMPLE_T} top_k={SAMPLE_TOP_K}" if kw else "greedy"
+            for rep in range(1 if kw else greedy_runs):
+                stream, counts, _ = serve(work, depth, f"{mode} run={rep}",
+                                          **kw)
                 if rep == 0:
                     for k, v in counts.items():
                         launches[k] += v
                 runs.append(stream)
             if runs[0] != runs[-1]:
-                fail(f"{rcfg.name} depth {depth} {mode}: a repeat gave "
+                fail(f"{cfg.name} depth {depth} {mode}: a repeat gave "
                      "other streams")
-            (sampled_streams if kw else greedy_streams).append(runs[0])
-    same = (greedy_streams[0] == greedy_streams[1],
-            sampled_streams[0] == sampled_streams[1])
-    print(f"[serve] {rcfg.name}: greedy streams repeat at each depth; "
-          f"depth 1 == depth 8: greedy {same[0]}, sampled {same[1]}",
+            (sampled if kw else greedy).append(runs[0])
+    print(f"[serve] {cfg.name}: depth 1 == depth 8: greedy "
+          f"{greedy[0] == greedy[1]}, sampled {sampled[0] == sampled[1]}",
           flush=True)
-
-    # one request past the window: the window mask and block reclaim
-    prompt_len, new = RG_LONG
-    rng = np.random.default_rng(SEED + 21)
-    long_work = [(rng.integers(0, rcfg.vocab_size, (prompt_len,))
-                  .astype(np.int32), new)]
-    long_cfg = dict(max_seq_len=LONG_SEQ)
-    long_streams = []
-    for depth in (1, 8):
-        stats = {}
-        stream, counts, _, line = _serve_once(
-            torch, model, params, long_work, depth, engine=long_cfg,
-            stats=stats)
-        print(f"[serve] {rcfg.name} long request depth={depth} prompt="
-              f"{prompt_len} new={new} max_seq_len="
-              f"{long_cfg['max_seq_len']} {line}", flush=True)
-        if stats["kv_blocks_reclaimed"] <= 0:
-            fail(f"long request depth {depth}: no block reclaimed past the "
-                 f"{rcfg.rglru.local_window}-token window")
-        gate(counts, stats, depth, False, f"long request depth {depth}")
-        for k, v in counts.items():
-            launches[k] += v
-        long_streams.append(stream)
-    _teacher_forced_check(torch, model, params, work, greedy_streams,
-                          sampled_streams)
-    _teacher_forced_check(torch, model, params, long_work, long_streams, [])
+    floor = None if moe else TF_ARGMAX_FLOOR
+    _teacher_forced_check(
+        torch, model, params, work, greedy, sampled, argmax_floor=floor,
+        routes=[routes[id(s)] for s in greedy + sampled] if moe else None)
+    if cfg.name in LONG_REQUESTS:
+        # one request past the window: the window mask and block reclaim
+        prompt_len, new = LONG_REQUESTS[cfg.name]
+        rng = np.random.default_rng(SEED + 21)
+        long_work = [(rng.integers(0, cfg.vocab_size, (prompt_len,))
+                      .astype(np.int32), new)]
+        long_cfg = dict(max_seq_len=long_seq(cfg))
+        long_streams = []
+        for depth in (1, 8):
+            stream, counts, stats = serve(
+                long_work, depth, f"long request prompt={prompt_len} "
+                f"new={new} max_seq_len={long_cfg['max_seq_len']}",
+                engine=long_cfg)
+            if stats["kv_blocks_reclaimed"] <= 0:
+                fail(f"{cfg.name} long request depth {depth}: no block "
+                     f"reclaimed past the {attn_window(cfg)}-token window")
+            for k, v in counts.items():
+                launches[k] += v
+            long_streams.append(stream)
+        _teacher_forced_check(torch, model, params, long_work, long_streams,
+                              [], argmax_floor=floor)
     del params
     return launches
 
@@ -3337,7 +3516,11 @@ def main() -> int:
     from repro_torch.serve.profile_engine import served_config
     mcfg, dcfg = get_config(MAMBA), served_config(DEEPSEEK)
     rcfg = get_config(RGEMMA)
-    gb = phase(phase_gumbel, torch, timer, cfg, mcfg, dcfg, rcfg, ec)
+    ccfg, hcfg = get_config(MINICPM), get_config(H2O)
+    bcfg, lcfg = served_config(DBRX), served_config(LLAVA)
+    lms = (ccfg, hcfg, bcfg, lcfg)
+    gb = phase(phase_gumbel, torch, timer, cfg,
+               (mcfg, dcfg, rcfg) + lms, ec)
     fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
     launches = phase(phase_serve, torch, cfg)
     phase(phase_depth_f32, torch, cfg)
@@ -3360,8 +3543,10 @@ def main() -> int:
         launches[name] = s_launches[name]
     st = phase(phase_slot_state, torch, timer, mcfg, ec)
     ssd, ssd_launches = phase(phase_ssd_chunk, torch, timer, mcfg, ec)
-    m_launches = phase(phase_serve_mamba, torch, mcfg)
-    phase(phase_depth_f32, torch, mcfg)
+    m_launches = phase(phase_serve_mamba, torch,
+                       mcfg.replace(num_layers=MAMBA_SERVE_LAYERS))
+    phase(phase_depth_f32, torch,
+          mcfg.replace(num_layers=F32_GATE_LAYERS[MAMBA]))
     for name in ("slot_gather", "slot_scatter"):
         launches[name] = m_launches[name]
     launches["ssd_chunk_bchp"] = ssd_launches
@@ -3378,8 +3563,9 @@ def main() -> int:
     fdb += phase(phase_flash_decode_bhd, torch, timer, rcfg, rwork)
     phase(phase_greedy, torch, timer, rcfg, ec)
     phase(phase_slot_state, torch, timer, rcfg, ec)
-    r_launches = phase(phase_serve_recurrentgemma, torch, rcfg)
-    phase(phase_depth_f32, torch, rcfg)
+    r_launches = phase(phase_serve_lm, torch, rcfg, None, 2)
+    phase(phase_depth_f32, torch,
+          rcfg.replace(num_layers=F32_GATE_LAYERS[RGEMMA]))
     rs_launches = phase(phase_serve_static, torch, rcfg, True)
     for name in ("flash_decode_paged", "decode_view_attend", "greedy_sample",
                  "gumbel_sample", "slot_gather", "slot_scatter"):
@@ -3399,13 +3585,55 @@ def main() -> int:
         launches[name] += w_launches[name]
     launches["fused_sgd_update"] += (rt["launches"]["fused_sgd_update"]
                                      + wt["launches"]["fused_sgd_update"])
+    # the last four LM configs: kernels 1, 2, 6 and 7 at h2o's head dim
+    # 120, 6 and 7 at llava's G = 7 (over its image prefix), 1 and 2 at
+    # the engine's layouts of minicpm (G = 1 over 36 kv heads, hd 64),
+    # dbrx (G = 6 over 8) and llava (G = 7 over 8), kernel 3 at their
+    # vocabularies (kernel 4's are in phase_gumbel); then each
+    # served, h2o and llava also through the static path, sharing one
+    # init.  lm_launches: each config's main-path launches
+    top = ec.decode_buckets[0]
+    hwork = workload(hcfg.vocab_size, SEED)
+    lwork = workload(lcfg.vocab_size, SEED)
+    fd_h = phase(phase_flash_decode, torch, timer, hcfg, ec)
+    dv_h = phase(phase_decode_view, torch, timer, hcfg, ec)
+    fa_h = phase(phase_flash_attention, torch, timer, hcfg, hwork)
+    fdb_h = phase(phase_flash_decode_bhd, torch, timer, hcfg, hwork)
+    # llava's prefills (8 x 3,392 positions): a median of 5 launches,
+    # its f32 plain version alone is 41 GB of scores and probabilities
+    fa_l = phase(phase_flash_attention, torch, Timer(torch, iters=5), lcfg,
+                 lwork)
+    fdb_l = phase(phase_flash_decode_bhd, torch, timer, lcfg, lwork)
+    paged = (ccfg, bcfg, lcfg)
+    fd_lm = {c.name: phase(phase_flash_decode, torch, timer, c, ec)
+             for c in paged}
+    dv_lm = {c.name: phase(phase_decode_view, torch, timer, c, ec)
+             for c in paged}
+    gs_lm = {c.name: phase(phase_greedy, torch, timer, c, ec, [top])
+             for c in lms}
+    lm_launches = {c.name: phase(phase_serve_lm, torch, c)
+                   for c in (ccfg, bcfg)}
+    for c, f32_equal in ((hcfg, True), (lcfg, False)):
+        _, params = _init_params(torch, c)
+        lm_launches[c.name] = phase(phase_serve_lm, torch, c, params)
+        static = phase(phase_serve_static, torch, c, f32_equal, params)
+        for name in ("flash_attention", "flash_decode", "greedy_sample"):
+            lm_launches[c.name][name] += static[name]
+        del params
+    for counts in lm_launches.values():
+        for name, n in counts.items():
+            launches[name] += n
+    fd += fd_h + [r for c in paged for r in fd_lm[c.name]]
+    dv += dv_h + [r for c in paged for r in dv_lm[c.name]]
+    fa += fa_h + fa_l
+    fdb += fdb_h + fdb_l
     phase(phase_census, torch, cfg, mcfg, ec)
 
     def row(results, label):
         """The kernel's JSON numbers: times of the first case ``label``
         (qwen2's full decode bucket, or its static path's first batch),
-        error the worst over every case of the phase's calls (qwen2's
-        and recurrentgemma's)."""
+        error the worst over every case of ``results`` (a kernel's first
+        row: every config its phase ran at)."""
         pick = next(r for r in results if r["label"] == label)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return dict(max_abs_err=max(r["max_abs_err"] for r in results),
@@ -3474,6 +3702,48 @@ def main() -> int:
              launches=launches["flash_decode"],
              **row(fdb, f"S={s0} length={s0} bfloat16")),
     ]
+
+    def lm_row(name, config, case, numbers):
+        """A row of kernel ``name`` at one of the last four configs'
+        shapes: ``case`` names them, launches are that config's
+        main-path runs' (the kernel's first row counts every path's)."""
+        base = next(r for r in rows if r["name"] == name)
+        return dict(base, case=f"{config} {case}",
+                    launches=lm_launches[config][name], **numbers)
+
+    sl = lcfg.num_image_tokens + s0
+    rows += [
+        lm_row("flash_decode_paged", H2O, f"hd 120 B={top} C=1",
+               row(fd_h, f"B={top} C=1")),
+        lm_row("decode_view_attend", H2O, f"hd 120 B={top}",
+               row(dv_h, f"B={top}")),
+        lm_row("flash_attention", H2O, f"hd 120 {fa_h[0]['label']}",
+               row(fa_h, fa_h[0]["label"])),
+        lm_row("flash_decode", H2O, f"hd 120 S={s0} length={s0}",
+               row(fdb_h, f"S={s0} length={s0} bfloat16")),
+        lm_row("flash_decode_paged", MINICPM, f"G 1 hd 64 B={top} C=1",
+               row(fd_lm[MINICPM], f"B={top} C=1")),
+        lm_row("decode_view_attend", MINICPM, f"G 1 hd 64 B={top}",
+               row(dv_lm[MINICPM], f"B={top}")),
+        lm_row("flash_decode_paged", DBRX, f"G 6 KV 8 B={top} C=1",
+               row(fd_lm[DBRX], f"B={top} C=1")),
+        lm_row("decode_view_attend", DBRX, f"G 6 KV 8 B={top}",
+               row(dv_lm[DBRX], f"B={top}")),
+        lm_row("flash_decode_paged", LLAVA, f"G 7 B={top} C=1",
+               row(fd_lm[LLAVA], f"B={top} C=1")),
+        lm_row("decode_view_attend", LLAVA, f"G 7 B={top}",
+               row(dv_lm[LLAVA], f"B={top}")),
+        lm_row("flash_attention", LLAVA, f"G 7 {fa_l[0]['label']}",
+               row(fa_l, fa_l[0]["label"])),
+        lm_row("flash_decode", LLAVA, f"G 7 S={sl} length={sl}",
+               row(fdb_l, f"S={sl} length={sl} bfloat16")),
+    ]
+    for c in lms:
+        rows += [lm_row("greedy_sample", c.name,
+                        f"V {c.vocab_size} B={top}", gs_lm[c.name][top]),
+                 lm_row("gumbel_sample", c.name,
+                        f"V {c.vocab_size} B={top} top_k={SAMPLE_TOP_K}",
+                        gb[(f"V={c.vocab_size}", top, SAMPLE_TOP_K)])]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

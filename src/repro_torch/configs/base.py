@@ -165,9 +165,11 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 
 def _load_all():
-    # the port registers only the archs it runs so far (ROADMAP §1)
-    from repro_torch.configs import (deepseek_v3_671b,  # noqa: F401
-                                     mamba2_370m, qwen1_5_0_5b, qwen2_1_5b,
+    # every arch the reference registers
+    from repro_torch.configs import (dbrx_132b,  # noqa: F401
+                                     deepseek_v3_671b, h2o_danube_3_4b,
+                                     llava_next_34b, mamba2_370m, minicpm_2b,
+                                     qwen1_5_0_5b, qwen2_1_5b,
                                      recurrentgemma_2b, resnet50,
                                      whisper_tiny)
 

@@ -19,8 +19,9 @@
 // chunk's K and V rows are read with 16-byte vector loads, up to 8 a
 // thread issued before any is stored, into shared memory as f32; each
 // lane scores its key against the tile's queries, and each warp keeps
-// m/l/acc of its 2 query rows in registers, each lane owning HD/32 lanes
-// of the accumulator.  Keys past the last position any query of the tile
+// m/l/acc of its 2 query rows in registers, each lane owning columns
+// lane, lane + 32, ... of the accumulator (at hd 120 the last of its
+// four exists for lanes 0-23 only: lane_col).  Keys past the last position any query of the tile
 // sees are never read; with a window, keys before the first visible one
 // are skipped too.  The tile's q, k and v live in dynamic shared memory
 // (attend_smem_bytes: 73,856 bytes at hd 256, past the 48 KB a kernel
@@ -61,6 +62,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+// Columns of a head dim over a warp: lane owns lane + 32 * j for j <
+// lane_cols(HD); lane_col says whether that column exists (at a head dim
+// that is no multiple of 32, as 120, the last j is partial).
+template <int HD>
+__host__ __device__ constexpr int lane_cols() { return (HD + 31) / 32; }
+template <int HD>
+__device__ __forceinline__ bool lane_col(int lane, int j) {
+  return HD % 32 == 0 || lane + 32 * j < HD;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -93,7 +104,9 @@ struct ViewKeys {
 // Stage keys [k0, k0 + kChunk) ∩ [.., k_end) of K and V in shared memory
 // as f32 (zeros past k_end).  The vector loads go in groups of up to 8 a
 // thread (one group up to hd 128 in f32), each issued whole before its
-// first store, so their latencies overlap.
+// first store, so their latencies overlap.  A row is HD / VEC vectors
+// (30 in f32 at hd 120, 16-byte aligned at 480 bytes a row); where the
+// chunk's vectors do not fill the last pass, its idle threads load none.
 template <typename T, int HD, typename Keys>
 __device__ __forceinline__ void load_chunk(const T* __restrict__ kbuf,
                                            const T* __restrict__ vbuf,
@@ -103,10 +116,10 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ kbuf,
                                            float (*vs)[HD]) {
   constexpr int VEC = 16 / sizeof(T);           // elements per 16 bytes
   constexpr int PER_TOKEN = HD / VEC;
-  constexpr int N = kChunk * PER_TOKEN / kThreads;
+  constexpr int TOTAL = kChunk * PER_TOKEN;
+  constexpr int N = (TOTAL + kThreads - 1) / kThreads;
   constexpr int GROUP = N < 8 ? N : 8;
-  static_assert(N * kThreads == kChunk * PER_TOKEN && N % GROUP == 0,
-                "chunk tiling");
+  static_assert(PER_TOKEN * VEC == HD && N % GROUP == 0, "chunk tiling");
 #pragma unroll
   for (int i0 = 0; i0 < N; i0 += GROUP) {
     uint4 kr[GROUP], vr[GROUP];
@@ -114,7 +127,7 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ kbuf,
     for (int i = 0; i < GROUP; ++i) {
       const int idx = threadIdx.x + (i0 + i) * kThreads;
       const int t = idx / PER_TOKEN, key = k0 + t;
-      if (key < k_end) {
+      if ((TOTAL % kThreads == 0 || idx < TOTAL) && key < k_end) {
         const long long off =
             keys.offset(b, kv, key) + (idx % PER_TOKEN) * VEC;
         kr[i] = __ldg(reinterpret_cast<const uint4*>(kbuf + off));
@@ -127,6 +140,7 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ kbuf,
 #pragma unroll
     for (int i = 0; i < GROUP; ++i) {
       const int idx = threadIdx.x + (i0 + i) * kThreads;
+      if (TOTAL % kThreads != 0 && idx >= TOTAL) continue;
       const int t = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
       const T* kx = reinterpret_cast<const T*>(&kr[i]);
       const T* vx = reinterpret_cast<const T*>(&vr[i]);
@@ -152,7 +166,7 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kbuf,
                             int b, int kv, int C, int H, int G, int row0,
                             int split, int nsplit, int pos, int n_keys,
                             int window, float scale) {
-  constexpr int PER_LANE = HD / 32;
+  constexpr int PER_LANE = lane_cols<HD>();
   extern __shared__ float attend_smem[];   // attend_smem_bytes<HD>()
   float(*qs)[HD] = reinterpret_cast<float(*)[HD]>(attend_smem);
   // +1: lane-per-key reads hit distinct banks
@@ -227,7 +241,8 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kbuf,
         const float pt = __shfl_sync(0xffffffffu, p, t);
 #pragma unroll
         for (int j = 0; j < PER_LANE; ++j)
-          acc[rr][j] = fmaf(pt, vs[t][lane + 32 * j], acc[rr][j]);
+          if (lane_col<HD>(lane, j))
+            acc[rr][j] = fmaf(pt, vs[t][lane + 32 * j], acc[rr][j]);
       }
       m[rr] = m_new;
     }
@@ -243,7 +258,8 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kbuf,
           ((long long)b * C * H + (long long)c * H + head) * nsplit + split;
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j)
-        part_acc[prow * HD + lane + 32 * j] = acc[rr][j];
+        if (lane_col<HD>(lane, j))
+          part_acc[prow * HD + lane + 32 * j] = acc[rr][j];
       if (lane == 0) {
         part_ml[prow * 2] = m[rr];
         part_ml[prow * 2 + 1] = l[rr];
@@ -254,7 +270,7 @@ __device__ void attend_tile(const T* __restrict__ q, const T* __restrict__ kbuf,
     T* o = out + ((long long)c * H + head) * HD;
 #pragma unroll
     for (int j = 0; j < PER_LANE; ++j)
-      o[lane + 32 * j] = from_f<T>(acc[rr][j] * inv);
+      if (lane_col<HD>(lane, j)) o[lane + 32 * j] = from_f<T>(acc[rr][j] * inv);
   }
 }
 
@@ -265,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
 combine_splits(const float* __restrict__ part_acc,
                const float* __restrict__ part_ml, T* __restrict__ out,
                int rows, int nsplit) {
-  constexpr int PER_LANE = HD / 32;
+  constexpr int PER_LANE = lane_cols<HD>();
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -283,13 +299,15 @@ combine_splits(const float* __restrict__ part_acc,
       l += w * ml[2 * s + 1];
       const float* a = part_acc + ((long long)row * nsplit + s) * HD;
 #pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) acc[j] = fmaf(w, a[lane + 32 * j], acc[j]);
+      for (int j = 0; j < PER_LANE; ++j)
+        if (lane_col<HD>(lane, j)) acc[j] = fmaf(w, a[lane + 32 * j], acc[j]);
     }
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
   for (int j = 0; j < PER_LANE; ++j)
-    out[(long long)row * HD + lane + 32 * j] = from_f<T>(acc[j] * inv);
+    if (lane_col<HD>(lane, j))
+      out[(long long)row * HD + lane + 32 * j] = from_f<T>(acc[j] * inv);
 }
 
 }  // namespace rt

@@ -48,7 +48,11 @@
 // 2 x (K 16 KB + V 16 KB) = 80 KB, two CTAs an SM.  At hd 256 (O alone
 // 128 registers a thread) Q's fragments are read from shared memory at
 // each k-step instead of held, and K/V go in 32-key chunks: Q 32 KB +
-// 2 x (16 KB + 16 KB) = 96 KB, still two CTAs an SM.
+// 2 x (16 KB + 16 KB) = 96 KB, still two CTAs an SM.  At hd 120
+// (h2o-danube-3) rows are 240 bytes apart, 15 16-byte copies each; the
+// shared layout is hd 128's (rt::smem_hd) with the 16th chunk of every
+// staged row zero-filled by the copy, so Q·Kᵀ's last k-step adds zeros;
+// O is 15 n8 tiles and 120 columns are stored.
 //
 // float32: CUDA cores (flash_attention_f32).  Tensor cores on f32 would
 // be TF32 and change the numbers against the f32 plain version, so f32
@@ -57,8 +61,10 @@
 // before any is stored); each warp owns 8 query rows, a lane scores one
 // key of the chunk against the warp's rows and accumulates HD/32 columns
 // of the 8 output rows (4 at hd 256, where 8 rows of 256 columns would
-// take 64 accumulators a thread and 64 rows of q 64 KB); 256 threads, two
-// CTAs an SM.  Operations bind it (67 TFLOP/s f32).
+// take 64 accumulators a thread and 64 rows of q 64 KB; 4 at hd 120,
+// where a lane's fourth column exists for lanes 0-23 only and 8 rows
+// spill); 256 threads, two CTAs an SM.  Operations bind it (67 TFLOP/s
+// f32).
 #include "attend.cuh"
 #include "mma.cuh"
 
@@ -100,37 +106,45 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;   // one m16n8k16 A tile a warp
 
-// keys a chunk, and whether Q's A fragments stay in registers for the
-// whole key loop (at hd 256 they are read from shared memory at each
-// k-step: O alone takes 128 registers a thread)
+// keys a chunk, whether Q's A fragments stay in registers for the whole
+// key loop (at hd 256 they are read from shared memory at each k-step: O
+// alone takes 128 registers a thread), and the staged rows' width (hd
+// 120 staged as 128, its last chunk zeros)
 template <int HD>
 struct Shape {
   static constexpr int kKeys = HD > 128 ? 32 : 64;
   static constexpr bool kQRegs = HD <= 128;
+  static constexpr int kLd = smem_hd(HD);
 };
 
 template <int HD>
 constexpr int smem_bytes() {   // Q, 2 x (K, V)
-  return (kRows + 4 * Shape<HD>::kKeys) * HD * (int)sizeof(bf16);
+  return (kRows + 4 * Shape<HD>::kKeys) * Shape<HD>::kLd * (int)sizeof(bf16);
 }
+static_assert(2 * (smem_bytes<120>() + 120 * 4) <= 232448,
+              "hd 120: two CTAs an SM, as at 128");
 static_assert(2 * (smem_bytes<256>() + 256 * 4) <= 232448,
               "hd 256: two CTAs an SM");
 
-// K/V rows [k0, k0 + KEYS) of one (row, kv head) into a swizzled stage;
-// keys at and past Sk are zero-filled (never read from device memory)
+// K/V rows [k0, k0 + KEYS) of one (row, kv head) into a swizzled stage of
+// smem_hd(HD)-wide rows; keys at and past Sk and the chunks past HD (hd
+// 120) are zero-filled (never read from device memory)
 template <int HD, int KEYS>
 __device__ __forceinline__ void load_keys(bf16* dst, const bf16* src,
                                           long long kv_stride, int k0,
                                           int Sk) {
-  constexpr int CH = HD / 8;
+  constexpr int LD = smem_hd(HD), CH = LD / 8, CHG = HD / 8;
   static_assert(KEYS * CH % kThreads == 0, "chunk tiling");
 #pragma unroll
   for (int it = 0; it < KEYS * CH / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / CH, c = idx % CH, key = k0 + r;
-    const bool ok = key < Sk;
-    cp_async16(smem_u32(dst + swz<HD>(r, c)),
-               src + (long long)(ok ? key : 0) * kv_stride + c * 8, ok);
+    const bool in_row = CHG == CH || c < CHG;
+    const bool ok = key < Sk && in_row;
+    cp_async16(smem_u32(dst + swz<LD>(r, c)),
+               src + (long long)(key < Sk ? key : 0) * kv_stride +
+                   (in_row ? c : 0) * 8,
+               ok);
   }
 }
 
@@ -142,14 +156,16 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    float scale_log2) {
   constexpr int kKeys = Shape<HD>::kKeys;
   constexpr bool kQRegs = Shape<HD>::kQRegs;
-  constexpr int CH = HD / 8;       // 16-byte chunks a row
-  constexpr int KSTEPS = HD / 16;  // k-steps of Q·Kᵀ
+  constexpr int LD = Shape<HD>::kLd;   // staged row width
+  constexpr int CH = LD / 8;       // 16-byte chunks a staged row
+  constexpr int CHG = HD / 8;      // ... of them in a row in device memory
+  constexpr int KSTEPS = LD / 16;  // k-steps of Q·Kᵀ
   constexpr int NT = kKeys / 8;    // n-tiles of S
-  constexpr int OT = HD / 8;       // n-tiles of O
+  constexpr int OT = HD / 8;       // n-tiles of O (15 at hd 120)
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kRows][HD], then O
-  bf16* ks = qs + kRows * HD;                 // [2][kKeys][HD]
-  bf16* vs = ks + 2 * kKeys * HD;             // [2][kKeys][HD]
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kRows][LD], then O
+  bf16* ks = qs + kRows * LD;                 // [2][kKeys][LD]
+  bf16* vs = ks + 2 * kKeys * LD;             // [2][kKeys][LD]
   __shared__ float vmean[HD];
 
   const int G = H / KV, n_rows = Sq * G;
@@ -174,11 +190,14 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < kRows * CH / kThreads; ++it) {
     const int idx = tid + it * kThreads;
     const int r = idx / CH, c = idx % CH, gr = row0 + r;
-    const bool ok = gr < n_rows;
-    const int qr = ok ? gr : row0;
+    const bool in_row = CHG == CH || c < CHG;
+    const bool ok = gr < n_rows && in_row;
+    const int qr = gr < n_rows ? gr : row0;
     const int qi = qr / G, head = kv * G + qr % G;
-    cp_async16(smem_u32(qs + swz<HD>(r, c)),
-               q + (((long long)b * Sq + qi) * H + head) * HD + c * 8, ok);
+    cp_async16(smem_u32(qs + swz<LD>(r, c)),
+               q + (((long long)b * Sq + qi) * H + head) * HD +
+                   (in_row ? c : 0) * 8,
+               ok);
   }
   if (n_chunks > 0) load_keys<HD, kKeys>(ks, kb, kv_stride, k_begin, Sk);
   cp_async_commit();
@@ -197,9 +216,9 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   // Q's A fragments: all KSTEPS held, or the two of one k-step pair
   uint32_t qf[kQRegs ? KSTEPS : 2][4];
-  const uint32_t q_addr = smem_u32(qs + warp * 16 * HD);
+  const uint32_t q_addr = smem_u32(qs + warp * 16 * LD);
   auto load_q = [&](int s, uint32_t(&f)[4]) {
-    ldsm_x4(q_addr + 2 * swz<HD>(lane & 15, 2 * s + (lane >> 4)), f);
+    ldsm_x4(q_addr + 2 * swz<LD>(lane & 15, 2 * s + (lane >> 4)), f);
   };
   if constexpr (kQRegs) {
 #pragma unroll
@@ -209,14 +228,14 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < n_chunks; ++n) {
     const int k0 = k_begin + n * kKeys;
     const int st = n & 1;
-    const bf16* kst = ks + st * kKeys * HD;
-    const bf16* vst = vs + st * kKeys * HD;
+    const bf16* kst = ks + st * kKeys * LD;
+    const bf16* vst = vs + st * kKeys * LD;
     if (n > 0) {
       cp_async_wait<1>();   // K of chunk n (its V may be in flight)
       __syncthreads();      // and every warp is done with chunk n - 1
     }
     if (n + 1 < n_chunks)
-      load_keys<HD, kKeys>(ks + (st ^ 1) * kKeys * HD, kb, kv_stride,
+      load_keys<HD, kKeys>(ks + (st ^ 1) * kKeys * LD, kb, kv_stride,
                            k0 + kKeys, Sk);
     cp_async_commit();
 
@@ -234,7 +253,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         uint32_t kf[4];
-        ldsm_x4(smem_u32(kst + swz<HD>(j * 8 + (lane & 7), 4 * kp + (lane >> 3))),
+        ldsm_x4(smem_u32(kst + swz<LD>(j * 8 + (lane & 7), 4 * kp + (lane >> 3))),
                 kf);
         mma(s[j], qf[qa], kf[0], kf[1]);
         mma(s[j], qf[qa + 1], kf[2], kf[3]);
@@ -293,11 +312,12 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();   // V of chunk n (chunk n + 1's K may be in flight)
     __syncthreads();      // and every warp is done with chunk n - 1's V
     if (n + 1 < n_chunks)
-      load_keys<HD, kKeys>(vs + (st ^ 1) * kKeys * HD, vb, kv_stride,
+      load_keys<HD, kKeys>(vs + (st ^ 1) * kKeys * LD, vb, kv_stride,
                            k0 + kKeys, Sk);
     cp_async_commit();
 
-    // O += P V, P from the S accumulators as A fragments (hi + lo)
+    // O += P V, P from the S accumulators as A fragments (hi + lo); at
+    // hd 120 the last pair's second n-tile is the zero chunk
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       uint32_t ph[4], pl[4];
@@ -306,15 +326,17 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
       split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int jp = 0; jp < OT / 2; ++jp) {
+      for (int jp = 0; jp < (OT + 1) / 2; ++jp) {
         uint32_t vf[4];
-        ldsm_x4_t(smem_u32(vst + swz<HD>(16 * kk + (lane & 15),
+        ldsm_x4_t(smem_u32(vst + swz<LD>(16 * kk + (lane & 15),
                                          2 * jp + (lane >> 4))),
                   vf);
         mma(o[2 * jp], ph, vf[0], vf[1]);
         mma(o[2 * jp], pl, vf[0], vf[1]);
-        mma(o[2 * jp + 1], ph, vf[2], vf[3]);
-        mma(o[2 * jp + 1], pl, vf[2], vf[3]);
+        if (2 * jp + 1 < OT) {
+          mma(o[2 * jp + 1], ph, vf[2], vf[3]);
+          mma(o[2 * jp + 1], pl, vf[2], vf[3]);
+        }
       }
     }
   }
@@ -343,7 +365,7 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int col = j * 8 + (lane & 3) * 2;
       const float x0 = empty ? vmean[col] : o[j][2 * r] * inv;
       const float x1 = empty ? vmean[col + 1] : o[j][2 * r + 1] * inv;
-      *reinterpret_cast<__nv_bfloat162*>(os + swz<HD>(rr, j) + (lane & 3) * 2) =
+      *reinterpret_cast<__nv_bfloat162*>(os + swz<LD>(rr, j) + (lane & 3) * 2) =
           __floats2bfloat162_rn(x0, x1);
     }
   }
@@ -352,11 +374,11 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < 16 * CH / 32; ++it) {
     const int idx = lane + it * 32;
     const int rr = warp * 16 + idx / CH, c = idx % CH, gr = row0 + rr;
-    if (gr < n_rows) {
+    if (gr < n_rows && (CHG == CH || c < CHG)) {
       const int qi = gr / G, head = kv * G + gr % G;
       *reinterpret_cast<uint4*>(out + (((long long)b * Sq + qi) * H + head) * HD +
                                 c * 8) =
-          *reinterpret_cast<const uint4*>(os + swz<HD>(rr, c));
+          *reinterpret_cast<const uint4*>(os + swz<LD>(rr, c));
     }
   }
 }
@@ -391,10 +413,12 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 32;
 
 // query rows a warp and a CTA: 8 and 64, or 4 and 32 at hd 256 (the
-// accumulators stay 64 a thread and two CTAs share an SM)
+// accumulators stay 64 a thread and two CTAs share an SM) and at hd 120
+// (8 rows spilled 32 bytes: the lane's partial fourth column costs
+// registers within the 128 of two CTAs an SM)
 template <int HD>
 struct Rows {
-  static constexpr int kPerWarp = HD > 128 ? 4 : 8;
+  static constexpr int kPerWarp = HD > 128 || HD % 32 ? 4 : 8;
   static constexpr int kCta = kWarps * kPerWarp;
 };
 
@@ -405,7 +429,9 @@ template <int HD>
 constexpr int smem_floats() {
   return Rows<HD>::kCta * HD + kChunk * (HD + 4) + kChunk * HD;
 }
-static_assert(2 * smem_floats<256>() * 4 <= 232448, "hd 256: two CTAs an SM");
+static_assert(2 * smem_floats<120>() * 4 <= 232448 &&
+                  2 * smem_floats<256>() * 4 <= 232448,
+              "hd 120 and 256: two CTAs an SM");
 
 // two CTAs an SM (at most 128 registers a thread): while one waits at
 // its barrier for a K/V chunk from device memory, the other computes
@@ -415,7 +441,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
                     int B, int Sq, int Sk, int H, int KV, int causal,
                     int window, float scale) {
-  constexpr int PER_LANE = HD / 32;
+  constexpr int PER_LANE = rt::lane_cols<HD>();
   constexpr int KS = HD + 4;
   constexpr int kRowsPerWarp = Rows<HD>::kPerWarp;
   constexpr int kRows = Rows<HD>::kCta;
@@ -463,13 +489,15 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   constexpr int VEC = 4;
   constexpr int PER_TOKEN = HD / VEC;
-  constexpr int NLOAD = kChunk * PER_TOKEN / kThreads;
+  constexpr int TOTAL = kChunk * PER_TOKEN;
+  // 16-byte loads a thread a chunk (at hd 120 the last pass leaves some
+  // threads idle: 960 vectors over 256 threads)
+  constexpr int NLOAD = (TOTAL + kThreads - 1) / kThreads;
   // loads in flight a thread, issued before their stores: every one up to
   // hd 128, groups of 4 at hd 256 (within the 128 registers of two CTAs
   // an SM)
   constexpr int GROUP = NLOAD < 4 ? NLOAD : 4;
-  static_assert(NLOAD * kThreads == kChunk * PER_TOKEN && NLOAD % GROUP == 0,
-                "chunk tiling");
+  static_assert(PER_TOKEN * VEC == HD && NLOAD % GROUP == 0, "chunk tiling");
   const long long kv_stride = (long long)KV * HD;   // between positions
   const float* kb = k + (long long)b * Sk * kv_stride + (long long)kv * HD;
   const float* vb = v + (long long)b * Sk * kv_stride + (long long)kv * HD;
@@ -483,7 +511,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < GROUP; ++i) {
         const int idx = tid + (i0 + i) * kThreads;
         const int tok = idx / PER_TOKEN, key = k0 + tok;
-        if (key < k_end) {
+        if ((TOTAL % kThreads == 0 || idx < TOTAL) && key < k_end) {
           const long long off = key * kv_stride + (idx % PER_TOKEN) * VEC;
           kr[i] = __ldg(reinterpret_cast<const float4*>(kb + off));
           vr[i] = __ldg(reinterpret_cast<const float4*>(vb + off));
@@ -495,6 +523,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < GROUP; ++i) {
         const int idx = tid + (i0 + i) * kThreads;
+        if (TOTAL % kThreads != 0 && idx >= TOTAL) continue;
         const int tok = idx / PER_TOKEN, d0 = (idx % PER_TOKEN) * VEC;
         *reinterpret_cast<float4*>(ks + tok * KS + d0) = kr[i];
         *reinterpret_cast<float4*>(vs + tok * HD + d0) = vr[i];
@@ -554,7 +583,8 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int tk = 0; tk < kChunk; ++tk) {
       float vv[PER_LANE];
 #pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) vv[j] = vs[tk * HD + lane + 32 * j];
+      for (int j = 0; j < PER_LANE; ++j)
+        vv[j] = rt::lane_col<HD>(lane, j) ? vs[tk * HD + lane + 32 * j] : 0.f;
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const float pt = __shfl_sync(0xffffffffu, p[rr], tk);
@@ -581,12 +611,14 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + (((long long)b * Sq + qi) * H + head) * HD;
     if (window > 0 && qi >= empty_from) {
 #pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) o[lane + 32 * j] = vs[lane + 32 * j];
+      for (int j = 0; j < PER_LANE; ++j)
+        if (rt::lane_col<HD>(lane, j)) o[lane + 32 * j] = vs[lane + 32 * j];
       continue;
     }
     const float inv = 1.f / fmaxf(l[rr], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) o[lane + 32 * j] = acc[rr][j] * inv;
+    for (int j = 0; j < PER_LANE; ++j)
+      if (rt::lane_col<HD>(lane, j)) o[lane + 32 * j] = acc[rr][j] * inv;
   }
 }
 
@@ -623,12 +655,16 @@ extern "C" int rt_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
     return f32::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 0 && hd == 120)
+    return f32::launch<120>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 0 && hd == 128)
     return f32::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 0 && hd == 256)
     return f32::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+  if (dtype == 1 && hd == 120)
+    return tc::launch<120>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale, s);
   if (dtype == 1 && hd == 256)

@@ -8,7 +8,7 @@
 // pos (B,) int32 -> out (B, C, H, HD).  Query c of row b sits at
 // position pos[b] + c and sees keys kpos <= pos[b] + c (and
 // kpos > pos[b] + c - window when window > 0).  Pools are read in place
-// at any head dim the kernel is built for (64, 128, 256): nothing is
+// at any head dim the kernel is built for (64, 120, 128, 256): nothing is
 // padded, and the scale comes from the caller (1/sqrt(true hd)).
 //
 // rt_flash_decode: one query token per row over a contiguous cache.
@@ -75,6 +75,14 @@
 // still share an SM.  The narrow layout keeps 64-key chunks (16 keys a
 // warp is one m16n8k16 k-step of P·V): (16 + 4 x 64) x 256 x 2 = 136 KB,
 // one CTA an SM.
+//
+// Head dim 120 (h2o-danube-3's GQA, G = 4): rows are 240 bytes apart in
+// bf16, so 15 16-byte copies tile one in place.  The shared layout is
+// hd 128's (rt::smem_hd): the 16th chunk of every staged Q, K and V row
+// is zero-filled by the copy, never read from device memory, so the last
+// k-step of Q·Kᵀ adds zeros; P·V runs 15 n8 tiles of O (the last
+// ldmatrix pair's second tile is the zero chunk, no MMA issued for it)
+// and only 120 columns are stored.  No pad of the pools or of q.
 //
 // float32: CUDA cores (attend.cuh's attend_tile, 8 rows a CTA, one
 // kernel per entry point); tensor cores would be TF32 and change the
@@ -240,57 +248,67 @@ constexpr int kNarrowRows = 16;           // the wrapper's NARROW_ROWS
 constexpr int kWideRows = kWarps * 16;    // the wrapper's WIDE_ROWS
 
 // query rows a CTA, keys a staged chunk (the wrapper's chunk_keys), keys
-// of a chunk one warp scores, and whether Q's A fragments stay in
-// registers for the whole key loop (else read from shared memory at each
-// k-step: at hd 256 O alone takes 128 registers a thread)
+// of a chunk one warp scores, whether Q's A fragments stay in registers
+// for the whole key loop (else read from shared memory at each k-step: at
+// hd 256 O alone takes 128 registers a thread), and the staged rows'
+// width (hd 120 staged as 128, its last chunk zeros)
 template <int HD, bool NARROW>
 struct Layout {
   static constexpr int kRows = NARROW ? kNarrowRows : kWideRows;
   static constexpr int kKeys = !NARROW && HD > 128 ? 32 : 64;
   static constexpr int kWarpKeys = NARROW ? kKeys / kWarps : kKeys;
   static constexpr bool kQRegs = HD <= 128;
+  static constexpr int kLd = smem_hd(HD);
 };
 
 template <int HD, bool NARROW>
 constexpr int smem_bytes() {   // Q, 2 x (K, V)
   using L = Layout<HD, NARROW>;
-  return (L::kRows + 4 * L::kKeys) * HD * (int)sizeof(bf16);
+  return (L::kRows + 4 * L::kKeys) * L::kLd * (int)sizeof(bf16);
 }
 
-// The narrow layout's merge: each warp's (16, HD) f32 O, rows HD + 8
+// The narrow layout's merge: each warp's (16, HD) f32 O, rows kLd + 8
 // floats apart (a quad's float2 stores of 4 rows then hit 32 distinct
 // banks), and its (m, l) per row, in the ring once every chunk is used.
 template <int HD>
 constexpr int merge_bytes() {
-  return kWarps * 16 * ((HD + 8) + 2) * (int)sizeof(float);
+  return kWarps * 16 * ((smem_hd(HD) + 8) + 2) * (int)sizeof(float);
 }
 template <int HD>
 constexpr bool merge_fits() {
-  return merge_bytes<HD>() <= 4 * Layout<HD, true>::kKeys * HD * 2;
+  return merge_bytes<HD>() <= 4 * Layout<HD, true>::kKeys * smem_hd(HD) * 2;
 }
-static_assert(merge_fits<64>() && merge_fits<128>() && merge_fits<256>(),
+static_assert(merge_fits<64>() && merge_fits<120>() && merge_fits<128>() &&
+                  merge_fits<256>(),
               "the merge fits in the ring");
+static_assert(2 * smem_bytes<120, true>() <= 232448 &&
+                  2 * smem_bytes<120, false>() <= 232448,
+              "hd 120: two CTAs an SM in either layout, as at 128");
 static_assert(smem_bytes<256, true>() <= 232448 &&
                   2 * smem_bytes<256, false>() <= 232448,
               "hd 256: one narrow CTA, two wide CTAs an SM");
 
-// Keys [k0, k0 + KEYS) of (row b, kv head kv) into a swizzled stage,
-// each 16-byte piece at the offset Keys gives (through the block table
-// when paged); keys at and past k_end (> k0) zero-filled, never read.
+// Keys [k0, k0 + KEYS) of (row b, kv head kv) into a swizzled stage of
+// smem_hd(HD)-wide rows, each 16-byte piece at the offset Keys gives
+// (through the block table when paged); keys at and past k_end (> k0) and
+// the chunks past HD (hd 120) zero-filled, never read.
 template <int HD, int KEYS, typename Keys>
 __device__ __forceinline__ void stage_keys(bf16* dst,
                                            const bf16* __restrict__ src,
                                            const Keys& keys, int b, int kv,
                                            int k0, int k_end) {
-  constexpr int CH = HD / 8;
+  constexpr int LD = smem_hd(HD), CH = LD / 8, CHG = HD / 8;
   static_assert(KEYS * CH % kThreads == 0, "chunk tiling");
 #pragma unroll
   for (int it = 0; it < KEYS * CH / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / CH, c = idx % CH, key = k0 + r;
-    const bool ok = key < k_end;
-    cp_async16(smem_u32(dst + swz<HD>(r, c)),
-               src + keys.offset(b, kv, ok ? key : k0) + c * 8, ok);
+    const bool in_row = CHG == CH || c < CHG;
+    const bool ok = key < k_end && in_row;
+    cp_async16(smem_u32(dst + swz<LD>(r, c)),
+               src + keys.offset(b, kv, key < k_end ? key : k0) +
+                   (in_row ? c : 0) * 8,
+               ok);
   }
 }
 
@@ -309,14 +327,16 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
   constexpr int ROWS = L::kRows;
   constexpr int kKeys = L::kKeys;
   constexpr int WK = L::kWarpKeys;
-  constexpr int CH = HD / 8;       // 16-byte chunks a row
-  constexpr int KSTEPS = HD / 16;  // k-steps of Q·Kᵀ
+  constexpr int LD = L::kLd;       // staged row width (HD, or 128 at 120)
+  constexpr int CH = LD / 8;       // 16-byte chunks a staged row
+  constexpr int CHG = HD / 8;      // ... of them in a row in device memory
+  constexpr int KSTEPS = LD / 16;  // k-steps of Q·Kᵀ
   constexpr int NT = WK / 8;       // n-tiles of a warp's S
-  constexpr int OT = HD / 8;       // n-tiles of O
+  constexpr int OT = HD / 8;       // n-tiles of O (15 at hd 120)
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // [ROWS][HD], then O (wide)
-  bf16* ks = qs + ROWS * HD;                  // [2][kKeys][HD]
-  bf16* vs = ks + 2 * kKeys * HD;             // [2][kKeys][HD]
+  bf16* qs = reinterpret_cast<bf16*>(smem);   // [ROWS][LD], then O (wide)
+  bf16* ks = qs + ROWS * LD;                  // [2][kKeys][LD]
+  bf16* vs = ks + 2 * kKeys * LD;             // [2][kKeys][LD]
 
   const int tile = blockIdx.x / nsplit, split = blockIdx.x % nsplit;
   const int kv = blockIdx.y, b = blockIdx.z;
@@ -337,9 +357,11 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
   for (int it = 0; it < ROWS * CH / kThreads; ++it) {
     const int idx = tid + it * kThreads;
     const int r = idx / CH, c = idx % CH, gr = row0 + r;
-    const bool ok = gr < n_rows;
-    cp_async16(smem_u32(qs + swz<HD>(r, c)),
-               q + out_row(ok ? gr : row0) * HD + c * 8, ok);
+    const bool in_row = CHG == CH || c < CHG;
+    const bool ok = gr < n_rows && in_row;
+    cp_async16(smem_u32(qs + swz<LD>(r, c)),
+               q + out_row(gr < n_rows ? gr : row0) * HD + (in_row ? c : 0) * 8,
+               ok);
   }
 
   // keys any row of the tile sees, then this CTA's share of them
@@ -379,9 +401,9 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
   __syncthreads();
   // Q's A fragments: all KSTEPS held, or the two of one k-step pair
   uint32_t qf[L::kQRegs ? KSTEPS : 2][4];
-  const uint32_t q_addr = smem_u32(qs + rbase * HD);
+  const uint32_t q_addr = smem_u32(qs + rbase * LD);
   auto load_q = [&](int s, uint32_t(&f)[4]) {
-    ldsm_x4(q_addr + 2 * swz<HD>(lane & 15, 2 * s + (lane >> 4)), f);
+    ldsm_x4(q_addr + 2 * swz<LD>(lane & 15, 2 * s + (lane >> 4)), f);
   };
   if constexpr (L::kQRegs) {
 #pragma unroll
@@ -391,14 +413,14 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
   for (int n = 0; n < n_chunks; ++n) {
     const int k0 = k_begin + n * kKeys;
     const int st = n & 1;
-    const bf16* kst = ks + st * kKeys * HD;
-    const bf16* vst = vs + st * kKeys * HD;
+    const bf16* kst = ks + st * kKeys * LD;
+    const bf16* vst = vs + st * kKeys * LD;
     if (n > 0) {
       cp_async_wait<1>();   // K of chunk n (its V may be in flight)
       __syncthreads();      // and every warp is done with chunk n - 1
     }
     if (n + 1 < n_chunks)
-      stage_keys<HD, kKeys>(ks + (st ^ 1) * kKeys * HD, kbuf, keys, b, kv,
+      stage_keys<HD, kKeys>(ks + (st ^ 1) * kKeys * LD, kbuf, keys, b, kv,
                             k0 + kKeys, k_end);
     cp_async_commit();
 
@@ -419,7 +441,7 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t kf[4];
-          ldsm_x4(smem_u32(kst + swz<HD>(kbase + j * 8 + (lane & 7),
+          ldsm_x4(smem_u32(kst + swz<LD>(kbase + j * 8 + (lane & 7),
                                          4 * kp + (lane >> 3))),
                   kf);
           mma(s[j], qf[qa], kf[0], kf[1]);
@@ -480,12 +502,13 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
     cp_async_wait<1>();   // V of chunk n (chunk n + 1's K may be in flight)
     __syncthreads();      // and every warp is done with chunk n - 1's V
     if (n + 1 < n_chunks)
-      stage_keys<HD, kKeys>(vs + (st ^ 1) * kKeys * HD, vbuf, keys, b, kv,
+      stage_keys<HD, kKeys>(vs + (st ^ 1) * kKeys * LD, vbuf, keys, b, kv,
                             k0 + kKeys, k_end);
     cp_async_commit();
 
     if (busy) {
-      // O += P V, P from the S accumulators as A fragments (hi + lo)
+      // O += P V, P from the S accumulators as A fragments (hi + lo);
+      // at hd 120 the last pair's second n-tile is the zero chunk
 #pragma unroll
       for (int kk = 0; kk < WK / 16; ++kk) {
         uint32_t ph[4], pl[4];
@@ -494,15 +517,17 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
         split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-        for (int jp = 0; jp < OT / 2; ++jp) {
+        for (int jp = 0; jp < (OT + 1) / 2; ++jp) {
           uint32_t vf[4];
-          ldsm_x4_t(smem_u32(vst + swz<HD>(kbase + 16 * kk + (lane & 15),
+          ldsm_x4_t(smem_u32(vst + swz<LD>(kbase + 16 * kk + (lane & 15),
                                            2 * jp + (lane >> 4))),
                     vf);
           mma(o[2 * jp], ph, vf[0], vf[1]);
           mma(o[2 * jp], pl, vf[0], vf[1]);
-          mma(o[2 * jp + 1], ph, vf[2], vf[3]);
-          mma(o[2 * jp + 1], pl, vf[2], vf[3]);
+          if (2 * jp + 1 < OT) {
+            mma(o[2 * jp + 1], ph, vf[2], vf[3]);
+            mma(o[2 * jp + 1], pl, vf[2], vf[3]);
+          }
         }
       }
     }
@@ -519,14 +544,14 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
   if constexpr (NARROW) {
     // the warps' (m, l, O) over their keys -> shared memory -> one row
     // result, merged in warp order
-    constexpr int LD = HD + 8;
-    float* os = reinterpret_cast<float*>(ks);   // [kWarps][16][LD]
-    float* ml = os + kWarps * 16 * LD;          // [kWarps][16][2]
+    constexpr int OLD = LD + 8;
+    float* os = reinterpret_cast<float*>(ks);   // [kWarps][16][OLD]
+    float* ml = os + kWarps * 16 * OLD;         // [kWarps][16][2]
     __syncthreads();                            // every warp is done with the ring
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rr = warp * 16 + wrow + 8 * r;
-      float* dst = os + rr * LD + (lane & 3) * 2;
+      float* dst = os + rr * OLD + (lane & 3) * 2;
 #pragma unroll
       for (int j = 0; j < OT; ++j)
         *reinterpret_cast<float2*>(dst + j * 8) =
@@ -554,7 +579,7 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
           const float wt = exp2f(mw[w] - mx);   // 0 for a warp that saw none
           lsum = fmaf(wt, ml[(w * 16 + rr) * 2 + 1], lsum);
           const float4 x =
-              *reinterpret_cast<const float4*>(os + (w * 16 + rr) * LD + d);
+              *reinterpret_cast<const float4*>(os + (w * 16 + rr) * OLD + d);
           acc.x = fmaf(wt, x.x, acc.x);
           acc.y = fmaf(wt, x.y, acc.y);
           acc.z = fmaf(wt, x.z, acc.z);
@@ -604,7 +629,7 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
 #pragma unroll
       for (int j = 0; j < OT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(qs + swz<HD>(rr, j) +
+        *reinterpret_cast<__nv_bfloat162*>(qs + swz<LD>(rr, j) +
                                            (lane & 3) * 2) =
             __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     }
@@ -613,9 +638,9 @@ flash_decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ kbuf,
     for (int it = 0; it < 16 * CH / 32; ++it) {
       const int idx = lane + it * 32;
       const int rr = rbase + idx / CH, c = idx % CH, gr = row0 + rr;
-      if (gr < n_rows)
+      if (gr < n_rows && (CHG == CH || c < CHG))
         *reinterpret_cast<uint4*>(out + out_row(gr) * HD + c * 8) =
-            *reinterpret_cast<const uint4*>(qs + swz<HD>(rr, c));
+            *reinterpret_cast<const uint4*>(qs + swz<LD>(rr, c));
     }
   }
 }
@@ -686,12 +711,16 @@ extern "C" int rt_flash_decode_paged(const void* q, const void* kp,
   const rt::PagedKeys keys{static_cast<const int*>(bt), nb_seq, bs, KV, hd};
   if (dtype == 0 && hd == 64)
     return f32::launch<64>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
+  if (dtype == 0 && hd == 120)
+    return f32::launch<120>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
   if (dtype == 0 && hd == 128)
     return f32::launch<128>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
   if (dtype == 0 && hd == 256)
     return f32::launch<256>(q, kp, vp, bt, pos, out, part_acc, part_ml, B, C, H, KV, bs, nb_seq, window, scale, nsplit, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, kp, vp, keys, pos, 1, 0, out, part_acc, part_ml, B, C, H, KV, nb_seq * bs, window, scale, nsplit, s);
+  if (dtype == 1 && hd == 120)
+    return tc::launch<120>(q, kp, vp, keys, pos, 1, 0, out, part_acc, part_ml, B, C, H, KV, nb_seq * bs, window, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, kp, vp, keys, pos, 1, 0, out, part_acc, part_ml, B, C, H, KV, nb_seq * bs, window, scale, nsplit, s);
   if (dtype == 1 && hd == 256)
@@ -714,12 +743,16 @@ extern "C" int rt_flash_decode(const void* q, const void* k, const void* v,
   const rt::ViewKeys keys{S, KV, hd};
   if (dtype == 0 && hd == 64)
     return f32::launch_bhd<64>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
+  if (dtype == 0 && hd == 120)
+    return f32::launch_bhd<120>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
   if (dtype == 0 && hd == 128)
     return f32::launch_bhd<128>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
   if (dtype == 0 && hd == 256)
     return f32::launch_bhd<256>(q, k, v, length, out, part_acc, part_ml, B, H, KV, S, scale, nsplit, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
+  if (dtype == 1 && hd == 120)
+    return tc::launch<120>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, k, v, keys, length, 0, -1, out, part_acc, part_ml, B, 1, H, KV, S, 0, scale, nsplit, s);
   if (dtype == 1 && hd == 256)
@@ -742,12 +775,16 @@ extern "C" int rt_decode_view_attend(const void* q, const void* kview,
   const rt::ViewKeys keys{S1, KV, hd};
   if (dtype == 0 && hd == 64)
     return f32::launch_view<64>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 0 && hd == 120)
+    return f32::launch_view<120>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 0 && hd == 128)
     return f32::launch_view<128>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 0 && hd == 256)
     return f32::launch_view<256>(q, kview, vview, pos, out, part_acc, part_ml, B, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
+  if (dtype == 1 && hd == 120)
+    return tc::launch<120>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, kview, vview, keys, pos, 1, 0, out, part_acc, part_ml, B, 1, H, KV, S1, window, scale, nsplit, s);
   if (dtype == 1 && hd == 256)

@@ -17,6 +17,12 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * LD + ((c ^ (r & 7)) << 3);
 }
 
+// shared-memory row width (in bf16) of head dim hd: the swizzle tiles
+// rows of whole 64-element groups, so 120 rounds up to 128.  The 16-byte
+// chunks past hd are zero-filled by the copy (cp_async16 with !valid),
+// never read from device memory, so they add nothing to Q·Kᵀ or P·V.
+__host__ __device__ constexpr int smem_hd(int hd) { return (hd + 63) / 64 * 64; }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

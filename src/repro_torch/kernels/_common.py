@@ -15,7 +15,7 @@ KEY_CHUNK = 32
 TILE_ROWS = 8       # query rows (c, head) of one kv head per f32 CTA
 # head dims the attention kernels 1, 2, 6 and 7 are built for
 # (csrc/flash_decode.cu, csrc/flash_attention.cu)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 120, 128, 256)
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -1,7 +1,11 @@
-"""Model interface of the port for the dense, ssm, MLA + MoE and RG-LRU
-hybrid families, the encoder-decoder (audio) family and ResNet
-(``repro/models/model.py``): ``build_model(cfg)`` returns a ``Model``
-whose members are plain functions over a nested dict of tensors.
+"""Model interface of the port for the dense, MoE (GQA or MLA), ssm and
+RG-LRU hybrid families, the vlm backbone, the encoder-decoder (audio)
+family and ResNet (``repro/models/model.py``): ``build_model(cfg)``
+returns a ``Model`` whose members are plain functions over a nested dict
+of tensors.  The vlm family (llava) takes the decoder path: its
+``forward`` and ``prefill`` accept ``image_embeds`` and ``loss`` reads
+``batch["image_embeds"]``; its paged engine serves text alone, as the
+reference's engine (whose requests carry no image) does.
 ResNet trains only: its serving members are None, as the reference's
 are.  The audio family (whisper) trains and serves through the static
 entry point only: its forward and paged members and ``paged_spec`` are
@@ -11,7 +15,8 @@ a batch {"audio_embeds", "tokens"} in place of the tokens.
   init(seed, device)                        -> params
   forward(params, tokens, ...)              -> (logits, cache, aux, h)
   init_cache(batch, cache_len, device=...)  -> contiguous decode state
-  prefill(params, tokens, cache_len)        -> (logits, cache)
+  prefill(params, tokens, cache_len[, image_embeds=])
+                                            -> (logits, cache)
   decode_step(params, cache, tokens, pos)   -> (logits (B,V), cache)
   init_paged_cache(num_blocks, block_size, num_state_slots=...,
                    device=...)              -> K/V or slot-state pools

@@ -1,7 +1,9 @@
 """Decoder-only stacks of the port (``repro/models/transformer.py``): the
-dense GQA family, the Mamba-2 (ssm) family, the MLA + MoE family
-(deepseek-v3) and the Griffin hybrid (recurrentgemma: RG-LRU blocks and
-local-window MQA).  Params, forward in four cache modes, the non-paged
+dense GQA family, the Mamba-2 (ssm) family, GQA attention with an MoE
+FFN (dbrx), the MLA + MoE family (deepseek-v3), the Griffin hybrid
+(recurrentgemma: RG-LRU blocks and local-window MQA) and the vlm
+backbone (llava: a dense GQA decoder whose full-sequence forward takes
+an image-embedding prefix).  Params, forward in four cache modes, the non-paged
 ``prefill`` / ``decode_step`` entry point over contiguous caches, the
 fused serving step, the N-step on-device decode loop and the
 language-model loss (next-token cross-entropy, the MoE load-balance
@@ -48,8 +50,8 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
-# dense MLP, MLA with an MoE FFN, mamba layers, and the hybrid's RG-LRU
-# and local-attention layers with a dense MLP
+# dense MLP or an MoE FFN, mamba layers, and the hybrid's RG-LRU and
+# local-attention layers with a dense MLP
 _PORTED_RUNS = {("attn", "dense"), ("attn", "moe"), ("ssm", "none"),
                 ("rglru", "dense"), ("local_attn", "dense")}
 _ATTN_KINDS = ("attn", "local_attn")
@@ -71,13 +73,12 @@ def runs_of(cfg) -> List[Tuple[str, str, int]]:
             out.append([k, f, 1])
     runs = [tuple(r) for r in out]
     if (any((k, f) not in _PORTED_RUNS for k, f, _ in runs)
-            or (cfg.mla is None and any(f == "moe" for _, f, _ in runs))
             or (cfg.activation not in ("swiglu", "gelu")
                 and any(f != "none" for _, f, _ in runs))):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA, the mamba (ssm), "
-            "the MLA + MoE and the RG-LRU hybrid families only; the other "
-            "families are queued in ROADMAP.md §1")
+            f"{cfg.name}: the port's decoders have GQA or MLA attention "
+            "with a dense or MoE FFN, mamba and RG-LRU layers only "
+            "(ROADMAP.md §1)")
     return runs
 
 
@@ -267,11 +268,19 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
 
 def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
             valid_len=None, state_slots=None, need_logits=True,
-            dropless=False, make_cache=False, cache_len=0):
+            dropless=False, make_cache=False, cache_len=0,
+            image_embeds=None):
     """Returns (logits, cache, aux, h), as the reference's ``forward``:
     aux the MoE layers' summed load-balance loss, a 0-d f32 tensor, or
     None without MoE layers (so dense and hybrid serving launch nothing
     for it); h the final-normed hidden states.
+
+    image_embeds (B,Si,D), for a config with ``num_image_tokens`` (the
+    vlm family): prepended to the token embeddings in the compute dtype,
+    positions running over the combined Si + S sequence, logits and h
+    over it too.  Full-sequence forms only (training, the non-paged
+    prefill): a decode step or a paged step carries no image, as in the
+    reference.
 
     tokens (B,S).  cache None: full-sequence forward (attention by
     ``cfg.attn_impl``, chunked SSD from a zero state; MoE at the training
@@ -288,6 +297,11 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
     "conv_view"/"state_view"): one decode-loop step, pos (B,).
     """
     h = embed_tokens(params, tokens, cfg)
+    if cfg.num_image_tokens and image_embeds is not None:
+        if cache is not None:
+            raise ValueError("an image prefix enters through the "
+                             "full-sequence forward only (prefill)")
+        h = torch.cat([image_embeds.to(h.dtype), h], dim=1)
     if pos is not None:
         pos = torch.as_tensor(pos, device=h.device)
     rope = write = window = None
@@ -302,7 +316,7 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
         if kind in _ATTN_KINDS and window != _layer_window(cfg, kind):
             window = _layer_window(cfg, kind)
             rope, write = attn_mod.shared_inputs(
-                cfg, tokens.shape[1], h.device,
+                cfg, h.shape[1], h.device,
                 cache=_layer(rc, 0) if rc else None,
                 block_tables=block_tables, pos=pos, valid_len=valid_len)
 
@@ -374,11 +388,15 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=None,
     return out
 
 
-def prefill(params, tokens, cfg, cache_len: int):
+def prefill(params, tokens, cfg, cache_len: int, image_embeds=None):
     """The non-paged prefill: tokens (B,S) -> (logits (B,S,V), a fresh
-    contiguous cache of ``cache_len`` slots holding the S positions)."""
+    contiguous cache of ``cache_len`` slots holding the S positions).
+    With ``image_embeds`` (B,Si,D) (vlm) the image positions come first:
+    logits (B,Si+S,V), the cache holding Si + S positions, so decoding
+    goes on at position Si + S."""
     logits, cache, _, _ = forward(params, tokens, cfg, make_cache=True,
-                                  cache_len=cache_len)
+                                  cache_len=cache_len,
+                                  image_embeds=image_embeds)
     return logits, cache
 
 
@@ -426,22 +444,37 @@ def lm_loss(params, batch, cfg):
     ``cfg.mtp_depth`` is set, DeepSeek-V3's multi-token prediction
     weighted by ``MTP_WEIGHT``: one extra attention + dense layer
     (``params["mtp"]``) over [h_t ; embed(token_t+1)] projected back to
-    d_model predicts token t+2.  Image tokens (llava) are not ported.
+    d_model predicts token t+2.  With ``batch["image_embeds"]`` (B, Si,
+    D) (vlm) the forward runs over the image prefix and the text, and
+    only text targets count: combined position p predicts combined
+    token p + 1, so positions before Si - 1 are masked (chunked: by
+    ``mask_from``; unchunked: the logits from Si - 1 against every text
+    token); no MTP term then, as in the reference.
     Returns (loss, metrics ``ce``, ``aux``, ``mtp_ce`` (with MTP) and
     ``loss``)."""
     tokens = batch["tokens"]
     chunked = bool(cfg.loss_chunk)
+    image = batch.get("image_embeds") if cfg.num_image_tokens else None
+    n_img = 0 if image is None else image.shape[1]
     logits, _, aux, h = forward(params, tokens, cfg,
-                                need_logits=not chunked)
+                                need_logits=not chunked, image_embeds=image)
     if chunked:
-        ce = chunked_lm_ce(params, h[:, :-1], tokens[:, 1:], cfg)
+        labels = tokens
+        if n_img:
+            labels = torch.cat([tokens.new_zeros((tokens.shape[0], n_img)),
+                                tokens], dim=1)
+        ce = chunked_lm_ce(params, h[:, :-1], labels[:, 1:], cfg,
+                           mask_from=max(n_img - 1, 0))
+    elif n_img:
+        pred = logits[:, n_img - 1:-1]
+        ce = cross_entropy(pred, tokens[:, :pred.shape[1]])
     else:
         ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux
     metrics = {"ce": ce, "aux": aux}
-    if cfg.mtp_depth:
+    if cfg.mtp_depth and not n_img:
         emb_next = embed_tokens(params, tokens[:, 1:], cfg)
         h_in = torch.cat([h[:, :-1], emb_next], dim=-1)
         h_mtp = h_in @ params["mtp"]["proj"].to(h.dtype)

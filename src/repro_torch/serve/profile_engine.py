@@ -1,7 +1,9 @@
 """Where a serving step's time goes on the card: serves a fixed workload
-through a full-width model (qwen2-1.5b, or ``--arch mamba2-370m``,
-``recurrentgemma-2b`` or ``deepseek-v3-671b``, the latter cut to its
-first 4 layers to fit one card; random bf16 weights from a seed) at
+through a full-width model (qwen2-1.5b, or ``--arch`` any config with a
+paged engine: ``mamba2-370m``, ``recurrentgemma-2b``, ``minicpm-2b``,
+``h2o-danube-3-4b``, or ``deepseek-v3-671b``, ``dbrx-132b`` and
+``llava-next-34b``, the last three cut in depth to fit one card
+(``DEPTH_CUTS``); random bf16 weights from a seed) at
 steps_per_dispatch 1 and 8 under ``torch.profiler`` (device activity
 only: recording every host operator slows the run about fourfold), and
 prints, per depth, the wall time, the device's busy share (summed
@@ -60,10 +62,16 @@ ENGINE_CONFIG = dict(max_batch=8, block_size=16, num_blocks=513,
                      prefill_token_budget=256)
 
 
-# deepseek-v3-671b on one 80 GB card: every width as published, the depth
-# cut from 61 layers to the 3 dense layers and the first MoE layer
-# (about 31.6 GB of bf16 params, the MTP head included)
-DEPTH_CUTS = {"deepseek-v3-671b": 4}
+# Depth cuts to fit one 80 GB card, every width as published:
+# deepseek-v3-671b from 61 layers to the 3 dense layers and the first MoE
+# layer (about 31.6 GB of bf16 params, the MTP head included);
+# dbrx-132b from 40 to 4 layers (3.259B params a layer, 16 experts of
+# d_ff 10,752; 14.27B with the untied embeddings, 28.5 GB, so its f32
+# oracle's non-expert leaves fit beside it); llava-next-34b from 60 to
+# 30 layers (557.8M a layer; 17.65B, 35.3 GB, beside a static batch of 8
+# over the 2,880-token image prefix: 3.5 GB of cache at 3,520 slots and
+# up to 7 GB of prefill logits; all 60 layers are 68.8 GB)
+DEPTH_CUTS = {"deepseek-v3-671b": 4, "dbrx-132b": 4, "llava-next-34b": 30}
 
 
 def served_config(arch: str):
@@ -141,7 +149,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--arch", default="qwen2-1.5b",
                     choices=("qwen2-1.5b", "mamba2-370m", "recurrentgemma-2b",
-                             "deepseek-v3-671b"))
+                             "deepseek-v3-671b", "minicpm-2b",
+                             "h2o-danube-3-4b", "dbrx-132b",
+                             "llava-next-34b"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine: needs a CUDA card")

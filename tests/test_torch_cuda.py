@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, over
-the shapes the CPU tests sweep (head dims 64/128/256, GQA groups
-1/2/6/10,
+the shapes the CPU tests sweep (head dims 64/120/128/256, GQA groups
+1/2/4/6/7/10,
 windows, chunks of queries, float32 and bfloat16, trash and frontier
 garbage).  They need a CUDA card and skip elsewhere; on the card
 (``--noconftest``: the suite's conftest imports jax, which the card's
@@ -83,6 +83,20 @@ PAGED = [
     (1361, 16, 1, 10, 256, 136, 1, 10, 2048),
     (121, 16, 1, 10, 256, 3, 37, 40, 100),
     (41, 16, 1, 1, 256, 2, 40, 20, 0),
+    # hd 120 at h2o-danube-3's GQA (G = 4 over 8 kv heads, window 4096):
+    # its decode bucket, the 2 x 128 prefill chunk, a 136-row mixed step,
+    # its long request's chunk past the window over 288-block tables; a
+    # ragged wide tile under a short window, and G = 1
+    (321, 16, 8, 4, 120, 8, 1, 40, 4096),
+    (81, 16, 8, 4, 120, 2, 128, 40, 4096),
+    (5441, 16, 8, 4, 120, 136, 1, 40, 4096),
+    (289, 16, 8, 4, 120, 1, 128, 288, 4096),
+    (64, 16, 2, 4, 120, 2, 37, 12, 11),
+    (40, 16, 2, 1, 120, 3, 1, 12, 20),
+    # G = 7 at hd 128 (llava-next's 56 heads over 8): the decode bucket
+    # and the prefill chunk (14 wide tiles, the last ragged)
+    (321, 16, 8, 7, 128, 8, 1, 40, 0),
+    (81, 16, 8, 7, 128, 2, 128, 40, 0),
 ]
 
 
@@ -149,7 +163,11 @@ VIEW = [(3, 41, 2, 3, 64, 0), (2, 129, 1, 6, 128, 0), (2, 65, 2, 2, 128, 20),
         # hd 256, G = 10: views of 2561 slots past the 2048 window, and
         # shorter ones with and without a window
         (8, 2561, 1, 10, 256, 2048), (2, 300, 1, 10, 256, 0),
-        (3, 641, 1, 10, 256, 100)]
+        (3, 641, 1, 10, 256, 100),
+        # hd 120 (h2o's G = 4 over 8 kv heads, and G = 1 under a window)
+        # and G = 7 at hd 128 (llava's), over the engine's 641-slot views
+        (8, 641, 8, 4, 120, 4096), (3, 300, 2, 1, 120, 45),
+        (8, 641, 8, 7, 128, 0)]
 
 
 @pytest.mark.parametrize("case", VIEW)
@@ -1077,6 +1095,15 @@ FLASH = [
     (2, 300, 300, 10, 1, 256, True, 0),
     (2, 150, 100, 10, 1, 256, True, 20),
     (1, 65, 193, 4, 2, 256, False, 0),
+    # hd 120 (h2o: 32 heads over 8, window 4096 at its static prefill;
+    # rows without a key; non-causal Sq != Sk) and G = 7 (llava: 56 heads
+    # over 8 at hd 128, one row of the static prefill over the image
+    # prefix, and a ragged one)
+    (8, 512, 512, 32, 8, 120, True, 4096),
+    (2, 150, 100, 4, 2, 120, True, 20),
+    (1, 65, 193, 4, 4, 120, False, 0),
+    (1, 3392, 3392, 56, 8, 128, True, 0),
+    (2, 300, 300, 7, 1, 128, True, 0),
 ]
 
 
@@ -1135,6 +1162,13 @@ DECODE = [
     (8, 2048, 10, 1, 256, 2048),
     (8, 2048, 10, 1, 256, 3000),
     (160, 256, 10, 1, 256, 200),
+    # hd 120 (h2o's static decode over 627 slots, and unsplit) and G = 7
+    # (llava's over 3,520 slots)
+    (8, 627, 32, 8, 120, 1),
+    (8, 627, 32, 8, 120, 627),
+    (160, 256, 32, 8, 120, 200),
+    (8, 3520, 56, 8, 128, 1),
+    (8, 3520, 56, 8, 128, 3500),
 ]
 
 
@@ -1158,7 +1192,7 @@ def test_flash_decode_cases_reach_both_epilogues(dev, dt):
     def split(*args, hd):
         return flash_decode.launch_splits(*args, dtype=dt, sms=sm_count(dev),
                                           hd=hd)[1] > 1
-    for dims in ((64, 128), (256,)):
+    for dims in ((64, 128), (120,), (256,)):
         assert {split(b, 1, h, kv, s, hd=hd)
                 for b, s, h, kv, hd, _ in DECODE if hd in dims} == {
             False, True}

@@ -2,8 +2,9 @@
 ``decode_view.launch_splits``): tiles of query rows and key splits per
 template, from static shapes alone, pinned at the layouts the serving
 engine and the static path give them on a 132-SM card (an H100 SXM):
-qwen2-1.5b's (hd 128) and recurrentgemma-2b's (hd 256, where the wide
-bf16 layout stages 32-key chunks).  No card and no JAX needed."""
+qwen2-1.5b's (hd 128), recurrentgemma-2b's (hd 256, where the wide
+bf16 layout stages 32-key chunks) and h2o-danube-3-4b's (hd 120, staged
+as 128).  No card and no JAX needed."""
 import math
 import re
 from pathlib import Path
@@ -194,11 +195,57 @@ def test_launch_splits_at_the_static_decode_head_dim_256(s, dtype):
         RG_STATIC[dtype][s]
 
 
+# h2o-danube-3-4b's attention: 32 heads over 8 kv heads (G = 4) at hd
+# 120, window 4096; the engine's layouts over 640 keys, the static decode
+# (B = 8 over 570 / 627 slots), and its long request's 288-block tables
+# (4,608 keys, past the window) at one row: (b, c, keys) -> plan
+H2O_H, H2O_KV, H2O_HD, H2O_W = 32, 8, 120, 4096
+H2O = {
+    torch.bfloat16: {(8, 1, 640): (1, 3), (4, 1, 640): (1, 5),
+                     (2, 1, 640): (1, 10), (2, 128, 640): (8, 5),
+                     (136, 1, 640): (1, 1), (264, 1, 640): (1, 1),
+                     (8, 1, 570): (1, 3), (8, 1, 627): (1, 3),
+                     (1, 1, 4608): (1, 22), (1, 128, 4608): (8, 33)},
+    torch.float32: {(8, 1, 640): (1, 5), (4, 1, 640): (1, 5),
+                    (2, 1, 640): (1, 5), (2, 128, 640): (64, 1),
+                    (136, 1, 640): (1, 1), (264, 1, 640): (1, 1),
+                    (8, 1, 570): (1, 5), (8, 1, 627): (1, 5),
+                    (1, 1, 4608): (1, 33), (1, 128, 4608): (64, 1)},
+}
+
+
+@pytest.mark.parametrize("dtype", list(H2O))
+@pytest.mark.parametrize("b,c,keys", list(H2O[torch.bfloat16]))
+def test_launch_splits_at_head_dim_120(b, c, keys, dtype):
+    """Kernels 1 and 7 at hd 120 stage hd 128's chunks (64 keys in both
+    bf16 layouts), so the plan is hd 128's; kernel 2 at the decode
+    buckets over keys + 1 view slots takes kernel 1's."""
+    window = H2O_W
+    plan = flash_decode.launch_splits(b, c, H2O_H, H2O_KV, keys, window,
+                                      dtype=dtype, sms=SMS, hd=H2O_HD)
+    assert plan == H2O[dtype][(b, c, keys)]
+    assert plan == flash_decode.launch_splits(b, c, H2O_H, H2O_KV, keys,
+                                              window, dtype=dtype, sms=SMS,
+                                              hd=128)
+    if c == 1 and b in (8, 4, 2) and keys == 640:
+        assert decode_view.launch_splits(b, H2O_H, H2O_KV, keys + 1, window,
+                                         dtype=dtype, sms=SMS,
+                                         hd=H2O_HD) == plan
+    if dtype == torch.bfloat16:
+        narrow = c * H2O_H // H2O_KV <= flash_decode.NARROW_ROWS
+        assert flash_decode.chunk_keys(H2O_HD, narrow) == 64
+        seen = min(keys, H2O_W + c)
+        per = _chunks_a_split(seen, plan[1], 64)
+        assert (plan[1] - 1) * per * 64 < seen     # no split is empty
+        if not narrow:
+            assert per * 64 <= flash_decode.WIDE_SPLIT_KEYS
+
+
 def test_wrappers_gate_head_dims():
-    assert _common.HEAD_DIMS == (64, 128, 256)
+    assert _common.HEAD_DIMS == (64, 120, 128, 256)
     for hd in _common.HEAD_DIMS:
         _common.require_head_dim("flash_decode", hd)
-    for hd in (32, 96, 120, 192, 512):
+    for hd in (32, 96, 192, 512):
         with pytest.raises(ValueError, match="not built"):
             _common.require_head_dim("flash_decode", hd)
 

@@ -16,6 +16,10 @@ PORT = SRC / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.configs.recurrentgemma_2b",
            "repro_torch.configs.whisper_tiny",
+           "repro_torch.configs.minicpm_2b",
+           "repro_torch.configs.h2o_danube_3_4b",
+           "repro_torch.configs.dbrx_132b",
+           "repro_torch.configs.llava_next_34b",
            "repro_torch.tree",
            "repro_torch.kernels", "repro_torch.kernels._build",
            "repro_torch.kernels.prng", "repro_torch.kernels.sampling",
@@ -58,6 +62,10 @@ def test_port_imports_with_jax_and_repro_blocked():
             "get_config('qwen1.5-0.5b')\n"
             "get_config('recurrentgemma-2b')\n"
             "get_config('whisper-tiny')\n"
+            "get_config('minicpm-2b')\n"
+            "get_config('h2o-danube-3-4b')\n"
+            "get_config('dbrx-132b')\n"
+            "get_config('llava-next-34b')\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=SRC,

@@ -60,15 +60,18 @@ def models():
     return carried_models()
 
 
-def test_config_fields_match_reference():
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen2-1.5b-swa",
+                                  "minicpm-2b", "h2o-danube-3-4b",
+                                  "dbrx-132b", "llava-next-34b"])
+def test_config_fields_match_reference(name):
+    """Full and smoke, field for field."""
     import dataclasses
-    for name in ("qwen2-1.5b", "qwen2-1.5b-swa"):
-        for conv in (lambda c: c, jax_smoke_variant):
-            j = dataclasses.asdict(conv(jax_get_config(name)))
-            t = dataclasses.asdict(
-                (smoke_variant if conv is jax_smoke_variant
-                 else (lambda c: c))(get_config(name)))
-            assert j == t, name
+    for conv in (lambda c: c, jax_smoke_variant):
+        j = dataclasses.asdict(conv(jax_get_config(name)))
+        t = dataclasses.asdict(
+            (smoke_variant if conv is jax_smoke_variant
+             else (lambda c: c))(get_config(name)))
+        assert j == t, name
 
 
 def test_interop_roundtrip_is_exact(models):
@@ -228,9 +231,14 @@ def test_kernel_spec_names_the_port_kernels(models):
     from repro_torch import kernels
     mamba = build_model(get_config("mamba2-370m"))
     deepseek = build_model(get_config("deepseek-v3-671b"))
+    dbrx = build_model(get_config("dbrx-132b"))
     named = {n for spec in (models[4].paged_spec, mamba.paged_spec,
-                            deepseek.paged_spec)
+                            deepseek.paged_spec, dbrx.paged_spec)
              for _, ops in spec.kernel_spec for n in ops.split("/")}
+    # GQA + MoE (dbrx) serves its attention through the dense family's
+    # kernels 1 and 2
+    assert dict(dbrx.paged_spec.kernel_spec) == dict(
+        models[4].paged_spec.kernel_spec)
     # every kernel but the optimizer update, which runs on the training
     # path, the SSD block, which (as in the reference) only
     # ``ssd_chunked_pallas`` reaches, and the two attention kernels of
