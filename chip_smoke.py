@@ -27,11 +27,13 @@
    twice per depth, then twice at temperature 0.8 with top-k 50, which
    must repeat its streams.  Every emitted token is checked against a
    teacher-forced f32 forward of the plain model over the emitted
-   stream.  Then the same model in float32 (weights and compute, TF32
-   off) serves the requests at depths 1 and 8, greedy and sampled, and
+   stream.  Then the same model cut to F32_GATE_LAYERS in float32
+   (weights and compute, TF32 off) serves the requests at depths 1 and
+   8, greedy and sampled, and
    depth 1 must equal depth 8 token for token (in bf16 the depths part,
    printed and not gated: their kernels sum in other orders).  Then the
-   cluster layer: two qwen2-1.5b replicas share the card through
+   cluster layer: two qwen2-1.5b replicas (CLUSTER_LAYERS layers) share
+   the card through
    ``ServeCluster.for_replicas`` at depth 8, fault-free, with replica 0
    killed mid-generation (greedy and sampled) and with replica 1 hung
    past a 3 s hard heartbeat deadline; every request must end exactly
@@ -100,16 +102,17 @@
    2,561-slot views, a 2,304-token prefill and a full 2,048-slot ring,
    where the window masks keys; kernel 3 at its 256,000-token
    vocabulary (kernel 4's is in its own phase) and kernels 10-11 at its
-   RG-LRU state leaves; then full-width
-   recurrentgemma-2b (26 layers, bf16, random weights from a seed)
-   serves the 16 requests at depths 1 and 8, greedy twice (the streams
+   RG-LRU state leaves; then recurrentgemma-2b at every width, cut to
+   LM_SERVE_LAYERS (12 of its 26 layers; bf16, random weights from a
+   seed), serves the 16 requests at depths 1 and 8, greedy twice (the streams
    must repeat) and sampled once, each run with exactly the launches
    its counters call for, and one 2,400-token request that passes the
    window and must reclaim blocks, every token held to the
    teacher-forced f32 check; its float32 depth-1 == depth-8 check at
    F32_GATE_LAYERS layers (two of its patterns); and
-   its static path under "pallas" (two batches of 8, kernels 6, 7 and 3
-   at hd 256), whose float32 tokens must equal the plain attention's.
+   its static path under "pallas" at the same cut (two batches of 8,
+   kernels 6, 7 and 3 at hd 256), whose float32 tokens must equal the
+   plain attention's.
    Then it trains full-width recurrentgemma-2b (2.383B params, bf16,
    remat, "blocked" attention, autograd through the RG-LRU scan) for 8
    LSGD steps of 4 x 512 tokens through the launcher: finite losses,
@@ -135,9 +138,10 @@
    and 2 at the engine's layouts of minicpm-2b (G = 1 over 36 kv heads,
    hd 64), dbrx-132b (G = 6 over 8) and llava-next-34b (G = 7 over 8),
    both dtypes, against their plain versions; then
-   minicpm-2b (40 layers, G = 1, tied embeddings), dbrx-132b (GQA + MoE,
-   4 of 40 layers), h2o-danube-3-4b and llava-next-34b (30 of 60 layers,
-   text-only through the engine) each serve the 16 requests at depths 1
+   at LM_SERVE_LAYERS depths, minicpm-2b (20 of 40 layers, G = 1, tied
+   embeddings), dbrx-132b (GQA + MoE, 2 of 40 layers), h2o-danube-3-4b
+   (12 of 24) and llava-next-34b (8 of 60 layers, text-only through the
+   engine) each serve the 16 requests at depths 1
    and 8, greedy and sampled, with exact launches and the teacher-forced
    f32 check (dbrx's routed as served, h2o's 4,400-token request past its
    window); h2o and llava also through the static path (two batches of
@@ -145,16 +149,35 @@
    pipeline draws them), h2o's float32 kernels equal to its plain
    attention, llava's bf16 tokens beside those of the same batches
    served through the plain attention (``_image_witness``).
-11. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
+11. Tensor-parallel replicas (``tp_devices``: cuda:0 and cuda:1 where
+   the machine has two cards, else cuda:0 twice): kernels 1 and 2 at
+   one shard's layouts of qwen2-1.5b (6 heads over 1) and
+   recurrentgemma-2b (5 over 1 at hd 256), 10-11 and 12 at mamba's 16
+   heads, 8 and 9 at deepseek-v3's 64 MLA heads (``shard_layout``), each
+   against its plain version; then qwen2-1.5b at full width, TP_LAYERS
+   deep, served by one Engine over the two shards (depth 1 greedy,
+   depth 8 greedy and sampled, exact launches for the slice, every
+   token held to the teacher-forced f32 check), and in float32 each
+   stream must equal one engine's; then mamba2-370m, deepseek-v3 and
+   recurrentgemma-2b at TP_LAYERS over the slice, depth 1 greedy and
+   depth 8 sampled, teacher-forced.
+12. Trains the last three LM configs through the launcher as qwen2-1.5b
+   is trained (8 LSGD steps of 4 rows): minicpm-2b under its WSD
+   schedule and h2o-danube-3-4b over 512 tokens a row, and
+   llava-next-34b at LLAVA_TRAIN_LAYERS over the 2,880-token image
+   prefix and LLAVA_TEXT text tokens a row; finite losses, exactly their kernel-5 launches, the step time
+   and peak memory printed with the card's name and power limit.
+13. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
    bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
    gumbel sample (with and without top-k) and a greedy sample each run
    their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
-12. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
-   same kernels at the last four configs' shapes, each naming its
-   ``case`` and counting that config's launches), the card's name and
+14. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
+   same kernels at the last four configs' shapes and at one shard's
+   layouts of a TP slice, each naming its ``case`` and counting that
+   config's or slice's launches), the card's name and
    power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -219,6 +242,26 @@ TRAIN_ARGV = ["--arch", "qwen2-1.5b", "--steps", "8", "--batch", "4",
 RG_TRAIN_ARGV = ["--arch", "recurrentgemma-2b"] + TRAIN_ARGV[2:]
 WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--steps", "8", "--batch",
                       "8", "--seq", "448"] + TRAIN_ARGV[8:]
+# the last three LM configs, trained as TRAIN_ARGV (8 steps of 4 rows):
+# minicpm-2b under its WSD schedule (2 warmup, 4 stable, 2 decay steps)
+# and h2o-danube-3-4b at all their layers over 512 tokens a row;
+# llava-next-34b's rows carry the 2,880-token image prefix and
+# LLAVA_TEXT text tokens, 3,072 positions, a multiple of the blocked
+# attention's blocks (with 512 text tokens, 3,392 positions, its
+# training forward falls back to naive attention, as the reference's
+# does, whose f32 scores and their gradients over 4 rows x 56 heads need
+# about 50 GB: a step ran out of memory at 1 layer).  At 12 bytes a
+# parameter (bf16 params and grads, f32 momentum and pending update) a
+# layer of 557.8M parameters takes 6.7 GB: 4 layers peaked at 57.25 GB
+# and 5 at 63.94 GB, so LLAVA_TRAIN_LAYERS of its 60 layers
+LLAVA_TEXT = 192
+LLAVA_TRAIN_LAYERS = 5
+LM_TRAIN_ARGVS = (
+    ["--arch", "minicpm-2b"] + TRAIN_ARGV[2:] + ["--schedule", "wsd",
+                                                 "--warmup-steps", "2"],
+    ["--arch", "h2o-danube-3-4b"] + TRAIN_ARGV[2:],
+    ["--arch", "llava-next-34b"] + TRAIN_ARGV[2:] + [
+        "--seq", str(2880 + LLAVA_TEXT), "--layers", str(LLAVA_TRAIN_LAYERS)])
 # virtual CSGD vs LSGD on the card: full width cut to 2 layers, float32
 # (TF32 off), 4 workers of 1 x 256 tokens in groups of 2, 3 steps; the
 # bound of tests/test_equivalence.py
@@ -249,8 +292,8 @@ DEEPSEEK = "deepseek-v3-671b"
 # the RG-LRU hybrid
 RGEMMA = "recurrentgemma-2b"
 # the last four LM configs: dense MHA at hd 64 (G = 1), GQA at hd 120
-# under a 4096 window, GQA + MoE and the vlm backbone; dbrx and llava at
-# profile_engine.DEPTH_CUTS's depths
+# under a 4096 window, GQA + MoE and the vlm backbone, each served at
+# LM_SERVE_LAYERS
 MINICPM = "minicpm-2b"
 H2O = "h2o-danube-3-4b"
 DBRX = "dbrx-132b"
@@ -273,11 +316,15 @@ LONG_REQUESTS = {RGEMMA: (2400, 64), H2O: (4400, 64)}
 WITNESS_ROWS = 4
 WITNESS_SIGMAS = 3.0
 # layer cuts of earlier paths that keep the script inside its time limit
-# (the last four configs' phases take about 300 s): mamba2-370m serves
-# 24 of its 48 layers, and the float32 depth gates of mamba2-370m and
-# recurrentgemma-2b run 12 and 6 layers; every width as published
-MAMBA_SERVE_LAYERS = 24
-F32_GATE_LAYERS = {MAMBA: 12, RGEMMA: 6}
+# on a slow host (one card's host ran the phases before the
+# tensor-parallel block at these paths' earlier depths in 1,228 s,
+# another in 836 s): every width as published; qwen2-1.5b's main
+# serving phase keeps all 28 layers
+QWEN2 = "qwen2-1.5b"
+MAMBA_SERVE_LAYERS = 12
+F32_GATE_LAYERS = {QWEN2: 14, MAMBA: 6, RGEMMA: 6}
+CLUSTER_LAYERS = 14
+LM_SERVE_LAYERS = {RGEMMA: 12, MINICPM: 20, H2O: 12, DBRX: 2, LLAVA: 8}
 # the static-batch path (the non-paged prefill / decode_step, as
 # benchmarks/serve_bench.py's run_static): batches of 8 requests, each
 # prompt right-padded with token 0 to the batch's longest rounded up to
@@ -319,6 +366,11 @@ CLUSTER_HEALTH = dict(soft_deadline_s=60.0, hard_deadline_s=120.0,
 CLUSTER_HANG_HEALTH = dict(soft_deadline_s=1.0, hard_deadline_s=3.0,
                            interval_s=0.02)
 CLUSTER_JOIN_S = 120.0
+# tensor-parallel serving: slices of TP shards (tp_devices), every
+# family cut to TP_LAYERS (deepseek: its 3 dense layers and the first
+# MoE layer, profile_engine's cut)
+TP = 2
+TP_LAYERS = {QWEN2: 14, MAMBA: 6, RGEMMA: 6, DEEPSEEK: 4}
 
 
 def fail(msg: str):
@@ -1368,19 +1420,20 @@ def _init_params(torch, cfg):
 
 
 def _serve_once(torch, model, params, work, depth, *, engine=None,
-                stats=None, **sample):
+                stats=None, devices=None, **sample):
     """One main-path run through a fresh Engine (ENGINE_CONFIG, updated by
-    ``engine``), every launch count set to 0 just before it and read
-    just after.  Returns (token streams, counts, tok/s, a summary line);
-    a ``stats`` dict takes the engine's counters and its
-    kv_blocks_reclaimed."""
+    ``engine``; on cuda, or over the tensor-parallel slice ``devices``),
+    every launch count set to 0 just before it and read just after.
+    Returns (token streams, counts, tok/s, a summary line); a ``stats``
+    dict takes the engine's counters and its kv_blocks_reclaimed."""
     from repro_torch import kernels
     from repro_torch.serve import Engine, EngineConfig, Request
     from repro_torch.serve.profile_engine import ENGINE_CONFIG
     eng = Engine(model, params,
                  EngineConfig(steps_per_dispatch=depth, **sample,
                               **dict(ENGINE_CONFIG, **(engine or {}))),
-                 device="cuda")
+                 **(dict(devices=devices) if devices else
+                    dict(device="cuda")))
     eng.warmup()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1493,8 +1546,8 @@ def phase_serve(torch, cfg):
 @float32_exact()
 def phase_depth_f32(torch, cfg):
     """Depth 1 against depth 8 in float32 on the card's kernels: ``cfg``
-    (full width; deepseek at its depth cut, mamba and recurrentgemma at
-    F32_GATE_LAYERS) with f32 weights from SEED
+    (full width; deepseek at its depth cut, qwen2, mamba and
+    recurrentgemma at F32_GATE_LAYERS) with f32 weights from SEED
     and f32 compute, TF32 off, serves the workload through the paged
     Engine at steps_per_dispatch 1 and 8, greedy and at SAMPLE_T /
     SAMPLE_TOP_K.  Depth 1 must equal depth 8 token for token, as the
@@ -1783,6 +1836,146 @@ def _cluster_f32(torch, cfg, work):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel serving: one engine over a slice of two shards
+# ---------------------------------------------------------------------------
+
+
+def tp_devices(torch):
+    """The slice the TP phases serve on: cuda:0 and cuda:1 on a machine
+    with two cards or more, else cuda:0 twice (two shards on one card)."""
+    two = torch.cuda.device_count() >= 2
+    devices = (torch.device("cuda", 0), torch.device("cuda", 1 if two
+                                                     else 0))
+    print(f"[tp] slice {[str(d) for d in devices]}: "
+          f"{'two cards' if two else 'two shards on one card'}", flush=True)
+    return devices
+
+
+def shard_layout(cfg, tp=TP):
+    """The config whose unsharded layouts are one shard's of a slice of
+    ``tp`` (``repro_torch.sharding``'s plan): the kernel phases run at
+    it.  Heads, kv heads (a kv head its shards share stays one), mamba's
+    inner width (its B and C whole) and the RG-LRU's width over ``tp``."""
+    import dataclasses
+    kv = cfg.num_kv_heads
+    out = cfg.replace(num_heads=cfg.num_heads // tp,
+                      num_kv_heads=kv // tp if kv % tp == 0 else 1)
+    if cfg.ssm is not None:
+        out = out.replace(ssm=dataclasses.replace(
+            cfg.ssm, expand=cfg.ssm.expand // tp))
+    if cfg.rglru is not None:
+        out = out.replace(rglru=dataclasses.replace(
+            cfg.rglru, lru_width=(cfg.rglru.lru_width or cfg.d_model) // tp))
+    return out
+
+
+def _tp_serve(torch, cfg, model, params, work, devices, depth, label,
+              **kw):
+    """One run of ``cfg`` over the slice ``devices``, its launches held to
+    ``_serving_launches`` for the slice (an MLA config: its two kernels
+    launched, kernels 1 and 2 never).  Returns (streams, counts, routes
+    or None)."""
+    moe = cfg.moe is not None
+    stats = {}
+    with (ServedRouting(torch, model, shards=len(devices)) if moe
+          else contextlib.nullcontext()) as rec:
+        stream, counts, _, line = _serve_once(
+            torch, rec.model if moe else model, params, work, depth,
+            stats=stats, devices=devices, **kw)
+    print(f"[tp] {cfg.name} TP {len(devices)} depth={depth} {label} {line}",
+          flush=True)
+    got = {k: v for k, v in counts.items() if v}
+    if cfg.mla is not None:
+        need = ["mla_decode_paged"] + (["mla_decode_views"] if depth > 1
+                                       else [])
+        if any(counts[n] <= 0 for n in need) or counts["flash_decode_paged"] \
+                or counts["decode_view_attend"]:
+            fail(f"{cfg.name} TP depth {depth}: launches {got}")
+    else:
+        want = _serving_launches(cfg, stats, depth, bool(kw), len(devices))
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"{cfg.name} TP {label} depth {depth}: launches {got}, "
+                 f"want {want}")
+    return stream, counts, rec.resolve() if moe else None
+
+
+def phase_serve_tp(torch, cfg, devices, depths=((1, False), (8, False),
+                                                (8, True))):
+    """A tensor-parallel replica on the card: full-width ``cfg`` (bf16,
+    random weights from SEED; deepseek, mamba and recurrentgemma at
+    TP_LAYERS) served by one Engine over the slice ``devices`` (two
+    shards: ``repro_torch.sharding``'s plan), the qwen2 phase's 16
+    requests at each (depth, sampled) of ``depths``, each run making
+    exactly the launches its counters call for over the slice.  Every
+    emitted token is held to the teacher-forced f32 check on the unsplit
+    weights (an MoE config's oracle routes as the served run routed).
+    Returns the launches of the runs, summed."""
+    from repro_torch import kernels
+    from repro_torch.serve.profile_engine import workload
+    model, params = _init_params(torch, cfg)
+    work = workload(cfg.vocab_size, SEED)
+    launches = {fn.__name__: 0 for fn in kernels.KERNELS}
+    greedy, sampled, routes = [], [], []
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+    for depth, hot in depths:
+        label = f"T={SAMPLE_T} top_k={SAMPLE_TOP_K}" if hot else "greedy"
+        torch.cuda.reset_peak_memory_stats()
+        stream, counts, route = _tp_serve(
+            torch, cfg, model, params, work, devices, depth, label,
+            **(sample if hot else {}))
+        print(f"[tp] {cfg.name} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        for k, v in counts.items():
+            launches[k] += v
+        (sampled if hot else greedy).append(stream)
+        routes.append((hot, route))
+    moe = cfg.moe is not None
+    _teacher_forced_check(
+        torch, model, params, work, greedy, sampled,
+        argmax_floor=None if moe else TF_ARGMAX_FLOOR,
+        routes=([r for hot, r in routes if not hot]
+                + [r for hot, r in routes if hot]) if moe else None)
+    del params
+    return launches
+
+
+@float32_exact()
+def phase_tp_f32(torch, cfg, devices):
+    """float32 weights and compute (TF32 off): full-width ``cfg`` over the
+    slice ``devices`` must give one engine's streams token for token, at
+    depth 1 greedy and depth 8 greedy and sampled (the partial sums of
+    the split products run in another order than one engine's products,
+    so this holds the plan and the reductions, not bits)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.profile_engine import workload
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(SEED, "cuda")
+    torch.cuda.synchronize()
+    work = workload(cfg.vocab_size, SEED)
+    sample = dict(temperature=SAMPLE_T, top_k=SAMPLE_TOP_K, seed=SEED)
+    for depth, kw in ((1, {}), (8, {}), (8, sample)):
+        mode = "sampled" if kw else "greedy"
+        one, _, rate1, _ = _serve_once(torch, model, params, work, depth,
+                                       **kw)
+        two, counts, rate2, line = _serve_once(torch, model, params, work,
+                                               depth, devices=devices, **kw)
+        req, tok = _mismatches(two, one)
+        print(f"[tp] {cfg.name} f32 TP {len(devices)} depth={depth} {mode} "
+              f"{line}; one engine tok_s={rate1:.1f}; == one engine: "
+              f"{req == 0} ({req} requests / {tok} tokens differ)",
+              flush=True)
+        if req:
+            rid, t = next((r, i) for r in sorted(two)
+                          for i, (a, b) in enumerate(zip(two[r], one[r]))
+                          if a != b)
+            fail(f"{cfg.name} f32 TP depth {depth} {mode}: request {rid} "
+                 f"parts from one engine's stream at token {t} "
+                 f"({two[rid][t]} against {one[rid][t]})")
+    del params
+
+
+# ---------------------------------------------------------------------------
 # training phases
 # ---------------------------------------------------------------------------
 
@@ -1826,14 +2019,16 @@ def phase_train(torch, argv=TRAIN_ARGV):
     res = dict(loss_first=losses[0], loss_last=losses[-1], step_ms=med * 1e3,
                tokens_per_s=out["tokens_per_step"] / med,
                peak_gb=out["peak_mem_bytes"] / 1e9, launches=counts)
-    print(f"[train] {args.arch} full width, {out['params'] / 1e9:.3f}B "
-          f"params bf16, batch {args.batch} x {args.seq}, lsgd, fused sgd: "
+    depth = f", {args.layers} layers" if args.layers else ""
+    print(f"[train] {args.arch} full width{depth}, {out['params'] / 1e9:.3f}B "
+          f"params bf16, batch {args.batch} x {args.seq}, lsgd, fused sgd, "
+          f"schedule {args.schedule}: "
           f"loss first "
           f"{losses[0]:.4f} last {losses[-1]:.4f}; step ms (median of the "
           f"last 6) {res['step_ms']:.1f}; train tok/s "
           f"{res['tokens_per_s']:.0f}; peak memory {res['peak_gb']:.2f} GB;"
           f" step ms all {[round(x * 1e3, 1) for x in step_s]}; "
-          f"launches={json.dumps(counts)}", flush=True)
+          f"launches={json.dumps(counts)}; card: {nvidia_smi()}", flush=True)
     del out
     return res
 
@@ -2924,13 +3119,16 @@ class ServedRouting:
     functions are wrapped to note the rows' request ids, the forward to
     note their positions and valid lengths, and the router to note its
     choice.  ``resolve()`` gives ``{(rid, position): [ids (K,) of each
-    MoE layer]}`` (a recomputed position keeps its last routing)."""
+    MoE layer]}`` (a recomputed position keeps its last routing).  Over
+    a slice of ``shards`` shards every shard routes each MoE layer's
+    rows alike (one router, its copies): the first shard's choice is
+    noted."""
 
-    def __init__(self, torch, model):
+    def __init__(self, torch, model, shards=1):
         import dataclasses
         from repro_torch.models import moe, transformer
         self.torch, self.moe, self.tf = torch, moe, transformer
-        self.records, self.ctx = [], {}
+        self.records, self.ctx, self.shards = [], {}, shards
 
         def step(params, cache, slot_buf, tokens, block_tables, meta, **kw):
             self.ctx["rid"] = meta[5]
@@ -2950,17 +3148,20 @@ class ServedRouting:
 
         def forward(params, tokens, cfg, **kw):
             self.ctx.update(pos=kw.get("pos"), valid=kw.get("valid_len"),
-                            rows=tokens.shape[0], layer=0)
+                            rows=tokens.shape[0], layer=0, calls=0)
             return self._forward(params, tokens, cfg, **kw)
 
         def route(params, xt, cfg):
             out = self._route(params, xt, cfg)
             c = self.ctx
             if c.get("pos") is not None:
-                self.records.append((c["rid"], c["pos"], c["valid"],
-                                     c["layer"], out[2].reshape(
-                                         c["rows"], -1, out[2].shape[-1])))
-                c["layer"] += 1
+                if c["calls"] % self.shards == 0:
+                    self.records.append((c["rid"], c["pos"], c["valid"],
+                                         c["layer"], out[2].reshape(
+                                             c["rows"], -1,
+                                             out[2].shape[-1])))
+                    c["layer"] += 1
+                c["calls"] += 1
             return out
 
         self.tf.forward, self.moe.route = forward, route
@@ -3249,22 +3450,33 @@ def _oracle_params(torch, params, spare=16e9):
 # ---------------------------------------------------------------------------
 
 
-def _serving_launches(cfg, counters, depth, sampled):
+def _serving_launches(cfg, counters, depth, sampled, tp=1):
     """The launches one Engine run must make, from its counters: every
     fused step one kernel-1 launch a (local) attention layer and a slot
     gather and scatter a leaf of each recurrent layer; every decode loop
     ``depth`` iterations of one kernel-2 launch an attention layer, and
     one slot gather and scatter a leaf of each recurrent run at entry
-    and exit; one sampler launch a step or iteration."""
+    and exit; one sampler launch a step or iteration.  Over a slice of
+    ``tp`` shards each shard of a split module launches its own (the
+    sampler runs once, on the full rows)."""
+    from repro_torch.sharding import split_modules
+    mods = split_modules(cfg, tp)
     runs = _runs(cfg)
-    attn = sum(n for kind, _, n in runs if kind in ("attn", "local_attn"))
-    state = [n for kind, _, n in runs if kind in ("ssm", "rglru")]
+
+    def shards(kind):
+        return tp if mods["attn" if kind == "local_attn" else kind] else 1
+
+    attn = sum(n * shards(kind) for kind, _, n in runs
+               if kind in ("attn", "local_attn"))
+    state = [(n * shards(kind), shards(kind)) for kind, _, n in runs
+             if kind in ("ssm", "rglru")]
     leaves = 2                               # conv and h (or state)
     loops = counters["loop_dispatches"]
     steps = counters["model_calls"] - loops
     want = dict(flash_decode_paged=steps * attn,
                 decode_view_attend=loops * depth * attn,
-                slot_gather=leaves * (steps * sum(state) + loops * len(state)))
+                slot_gather=leaves * (steps * sum(n for n, _ in state)
+                                      + loops * sum(r for _, r in state)))
     want["slot_scatter"] = want["slot_gather"]
     want["gumbel_sample" if sampled else "greedy_sample"] = \
         steps + loops * depth
@@ -3272,10 +3484,11 @@ def _serving_launches(cfg, counters, depth, sampled):
 
 
 def phase_serve_lm(torch, cfg, params=None, greedy_runs=1):
-    """A decoder's paged serving path at full width (recurrentgemma-2b:
-    18 RG-LRU and 8 local MQA layers at hd 256; minicpm-2b; h2o-danube-3-4b
-    at hd 120; dbrx-132b and llava-next-34b at their DEPTH_CUTS depths;
-    bf16, random weights from SEED, or ``params``): the qwen2 phase's 16
+    """A decoder's paged serving path at full width, at the depth ``cfg``
+    gives (LM_SERVE_LAYERS: recurrentgemma-2b's RG-LRU and local MQA
+    layers at hd 256; minicpm-2b; h2o-danube-3-4b at hd 120; dbrx-132b;
+    llava-next-34b; bf16, random weights from SEED, or ``params``): the
+    qwen2 phase's 16
     requests at depths 1 and 8, ``greedy_runs`` greedy runs (their
     streams must repeat) and one at SAMPLE_T / SAMPLE_TOP_K, each making
     exactly the launches its counters call for (kernels 1-4 and 10-11,
@@ -3516,15 +3729,18 @@ def main() -> int:
     from repro_torch.serve.profile_engine import served_config
     mcfg, dcfg = get_config(MAMBA), served_config(DEEPSEEK)
     rcfg = get_config(RGEMMA)
-    ccfg, hcfg = get_config(MINICPM), get_config(H2O)
-    bcfg, lcfg = served_config(DBRX), served_config(LLAVA)
+    ccfg, hcfg, bcfg, lcfg = (
+        get_config(n).replace(num_layers=LM_SERVE_LAYERS[n])
+        for n in (MINICPM, H2O, DBRX, LLAVA))
     lms = (ccfg, hcfg, bcfg, lcfg)
     gb = phase(phase_gumbel, torch, timer, cfg,
                (mcfg, dcfg, rcfg) + lms, ec)
     fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
     launches = phase(phase_serve, torch, cfg)
-    phase(phase_depth_f32, torch, cfg)
-    c_launches = phase(phase_serve_cluster, torch, cfg, card)
+    phase(phase_depth_f32, torch,
+          cfg.replace(num_layers=F32_GATE_LAYERS[QWEN2]))
+    c_launches = phase(phase_serve_cluster, torch,
+                       cfg.replace(num_layers=CLUSTER_LAYERS), card)
     for name in ("flash_decode_paged", "decode_view_attend", "greedy_sample",
                  "gumbel_sample"):
         launches[name] += c_launches[name]
@@ -3563,10 +3779,11 @@ def main() -> int:
     fdb += phase(phase_flash_decode_bhd, torch, timer, rcfg, rwork)
     phase(phase_greedy, torch, timer, rcfg, ec)
     phase(phase_slot_state, torch, timer, rcfg, ec)
-    r_launches = phase(phase_serve_lm, torch, rcfg, None, 2)
+    rserved = rcfg.replace(num_layers=LM_SERVE_LAYERS[RGEMMA])
+    r_launches = phase(phase_serve_lm, torch, rserved, None, 2)
     phase(phase_depth_f32, torch,
           rcfg.replace(num_layers=F32_GATE_LAYERS[RGEMMA]))
-    rs_launches = phase(phase_serve_static, torch, rcfg, True)
+    rs_launches = phase(phase_serve_static, torch, rserved, True)
     for name in ("flash_decode_paged", "decode_view_attend", "greedy_sample",
                  "gumbel_sample", "slot_gather", "slot_scatter"):
         launches[name] += r_launches[name]
@@ -3627,6 +3844,36 @@ def main() -> int:
     dv += dv_h + [r for c in paged for r in dv_lm[c.name]]
     fa += fa_h + fa_l
     fdb += fdb_h + fdb_l
+    # tensor-parallel serving: the kernels at one shard's layouts (qwen2
+    # H 6 / KV 1, recurrentgemma H 5 / KV 1 at hd 256, mamba 16 heads,
+    # deepseek 64 MLA heads; kernels 3 and 4 sample the full rows, one
+    # engine's layouts), then qwen2-1.5b at full width over two shards
+    # (bf16, then float32 against one engine) and the other paged
+    # families at TP_LAYERS; tp_launches: the slice's main-path runs'
+    devices = tp_devices(torch)
+    qs, rs, ms, ds = (shard_layout(c) for c in (cfg, rcfg, mcfg, dcfg))
+    fd_tq = phase(phase_flash_decode, torch, timer, qs, ec)
+    dv_tq = phase(phase_decode_view, torch, timer, qs, ec)
+    fd_tr = phase(phase_flash_decode, torch, timer, rs, ec)
+    dv_tr = phase(phase_decode_view, torch, timer, rs, ec)
+    st_tp = phase(phase_slot_state, torch, timer, ms, ec)
+    ssd_tp, ssd_tp_launches = phase(phase_ssd_chunk, torch, timer, ms, ec)
+    mv_tp = phase(phase_mla, torch, timer, ds, ec, False)
+    mp_tp = phase(phase_mla, torch, timer, ds, ec, True)
+    tcfg = cfg.replace(num_layers=TP_LAYERS[QWEN2])
+    tp_launches = phase(phase_serve_tp, torch, tcfg, devices)
+    phase(phase_tp_f32, torch, tcfg, devices)
+    for c in (mcfg, dcfg, rcfg):
+        counts = phase(phase_serve_tp, torch,
+                       c.replace(num_layers=TP_LAYERS[c.name]), devices,
+                       ((1, False), (8, True)))
+        for name, n in counts.items():
+            tp_launches[name] += n
+    for name, n in tp_launches.items():
+        launches[name] += n
+    for argv in LM_TRAIN_ARGVS:
+        out = phase(phase_train, torch, argv)
+        launches["fused_sgd_update"] += out["launches"]["fused_sgd_update"]
     phase(phase_census, torch, cfg, mcfg, ec)
 
     def row(results, label):
@@ -3737,6 +3984,40 @@ def main() -> int:
                row(fa_l, fa_l[0]["label"])),
         lm_row("flash_decode", LLAVA, f"G 7 S={sl} length={sl}",
                row(fdb_l, f"S={sl} length={sl} bfloat16")),
+    ]
+    def tp_row(name, case, numbers):
+        """A row of kernel ``name`` at one shard's layout of a TP slice:
+        launches are the slice's main-path runs'."""
+        base = next(r for r in rows if r["name"] == name)
+        return dict(base, case=f"TP {TP} {case}",
+                    launches=tp_launches[name], **numbers)
+
+    rows += [
+        tp_row("flash_decode_paged", f"qwen2-1.5b shard H 6 KV 1 B={top} C=1",
+               row(fd_tq, f"B={top} C=1")),
+        tp_row("decode_view_attend", f"qwen2-1.5b shard H 6 KV 1 B={top}",
+               row(dv_tq, f"B={top}")),
+        tp_row("flash_decode_paged",
+               f"recurrentgemma-2b shard H 5 KV 1 hd 256 B={top} C=1",
+               row(fd_tr, f"B={top} C=1")),
+        tp_row("decode_view_attend",
+               f"recurrentgemma-2b shard H 5 KV 1 hd 256 B={top}",
+               row(dv_tr, f"B={top}")),
+        tp_row("greedy_sample", f"qwen2-1.5b full rows B={top}", gs[top]),
+        tp_row("gumbel_sample",
+               f"qwen2-1.5b full rows B={top} top_k={SAMPLE_TOP_K}",
+               gb[(top, SAMPLE_TOP_K)]),
+        tp_row("slot_gather", f"mamba2-370m shard 16 heads state B={top}",
+               st_tp[("state", 0, top)]["gather"]),
+        tp_row("slot_scatter", f"mamba2-370m shard 16 heads state B={top}",
+               st_tp[("state", 0, top)]["scatter"]),
+        dict(tp_row("ssd_chunk_bchp", f"mamba2-370m shard 16 heads "
+                    f"{SSD_CASES[0][0]}", ssd_tp[SSD_CASES[0][0]]),
+             launches=ssd_tp_launches),
+        tp_row("mla_decode_views", f"deepseek-v3 shard 64 heads B={top} C=1",
+               row(mv_tp, f"B={top} C=1")),
+        tp_row("mla_decode_paged", f"deepseek-v3 shard 64 heads B={top} C=1",
+               row(mp_tp, f"B={top} C=1")),
     ]
     for c in lms:
         rows += [lm_row("greedy_sample", c.name,

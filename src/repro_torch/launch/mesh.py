@@ -2,8 +2,9 @@
 ``replica_slices``, over ``torch.device``s).
 
 The reference's TPU constants and mesh builders have no counterpart
-here: the port's trainer runs one process per rank, and its engines take
-one device each.
+here: the port's trainer runs one process per rank, and an engine takes
+its slice as a tuple of devices (a slice of several serves one
+tensor-parallel engine, ``serve.engine.Engine``), not as a sub-mesh.
 """
 from __future__ import annotations
 

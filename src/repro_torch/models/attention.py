@@ -257,10 +257,15 @@ def shared_inputs(cfg, x_len: int, device, *, cache=None,
 def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
                     causal: bool = True, cross: bool = False,
                     cache=None, block_tables=None, pos=None,
-                    make_cache: bool = False, cache_len: int = 0):
+                    make_cache: bool = False, cache_len: int = 0,
+                    writes: bool = True):
     """Returns (y, cache).  ``rope`` and ``write`` come from
     ``shared_inputs`` for the same cache form; ``rope`` None applies
-    none.
+    none.  The head counts are the params': a tensor-parallel shard
+    holds H/tp query heads over its kv heads (``repro_torch.sharding``),
+    and with ``writes`` False it leaves its new K/V rows unwritten,
+    another shard on its device having written the pools (or views)
+    they share.
 
     cache None: full-sequence attention over x (B,S,D) by
       ``cfg.attn_impl``, causal unless ``causal`` is False (the
@@ -284,7 +289,8 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
       rows are scattered into the pools at ``write`` (padding to the
       trash block) before any query attends through the tables.
     """
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     b, c = x.shape[:2]
     if cross and cache is not None:
         q = _proj(params, x, "wq", "bq").reshape(b, c, h, hd)
@@ -312,9 +318,10 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
 
     if "kview" in cache:
         kc, vc = cache["kview"], cache["vview"]
-        rows = torch.arange(b, device=x.device)
-        kc.index_put_((rows, write), k[:, 0].to(kc.dtype))
-        vc.index_put_((rows, write), v[:, 0].to(vc.dtype))
+        if writes:
+            rows = torch.arange(b, device=x.device)
+            kc.index_put_((rows, write), k[:, 0].to(kc.dtype))
+            vc.index_put_((rows, write), v[:, 0].to(vc.dtype))
         o = decode_view_attend(q[:, 0].contiguous(), kc, vc, pos,
                                window=window)
         y = o.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype)
@@ -338,8 +345,9 @@ def apply_attention(params, x, cfg, *, rope, write=None, window: int = 0,
         return y, cache
 
     kpool, vpool = cache["k"], cache["v"]
-    kpool.index_put_(write, k.to(kpool.dtype))
-    vpool.index_put_(write, v.to(vpool.dtype))
+    if writes:
+        kpool.index_put_(write, k.to(kpool.dtype))
+        vpool.index_put_(write, v.to(vpool.dtype))
     o = flash_decode_paged(q.contiguous(), kpool, vpool, block_tables, pos,
                            window=window)
     y = o.reshape(b, c, h * hd) @ params["wo"].to(x.dtype)

@@ -166,6 +166,19 @@ def slot_state_scatter(pool: torch.Tensor, state_slots: torch.Tensor,
                         valid_len=valid_len)
 
 
+def run_local(steps):
+    """Run a mixer's steps (``ssm.ssm_steps``, ``rglru.rglru_steps``) on
+    one device: every cross-shard value they yield is theirs alone, so
+    each gets None back (the mixer then uses its own).  Returns the
+    mixer's result."""
+    try:
+        next(steps)
+        while True:
+            steps.send(None)
+    except StopIteration as done:
+        return done.value
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE in f32.  logits (..., V); labels (...) int."""
     logits = logits.float()

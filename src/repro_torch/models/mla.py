@@ -68,7 +68,7 @@ def _project_q(params, x, cfg):
     dt = x.dtype
     cq = apply_norm(params["q_norm"], x @ params["wq_a"].to(dt), cfg)
     q = (cq @ params["wq_b"].to(dt)).reshape(
-        *x.shape[:2], cfg.num_heads, a.qk_nope_head_dim + a.qk_rope_head_dim)
+        *x.shape[:2], -1, a.qk_nope_head_dim + a.qk_rope_head_dim)
     return q[..., :a.qk_nope_head_dim], q[..., a.qk_nope_head_dim:]
 
 
@@ -83,17 +83,21 @@ def _latent_kv(params, x, cfg):
 def _wkv_b_split(params, cfg):
     """W^{UK} (r,H,nope) and W^{UV} (r,H,v) out of wkv_b."""
     a = cfg.mla
-    w = params["wkv_b"].reshape(a.kv_lora_rank, cfg.num_heads,
+    w = params["wkv_b"].reshape(a.kv_lora_rank, -1,
                                 a.qk_nope_head_dim + a.v_head_dim)
     return w[..., :a.qk_nope_head_dim], w[..., a.qk_nope_head_dim:]
 
 
 def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
               block_tables=None, pos=None, make_cache: bool = False,
-              cache_len: int = 0):
+              cache_len: int = 0, writes: bool = True):
     """Returns (y, cache).  ``rope`` is the table of the query positions
     at ``qk_rope_head_dim`` and ``write`` the latent write targets, both
-    from ``attention.shared_inputs`` for the same cache form.
+    from ``attention.shared_inputs`` for the same cache form.  The head
+    count is the params' (a tensor-parallel shard holds H/tp heads over
+    the whole latent); with ``writes`` False the latents are left
+    unwritten, another shard on this device having written the pools
+    (or views) they share.
 
     cache None: causal attention over the full sequence x (B,S,D); with
       ``make_cache`` the returned cache is a fresh contiguous {"ckv":
@@ -112,7 +116,7 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
       query attends through the tables.
     """
     a = cfg.mla
-    h = cfg.num_heads
+    h = params["wo"].shape[-2] // a.v_head_dim
     b, s = x.shape[:2]
     dt = x.dtype
     scale = 1.0 / math.sqrt(a.qk_nope_head_dim + a.qk_rope_head_dim)
@@ -154,9 +158,10 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
     q_rope = q_rope.contiguous()
     if "ckv_view" in cache:
         ckv_c, kr_c = cache["ckv_view"], cache["kr_view"]
-        rows = torch.arange(b, device=x.device)
-        ckv_c.index_put_((rows, write), c[:, 0].to(ckv_c.dtype))
-        kr_c.index_put_((rows, write), k_rope[:, 0].to(kr_c.dtype))
+        if writes:
+            rows = torch.arange(b, device=x.device)
+            ckv_c.index_put_((rows, write), c[:, 0].to(ckv_c.dtype))
+            kr_c.index_put_((rows, write), k_rope[:, 0].to(kr_c.dtype))
         o_lat = mla_decode_views(q_lat, q_rope, ckv_c, kr_c, pos,
                                  scale=scale)
     elif block_tables is None:
@@ -174,8 +179,9 @@ def apply_mla(params, x, cfg, *, rope, write=None, cache=None,
         o_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv_c.to(dt))
     else:
         ckv_pool, kr_pool = cache["ckv"], cache["krope"]
-        ckv_pool.index_put_(write, c.to(ckv_pool.dtype))
-        kr_pool.index_put_(write, k_rope.to(kr_pool.dtype))
+        if writes:
+            ckv_pool.index_put_(write, c.to(ckv_pool.dtype))
+            kr_pool.index_put_(write, k_rope.to(kr_pool.dtype))
         o_lat = mla_decode_paged(q_lat, q_rope, ckv_pool, kr_pool,
                                  block_tables, pos, scale=scale)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(dt), wv)

@@ -99,14 +99,22 @@ def _expert_ffn(xe: torch.Tensor, experts) -> torch.Tensor:
     return ye
 
 
-def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False):
+def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
+              expert0: int = 0):
     """x (B,S,D) -> (y (B,S,D), aux loss).  ``dropless`` (serving): the
     capacity is T, so nothing is dropped (top-k ids are distinct per
     token, so no expert gets more than T assignments); otherwise the
-    reference's training capacity, overflow dropped."""
+    reference's training capacity, overflow dropped.
+
+    An expert-parallel shard (``repro_torch.sharding``) holds the routed
+    experts ``expert0`` onward, as many as its ``experts`` leaves have,
+    and the shared expert's share of its hidden width: the whole router
+    routes over every expert, the shard adds only its own experts'
+    contributions, and y is its partial sum."""
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.num_experts_per_tok, m.num_experts
+    mine = params["experts"]["w_gate"].shape[-3]
     xt = x.reshape(t, d)
     probs, gate_vals, expert_ids = route(params, xt, cfg)
 
@@ -125,12 +133,17 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False):
     ranks = torch.empty_like(flat_e).scatter_(
         0, order, _segment_rank(flat_e[order], tk))
     keep = ranks < cap
+    if mine < e:
+        # another shard's experts: dropped here, added by their shard
+        local = flat_e - expert0
+        keep &= (local >= 0) & (local < mine)
+        flat_e = torch.where(keep, local, torch.zeros_like(local))
     slot = torch.where(keep, ranks, torch.zeros_like(ranks))
 
     # dispatch into (E, cap, D); dropped assignments add zeros at slot 0
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     vals = xt[tok_idx] * keep[:, None].to(xt.dtype)
-    xe = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
+    xe = torch.zeros((mine, cap, d), dtype=xt.dtype, device=x.device)
     xe.index_put_((flat_e, slot), vals, accumulate=True)
     ye = _expert_ffn(xe, params["experts"])
 

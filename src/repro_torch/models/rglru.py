@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.slot_state import slot_gather
 from repro_torch.models.layers import (apply_conv1d, dense_init, init_conv1d,
-                                       slot_conv_window, slot_state_scatter)
+                                       run_local, slot_conv_window,
+                                       slot_state_scatter)
 
 
 def init_rglru(gen: torch.Generator, cfg, device):
@@ -80,9 +81,21 @@ def lru_scan_plain(a: torch.Tensor, b: torch.Tensor, h0=None) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def apply_rglru(params, x, cfg, *, cache=None, make_cache=False, pos=None,
-                valid_len=None, state_slots=None):
+def apply_rglru(params, x, cfg, **kw):
     """Griffin recurrent block.  x (B, S, D).  Returns (y, cache).
+    Keywords and cache forms: ``rglru_steps``'s, run on one device."""
+    return run_local(rglru_steps(params, x, cfg, **kw))
+
+
+def rglru_steps(params, x, cfg, *, cache=None, make_cache=False, pos=None,
+                valid_len=None, state_slots=None):
+    """The Griffin recurrent block as steps (``layers.run_local`` runs
+    them on one device): it yields ``("cat", xr)`` once, the post-conv
+    inputs of its channels, and takes back every shard's concatenated
+    (None: these are all of them), which the gates' dense products
+    ``w_r`` / ``w_i`` read whole; then returns (y, cache), y this
+    shard's partial output.  A tensor-parallel shard holds its channels'
+    columns of every product but ``w_out``'s rows.
 
     cache None: the full sequence from a zero state; with ``make_cache``
       a fresh cache {"conv": (B,K-1,W), "h": (B,W)} comes back, the
@@ -127,8 +140,11 @@ def apply_rglru(params, x, cfg, *, cache=None, make_cache=False, pos=None,
                                  "conv_b": params["conv_b"]}, xr,
                                 cache=conv_cache)
 
-    r = torch.sigmoid(xr @ params["w_r"].to(dt) + params["b_r"].to(dt))
-    i = torch.sigmoid(xr @ params["w_i"].to(dt) + params["b_i"].to(dt))
+    xr_all = yield ("cat", xr)
+    if xr_all is None:
+        xr_all = xr
+    r = torch.sigmoid(xr_all @ params["w_r"].to(dt) + params["b_r"].to(dt))
+    i = torch.sigmoid(xr_all @ params["w_i"].to(dt) + params["b_i"].to(dt))
     lam = params["lam"].float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -g.gate_c * softplus * r.float()

@@ -24,8 +24,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.slot_state import slot_gather
 from repro_torch.kernels.ssd_chunk import ssd_chunk_bchp
 from repro_torch.models.layers import (apply_conv1d, apply_norm, dense_init,
-                                       init_conv1d, slot_conv_window,
-                                       slot_state_scatter)
+                                       init_conv1d, run_local,
+                                       slot_conv_window, slot_state_scatter)
 
 
 def _dims(cfg):
@@ -34,6 +34,13 @@ def _dims(cfg):
     n_heads = d_inner // s.head_dim
     conv_dim = d_inner + 2 * s.n_groups * s.d_state
     return d_inner, n_heads, conv_dim
+
+
+def _shard_dims(params):
+    """(d_inner, heads, conv channels) of a mixer's params: the config's
+    (``_dims``), or a tensor-parallel shard's part of them."""
+    return (params["out_proj"].shape[-2], params["A_log"].shape[-1],
+            params["conv_w"].shape[-1])
 
 
 def init_ssm(gen: torch.Generator, cfg, device):
@@ -197,9 +204,21 @@ def ssd_recurrent_step(state, x_t, dt_t, A, B_t, C_t):
     return y, new
 
 
-def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
+def apply_ssm(params, x, cfg, **kw):
+    """Mamba-2 mixer.  x (B, S, D).  Returns (y, cache).  Keywords and
+    cache forms: ``ssm_steps``'s, run on one device."""
+    return run_local(ssm_steps(params, x, cfg, **kw))
+
+
+def ssm_steps(params, x, cfg, *, cache=None, make_cache=False, pos=None,
               valid_len=None, state_slots=None):
-    """Mamba-2 mixer.  x (B, S, D).  Returns (y, cache).
+    """The Mamba-2 mixer as steps (``layers.run_local`` runs them on one
+    device): it yields ``("sumsq", yz)`` once, the gated output y *
+    silu(z) of its channels, and takes back the sum of its squares over
+    every shard's channels (None: this is every channel), so that the
+    gated RMSNorm spans all ``d_inner`` channels of a tensor-parallel
+    slice; then returns (y, cache), y this shard's partial output.
+    Dims are the params' (``_shard_dims``).
 
     cache None: the full sequence; with ``make_cache`` a fresh cache
       {"conv": (B,K-1,convdim), "state": (B,H,P,N)} comes back, the
@@ -217,7 +236,7 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
       rows with ``valid_len == 0`` write trash slot 0 instead.
     """
     s = cfg.ssm
-    d_inner, n_heads, conv_dim = _dims(cfg)
+    d_inner, n_heads, conv_dim = _shard_dims(params)
     b, slen, _ = x.shape
     dt_ = x.dtype
     view = cache is not None and "conv_view" in cache
@@ -245,11 +264,10 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
                                   "conv_b": params["conv_b"]}, xBC,
                                  cache=conv_cache)
     xBC = F.silu(xBC)
-    gn = s.n_groups * s.d_state
+    gn = (conv_dim - d_inner) // 2
     xs = xBC[..., :d_inner].reshape(b, slen, n_heads, s.head_dim)
-    Bm = xBC[..., d_inner:d_inner + gn].reshape(b, slen, s.n_groups,
-                                                s.d_state)
-    Cm = xBC[..., d_inner + gn:].reshape(b, slen, s.n_groups, s.d_state)
+    Bm = xBC[..., d_inner:d_inner + gn].reshape(b, slen, -1, s.d_state)
+    Cm = xBC[..., d_inner + gn:].reshape(b, slen, -1, s.d_state)
     dtf = dt_raw.float() + params["dt_bias"].float()
     dt = torch.logaddexp(dtf, torch.zeros_like(dtf))      # softplus
     if valid_len is not None:
@@ -271,8 +289,14 @@ def apply_ssm(params, x, cfg, *, cache=None, make_cache=False, pos=None,
 
     y = y + xs * params["D"].to(dt_)[None, None, :, None]
     y = y.reshape(b, slen, d_inner)
-    # gated RMSNorm (Mamba-2): norm(y * silu(z))
-    y = apply_norm(params["norm"], y * F.silu(z), cfg)
+    # gated RMSNorm (Mamba-2): norm(y * silu(z)) over every channel
+    yz = y * F.silu(z)
+    sumsq = yield ("sumsq", yz)
+    if sumsq is None:
+        y = apply_norm(params["norm"], yz, cfg)
+    else:
+        rms = torch.rsqrt(sumsq / _dims(cfg)[0] + cfg.norm_eps)
+        y = (yz.float() * rms * params["norm"]["scale"].float()).to(dt_)
     out = y @ params["out_proj"].to(dt_)
 
     if view:

@@ -32,6 +32,7 @@ slot-state runs carry none.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -47,6 +48,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_init, init_norm)
+from repro_torch.sharding import ShardedParams, shard_cache
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
@@ -204,6 +206,8 @@ def _unstack(tree, n: int):
 
 
 def _logits(params, h, cfg):
+    if isinstance(params, ShardedParams):
+        return _logits_tp(params, h, cfg)
     dt = h.dtype
     if cfg.tie_embeddings:
         return h @ params["embed"]["embedding"].to(dt).t()
@@ -295,7 +299,13 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
     "conv"/"state" + state_slots): paged step, pos (B,).
     cache with views ("kview"/"vview", "ckv_view"/"kr_view";
     "conv_view"/"state_view"): one decode-loop step, pos (B,).
+    params ``ShardedParams`` (a tensor-parallel slice): ``forward_tp``.
     """
+    if isinstance(params, ShardedParams):
+        return forward_tp(params, tokens, cfg, cache=cache,
+                          block_tables=block_tables, pos=pos,
+                          valid_len=valid_len, state_slots=state_slots,
+                          need_logits=need_logits)
     h = embed_tokens(params, tokens, cfg)
     if cfg.num_image_tokens and image_embeds is not None:
         if cache is not None:
@@ -491,7 +501,7 @@ def lm_loss(params, batch, cfg):
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
                      num_state_slots: int = 0, dtype=None,
-                     device=None) -> Dict[str, Any]:
+                     device=None, devices=None):
     """Paged per-layer decode state, by run kind:
 
       attn, local_attn
@@ -506,7 +516,16 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
       rglru slot-state pools as for ssm: the conv window (L, S, K-1, W)
             and the hidden state (L, S, W), the latter in float32
             (``rglru.init_rglru_cache``)
+
+    With ``devices`` of two or more (a tensor-parallel slice), a list of
+    per-shard caches, shard s's on ``devices[s]`` holding its part of
+    each leaf (``sharding.shard_cache``).
     """
+    if devices is not None and len(devices) > 1:
+        full = init_paged_cache(cfg, num_blocks, block_size,
+                                num_state_slots=num_state_slots,
+                                dtype=dtype, device="meta")
+        return shard_cache(full, cfg, devices)
     dtype = dtype or cfg.cdtype
     out = {}
     for i, (kind, _, n) in enumerate(runs_of(cfg)):
@@ -632,6 +651,8 @@ def _paged_block_size(cache) -> int:
     """Tokens per block of the cache's block pools (K/V or MLA latent:
     they page alike), or 0 when no run is block-pooled (pure slot-state
     families)."""
+    if isinstance(cache, list):                # a sharded slice
+        cache = cache[0]
     for rc in cache.values():
         pools = _block_pools(rc)
         if pools:
@@ -639,39 +660,75 @@ def _paged_block_size(cache) -> int:
     return 0
 
 
-def _loop_views(cache, block_tables, state_slot, pos0):
+def _loop_views(cache, block_tables, state_slot, pos0, made=None):
     """Pools -> per-row resident views, once per dispatch: block pools
     gather through the tables, slot-state pools gather each row's slot
     for every layer of the run in one ``slot_gather`` launch per leaf
-    (``pos0 == 0`` rows read zeros, as in the paged step)."""
+    (``pos0 == 0`` rows read zeros, as in the paged step).  A sharded
+    slice's cache (a list) gives a list of views, each shard's on its
+    device; shards that share a pool share its view (``made``: view of
+    each pool gathered so far)."""
+    if isinstance(cache, list):
+        made = {}
+        out = []
+        for shard in cache:
+            dev = _device_of(shard)
+            with device_guard(dev):
+                out.append(_loop_views(shard, _to(block_tables, dev),
+                                       _to(state_slot, dev), _to(pos0, dev),
+                                       made))
+        return out
+    made = {} if made is None else made
     fresh = pos0 == 0
+
+    def view_of(leaf, gather):
+        if id(leaf) not in made:
+            made[id(leaf)] = gather()
+        return made[id(leaf)]
+
     views = {}
     for run, rc in cache.items():
         pools = _block_pools(rc)
         if pools:
-            views[run] = {view: _gather_view(rc[pool], block_tables)
+            views[run] = {view: view_of(rc[pool], lambda p=rc[pool]:
+                                        _gather_view(p, block_tables))
                           for pool, view in pools}
         else:
-            views[run] = {f"{name}_view": slot_gather(leaf, state_slot, fresh,
-                                                      stacked=True)
-                          for name, leaf in rc.items()}
+            views[run] = {f"{name}_view": view_of(
+                leaf, lambda leaf=leaf: slot_gather(leaf, state_slot, fresh,
+                                                    stacked=True))
+                for name, leaf in rc.items()}
     return views
 
 
-def _scatter_loop_views(cache, views, block_tables, state_slot):
+def _scatter_loop_views(cache, views, block_tables, state_slot, done=None):
     """Inverse of ``_loop_views``: commit the views into the pools.
     Every slot-state row writes its own slot (padding rows trash slot 0),
     and a stopped row's view holds its state as of stopping (later
     iterations are identity updates), so the write-back is
-    unconditional: one ``slot_scatter`` launch per leaf."""
+    unconditional: one ``slot_scatter`` launch per leaf, once per pool
+    however many shards share it (``done``: the pools written)."""
+    if isinstance(cache, list):
+        done = set()
+        for shard, shard_views in zip(cache, views):
+            dev = _device_of(shard)
+            with device_guard(dev):
+                _scatter_loop_views(shard, shard_views, _to(block_tables, dev),
+                                    _to(state_slot, dev), done)
+        return cache
+    done = set() if done is None else done
     for run, rc in cache.items():
         pools = _block_pools(rc)
-        if pools:
-            for pool, view in pools:
-                _scatter_view(rc[pool], block_tables, views[run][view])
-        else:
-            for name, pool in rc.items():
-                slot_scatter(pool, state_slot, views[run][f"{name}_view"],
+        names = ([(pool, view) for pool, view in pools] if pools
+                 else [(name, f"{name}_view") for name in rc])
+        for name, view in names:
+            if id(rc[name]) in done:
+                continue
+            done.add(id(rc[name]))
+            if pools:
+                _scatter_view(rc[name], block_tables, views[run][view])
+            else:
+                slot_scatter(rc[name], state_slot, views[run][view],
                              stacked=True)
     return cache
 
@@ -732,3 +789,229 @@ def paged_decode_loop(params, cache, slot_buf, block_tables, meta, cfg, *,
     _scatter_loop_views(cache, views, block_tables, state_slot)
     # `stopped` is only set by eos, so it doubles as the eos flag
     return out, counts, stopped, slot_buf, cache
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel slice
+# ---------------------------------------------------------------------------
+# One engine serves a slice of devices in one process (the reference's
+# GSPMD replica): shard s's params and cache live on devices[s], each
+# layer's norm runs once on devices[0], every shard of a split module
+# runs it on its part, and the partial outputs are copied to devices[0]
+# and summed in shard order.  Block tables, slot and token buffers stay
+# single, on devices[0], and are copied to another device where a shard
+# there reads them.
+
+_MODULE_OF = {"attn": "attn", "local_attn": "attn", "ssm": "ssm",
+              "rglru": "rglru", "dense": "mlp", "moe": "moe"}
+
+
+def device_guard(device):
+    """Make ``device`` current for the kernels a shard launches (they
+    launch on the current device's stream); a no-op off CUDA."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _to(x, device):
+    """x (a tensor, a tuple of them, or None) on ``device``: a tensor
+    already there is returned as it is, never copied."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(_to(v, device) for v in x)
+    return x.to(device)
+
+
+def _device_of(tree) -> torch.device:
+    """The device of a (non-empty) shard tree's first leaf."""
+    for v in tree.values():
+        return _device_of(v) if isinstance(v, dict) else v.device
+    return torch.device("cpu")
+
+
+def _reduce(parts, devices):
+    """The sum of per-shard partials on devices[0], taken in shard order
+    in float32 and returned in the partials' dtype (one part: itself)."""
+    if len(parts) == 1:
+        return parts[0].to(devices[0])
+    acc = parts[0].to(devices[0], torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(devices[0], torch.float32)
+    return acc.to(parts[0].dtype)
+
+
+def _collective(op, parts, devices):
+    """What each shard of a mixer's steps gets back for its yielded part:
+    ``"sumsq"`` the sum over shards of the squares summed over each
+    part's last axis (B, S, 1) in float32; ``"cat"`` the parts joined
+    along the last axis.  Each shard's copy on its device."""
+    if op == "sumsq":
+        total = _reduce([p.float().square().sum(-1, keepdim=True)
+                         for p in parts], devices)
+    else:
+        total = torch.cat([p.to(devices[0]) for p in parts], dim=-1)
+    return [_to(total, d) for d in devices]
+
+
+def _drive(steps, devices):
+    """Run the shards' mixer steps in lockstep: each shard's generator
+    (``ssm.ssm_steps``, ``rglru.rglru_steps``; the attention mixers
+    return at once) runs on its device up to its cross-shard point, the
+    points are resolved together (``_collective``), and every shard
+    goes on to its result.  Returns the results in shard order."""
+    out = [None] * len(steps)
+    sends = [None] * len(steps)
+    live = list(range(len(steps)))
+    while live:
+        asked = {}
+        for i in live:
+            with device_guard(devices[i]):
+                try:
+                    asked[i] = steps[i].send(sends[i])
+                except StopIteration as done:
+                    out[i] = done.value
+        live = sorted(asked)
+        if live:
+            op = asked[live[0]][0]
+            got = _collective(op, [asked[i][1] for i in live],
+                              [devices[i] for i in live])
+            for i, g in zip(live, got):
+                sends[i] = g
+    return out
+
+
+def _mixer_steps(lp, x, cfg, kind, *, cache, writes, rope, write,
+                 block_tables, pos, valid_len, state_slots):
+    """One shard's mixer as steps (see ``_drive``): the attention
+    mixers have no cross-shard point and return at the first step."""
+    if kind == "attn" and cfg.mla is not None:
+        return mla_mod.apply_mla(lp["attn"], x, cfg, rope=rope, write=write,
+                                 cache=cache, block_tables=block_tables,
+                                 pos=pos, writes=writes)
+    if kind in _ATTN_KINDS:
+        return attn_mod.apply_attention(
+            lp["attn"], x, cfg, rope=rope, write=write,
+            window=_layer_window(cfg, kind), cache=cache,
+            block_tables=block_tables, pos=pos, writes=writes)
+    steps = rglru_mod.rglru_steps if kind == "rglru" else ssm_mod.ssm_steps
+    key = "rglru" if kind == "rglru" else "ssm"
+    return (yield from steps(lp[key], x, cfg, cache=cache, pos=pos,
+                             valid_len=valid_len, state_slots=state_slots))
+
+
+def apply_layer_tp(params, lps, h, cfg, kind, ffn, *, caches, writes,
+                   inputs):
+    """``apply_layer`` over a slice: the norm once on devices[0], the sum
+    over shards of the mixer's partial outputs, the residual, then the
+    same for the FFN.  ``lps[s]`` / ``caches[s]`` are shard s's layer
+    params and cache (a module the slice does not split runs on shard 0
+    alone), ``writes[s]`` whether shard s writes the pools it may share
+    with another shard on its device, ``inputs[device]`` the layer's
+    shared inputs on each device."""
+    devices = params.devices
+    tp = params.tp if params.modules[_MODULE_OF[kind]] else 1
+    x = apply_norm(lps[0]["ln1"], h, cfg)
+    xs = {d: _to(x, d) for d in set(devices[:tp])}
+    steps = [_mixer_steps(lps[s], xs[devices[s]], cfg, kind,
+                          cache=caches[s], writes=writes[s],
+                          **inputs[devices[s]]) for s in range(tp)]
+    ys = _drive(steps, devices[:tp])
+    h = h + _reduce([y for y, _ in ys], devices)
+    if ffn == "none":
+        return h
+    tp = params.tp if params.modules[_MODULE_OF[ffn]] else 1
+    x = apply_norm(lps[0]["ln2"], h, cfg)
+    xs = {d: _to(x, d) for d in set(devices[:tp])}
+    ys = []
+    for s in range(tp):
+        with device_guard(devices[s]):
+            if ffn == "moe":
+                mine = lps[s]["moe"]["experts"]["w_gate"].shape[-3]
+                y, _ = moe_mod.apply_moe(lps[s]["moe"], xs[devices[s]], cfg,
+                                         dropless=True, expert0=s * mine)
+            else:
+                y = apply_mlp(lps[s]["mlp"], xs[devices[s]], cfg)
+            ys.append(y)
+    return h + _reduce(ys, devices)
+
+
+def _embed_tp(params, tokens, cfg):
+    """``embed_tokens`` over the vocab split: each shard looks up the
+    tokens of its rows (zeros for the others), and the parts sum exactly
+    to each token's row, on devices[0]."""
+    if not params.modules["vocab"]:
+        return embed_tokens(params.shards[0], tokens, cfg)
+    parts = []
+    for s, dev in enumerate(params.devices):
+        table = params.shards[s]["embed"]["embedding"]
+        n = table.shape[0]
+        with device_guard(dev):
+            local = _to(tokens, dev).long() - s * n
+            hit = (local >= 0) & (local < n)
+            rows = table[local.clamp(0, n - 1)].to(cfg.cdtype)
+            parts.append(rows * hit[..., None].to(rows.dtype))
+    return _reduce(parts, params.devices)
+
+
+def _logits_tp(params, h, cfg):
+    """``_logits`` over the vocab split: each shard's columns, joined
+    into full rows on devices[0] (what kernels 3 and 4 sample)."""
+    if not params.modules["vocab"]:
+        return _logits(params.shards[0], h, cfg)
+    parts = []
+    for s, dev in enumerate(params.devices):
+        with device_guard(dev):
+            parts.append(_logits(params.shards[s], _to(h, dev), cfg))
+    return torch.cat([_to(p, params.devices[0]) for p in parts], dim=-1)
+
+
+def forward_tp(params, tokens, cfg, *, cache, block_tables=None, pos=None,
+               valid_len=None, state_slots=None, need_logits=True):
+    """``forward`` over a tensor-parallel slice (``ShardedParams``), in
+    the serving forms: ``cache`` the list of per-shard caches, pools
+    (with block_tables / state_slots) or the decode loop's views.
+    Returns (logits or None, cache, None, h), h on devices[0]."""
+    if cache is None:
+        raise ValueError("a tensor-parallel slice serves the paged step "
+                         "and the decode loop only")
+    devices = params.devices
+    d0 = devices[0]
+    h = _embed_tp(params, tokens, cfg)
+    if pos is not None:
+        pos = torch.as_tensor(pos, device=d0)
+    base = dict(block_tables=block_tables, pos=pos, valid_len=valid_len,
+                state_slots=state_slots)
+    inputs, window = None, None
+    for ri, (kind, ffn, n) in enumerate(runs_of(cfg)):
+        run = f"run_{ri}"
+        if inputs is None or (kind in _ATTN_KINDS
+                              and window != _layer_window(cfg, kind)):
+            rope = write = None
+            if kind in _ATTN_KINDS:
+                window = _layer_window(cfg, kind)
+                rope, write = attn_mod.shared_inputs(
+                    cfg, h.shape[1], d0, cache=_layer(cache[0][run], 0),
+                    block_tables=block_tables, pos=pos, valid_len=valid_len)
+            here = dict(base, rope=rope, write=write)
+            inputs = {d: {k: _to(v, d) for k, v in here.items()}
+                      for d in set(devices)}
+        runs = [_unstack(p["layers"][run], n) if run in p.get("layers", {})
+                else [{}] * n for p in params.shards]
+        held = [c.get(run) for c in cache]
+        # the first shard holding a pool writes it; shards on its device
+        # that share it only read
+        seen, writes = set(), []
+        for rc in held:
+            leaf = id(next(iter(rc.values()))) if rc else None
+            writes.append(leaf not in seen)
+            seen.add(leaf)
+        for i in range(n):
+            h = apply_layer_tp(
+                params, [r[i] for r in runs], h, cfg, kind, ffn,
+                caches=[_layer(rc, i) if rc else None for rc in held],
+                writes=writes, inputs=inputs)
+    h = apply_norm(params.shards[0]["final_norm"], h, cfg)
+    logits = _logits_tp(params, h, cfg) if need_logits else None
+    return logits, cache, None, h

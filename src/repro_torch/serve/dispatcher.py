@@ -13,9 +13,10 @@ serving system, not a placement diagram:
     ``Engine``, driven by a dedicated worker thread on the engine's own
     CUDA stream; ALL per-token traffic — block-table rebuilds, KV
     scatter/gather, sampled-token feedback — stays inside the slice.
-    The port's engines serve slices of one device (tensor-parallel
-    slices raise, ROADMAP.md §1 item 9); replicas that share a card
-    share its params and own their pools;
+    A slice of one device serves one engine alone, a slice of several
+    one tensor-parallel engine split over them (a slice may name one
+    device twice: two shards on one card); one-device replicas that
+    share a card share its params, and every replica owns its pools;
   * the dispatcher is the *slow* layer: it carries only admission
     (token-weighted fan-out through ``ReplicaRouter``, load and
     capacity normalized by slice width), completed ``RequestResult``s,
@@ -209,10 +210,10 @@ class ServeCluster:
                      ) -> "ServeCluster":
         """``num_replicas`` engines over the devices (every visible CUDA
         device by default): honest disjoint slices when the device count
-        divides evenly (each slice one fast-fabric group; a slice of
-        more than one device raises in ``Engine``, tensor parallelism
-        not being ported), round-robin shared single-device slices
-        otherwise (two replicas on one card)."""
+        divides evenly (each slice one fast-fabric group, served
+        tensor-parallel when it holds more than one device), round-robin
+        shared single-device slices otherwise (two replicas on one
+        card)."""
         devices = cuda_devices() if devices is None else list(devices)
         n = len(devices)
         if num_replicas <= n and n % num_replicas == 0:

@@ -1,5 +1,6 @@
 """Continuous-batching inference engine over a paged KV cache
-(``repro/serve/engine.py``), on one device.
+(``repro/serve/engine.py``), on one device or one tensor-parallel
+slice of devices.
 
 Each ``step()`` is one fused ``paged_step`` call carrying mixed
 prefill+decode rows, or — with ``steps_per_dispatch = N > 1`` and no
@@ -27,12 +28,19 @@ engine is here too: request deadlines (``deadline_s`` /
 results ``deadline`` / ``queue_deadline``), ``reclaim_requests`` (the
 post-mortem salvage of a dead replica) and ``drain_progress`` (tokens
 fetched per request, the router's load decay).  On CUDA every engine
-owns a stream: construction, ``warmup`` and ``step`` run on it, so the
-engines of several replicas on one card do not queue behind each other
-on the default stream.
+owns a stream on each of its devices: construction, ``warmup`` and
+``step`` run on them, so the engines of several replicas on one card do
+not queue behind each other on the default stream.
 
-Not ported yet (each raises, see ROADMAP.md §1): the unfused
-``fused=False`` baseline and tensor-parallel device slices (item 9).
+A slice of several devices serves tensor-parallel, as the reference's
+GSPMD replica does, in one process: the params and the paged pools are
+split per ``repro_torch.sharding``'s plan, shard s on ``devices[s]``,
+and ``paged_step`` / ``paged_decode_loop`` run over the shards
+(``transformer.forward_tp``); the host loop, the block tables and the
+token buffers are the one-device engine's, on ``devices[0]``.
+
+Not ported yet (it raises, see ROADMAP.md §1): the unfused
+``fused=False`` baseline.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ import torch
 from repro_torch.serve.kv_cache import PagedKVCache, StateSlotAllocator
 from repro_torch.serve.scheduler import Request, RequestQueue, Scheduler
 from repro_torch.serve.telemetry import LatencyHists, MetricsRegistry, Telemetry
+from repro_torch.sharding import shard_params
 
 _STAT_KEYS = ("steps", "decode_steps", "decode_slot_steps",
               "decode_active_slot_steps", "prefill_tokens",
@@ -201,12 +210,19 @@ def _default_device() -> torch.device:
         raise RuntimeError("Engine runs on CUDA by default and no CUDA "
                            "device is available; pass device='cpu' to run "
                            "the plain versions on the CPU")
-    return torch.device("cuda")
+    return _indexed("cuda")
 
 
-def _not_ported(what: str, item: str = "") -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1"
-                               f"{item})")
+def _indexed(device) -> torch.device:
+    """``device`` as a torch.device, a CUDA one with its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1)")
 
 
 # analysis: single-writer — an Engine is thread-confined: one thread
@@ -214,12 +230,14 @@ def _not_ported(what: str, item: str = "") -> NotImplementedError:
 # drives warmup/submit/step/drain_progress after construction.
 class Engine:
     """Continuous-batching engine on one device (``cuda`` unless the
-    caller passes another).
+    caller passes another) or a tensor-parallel slice.
 
     ``devices`` gives the replica a device slice (one fast-fabric group
-    of ``launch.mesh.replica_slices``), as in the reference; the port
-    serves a slice of one device (``tp_degree`` 1), and a wider slice
-    raises.  ``device`` names that one device directly."""
+    of ``launch.mesh.replica_slices``), as in the reference: one device
+    serves alone (``tp_degree`` 1), ``n`` devices serve one engine split
+    ``n`` ways (``tp_degree`` n; a slice may name one device more than
+    once, which puts several shards on one card).  ``device`` names a
+    single device directly."""
 
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(),
                  device=None, telemetry: Optional[Telemetry] = None,
@@ -234,38 +252,37 @@ class Engine:
         if not cfg.fused:
             raise _not_ported("the unfused fused=False baseline")
         if devices is not None:
-            devices = tuple(torch.device(d) for d in devices)
-            if len(devices) > 1:
-                raise _not_ported(
-                    f"a tensor-parallel slice of {len(devices)} devices",
-                    " item 9")
+            devices = tuple(_indexed(d) for d in devices)
             if not devices or (device is not None
-                               and torch.device(device) != devices[0]):
+                               and _indexed(device) != devices[0]):
                 raise ValueError(f"devices={devices} and device={device} "
-                                 "name no single device")
-            device = devices[0]
-        self.device = (torch.device(device) if device is not None
-                       else _default_device())
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        self.devices = (self.device,)
-        self.tp_degree = 1
-        # one stream per engine; it first waits for the caller's stream,
-        # where the params it is handed were written
-        self.stream = None
-        if self.device.type == "cuda":
-            self.stream = torch.cuda.Stream(self.device)
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                                 "name no slice")
+        else:
+            devices = (_indexed(device) if device is not None
+                       else _default_device(),)
+        self.devices = devices
+        self.device = devices[0]
+        self.tp_degree = len(devices)
+        # one stream per engine and CUDA device; each first waits for the
+        # caller's stream there, where the params it is handed were
+        # written.  ``stream`` is the one of devices[0]
+        self.streams = {}
+        for d in dict.fromkeys(devices):
+            if d.type == "cuda":
+                self.streams[d] = torch.cuda.Stream(d)
+                self.streams[d].wait_stream(torch.cuda.current_stream(d))
+        self.stream = self.streams.get(self.device)
         with self.on_stream():
             self._build(model, params, cfg, telemetry, replica_id)
 
     def on_stream(self):
-        """Make this engine's stream current on the calling thread (a
-        no-op off CUDA).  The kernels launch on the current stream, which
-        is per thread."""
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        """Make this engine's streams current on the calling thread (a
+        no-op off CUDA).  The kernels launch on the current stream of
+        their device, which is per thread."""
+        stack = contextlib.ExitStack()
+        for st in self.streams.values():
+            stack.enter_context(torch.cuda.stream(st))
+        return stack
 
     def _build(self, model, params, cfg, telemetry, replica_id) -> None:
         self.model = model
@@ -278,7 +295,9 @@ class Engine:
         self._host_track = f"replica{replica_id}/host"
         self._dev_track = f"replica{replica_id}/device"
         self._dev_tail = 0.0
-        self.params = _to_device(params, self.device)
+        self.params = (shard_params(params, model.cfg, self.devices)
+                       if self.tp_degree > 1
+                       else _to_device(params, self.device))
         self.cfg = cfg
         self._sample_kw = dict(temperature=float(cfg.temperature),
                                top_k=int(cfg.top_k), seed=int(cfg.seed))
@@ -305,7 +324,8 @@ class Engine:
             self._m.state_slots_free.set(self.state_slots.num_free)
         self.cache = model.init_paged_cache(
             cfg.num_blocks, cfg.block_size,
-            num_state_slots=cfg.num_slots + 1, device=self.device)
+            num_state_slots=cfg.num_slots + 1, device=self.device,
+            devices=self.devices)
         self._slot_buf = torch.zeros((cfg.num_slots + 1,), dtype=torch.int32,
                                      device=self.device)
         self._free_slots: List[int] = list(range(cfg.num_slots - 1, -1, -1))
@@ -506,14 +526,15 @@ class Engine:
 
         In-flight dispatches are dropped unread; the sampling keys are
         ``fold_in(rid, position)``, so a re-dispatch regenerates their
-        tokens.  On CUDA the engine's stream is synchronised first, so no
-        dispatch still running writes into a pinned buffer dropped here.
+        tokens.  On CUDA the engine's streams are synchronised first, so
+        no dispatch still running writes into a pinned buffer dropped
+        here.
         Each live sequence's host tokens fold into its prompt (recompute,
         as preemption); sequences already finished (eos on the host, or
         their budget spent) come back as results.  Returns
         ``(requests_to_redispatch, finished_results)``."""
-        if self.stream is not None:
-            self.stream.synchronize()
+        for st in self.streams.values():
+            st.synchronize()
         requests: List[Request] = []
         finished: List[RequestResult] = []
         self._pending.clear()
@@ -920,8 +941,8 @@ class Engine:
                         self._tensor(self.kv.table_array([None] * rows)),
                         self._tensor(meta), num_steps=cfg.steps_per_dispatch,
                         **self._sample_kw)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for st in self.streams.values():
+            st.synchronize()
         for h in (self._m.model_calls, self._m.host_syncs,
                   self._m.loop_dispatches):
             h.reset()

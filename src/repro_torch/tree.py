@@ -42,6 +42,30 @@ def zip_leaves(tree: Dict[str, Any], *rest: Dict[str, Any]
     return outs
 
 
+def split_tree(tree: Dict[str, Any], parts_of: Callable, n: int
+               ) -> List[Dict[str, Any]]:
+    """``n`` trees out of ``tree``: ``parts_of(path, leaf)`` (path the
+    tuple of keys) gives each tree's leaf at that path, None where the
+    tree has none; a node left empty is dropped."""
+    outs: List[Dict[str, Any]] = [{} for _ in range(n)]
+
+    def walk(node, path, dests):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                subs = [{} for _ in range(n)]
+                walk(v, path + (k,), subs)
+                for d, sub in zip(dests, subs):
+                    if sub:
+                        d[k] = sub
+            else:
+                for d, part in zip(dests, parts_of(path + (k,), v)):
+                    if part is not None:
+                        d[k] = part
+
+    walk(tree, (), outs)
+    return outs
+
+
 def unflatten(like: Dict[str, Any], values) -> Dict[str, Any]:
     """A tree shaped like ``like`` holding ``values`` in leaf order."""
     it = iter(values)

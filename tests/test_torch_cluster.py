@@ -488,11 +488,13 @@ def test_engine_takes_a_slice_of_one_device(lm):
     eng = Engine(model, params, _ecfg(), devices=CPU)
     assert (eng.device, eng.devices, eng.tp_degree, eng.stream) == \
         (torch.device("cpu"), tuple(CPU), 1, None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Engine(model, params, _ecfg(), devices=CPU * 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServeCluster.for_replicas(model, params, _ecfg(), num_replicas=1,
-                                  devices=CPU * 2)
+    # a slice of two serves one tensor-parallel engine (its streams are
+    # held to the reference in tests/test_torch_tp.py)
+    assert Engine(model, params, _ecfg(), devices=CPU * 2).tp_degree == 2
+    one = ServeCluster.for_replicas(model, params, _ecfg(), num_replicas=1,
+                                    devices=CPU * 2)
+    assert [e.tp_degree for e in one.engines] == [2]
+    assert one.router.width(0) == 2
     with pytest.raises(ValueError):
         Engine(model, params, _ecfg(), devices=())
 

@@ -119,10 +119,13 @@ def test_engine_rejects_what_is_not_ported(setup):
     p, g = work[0]
     res = hot.run([Request(prompt=p.copy(), max_new_tokens=g, rid=0)])
     assert len(res[0].tokens) == g
-    # a tensor-parallel slice is not ported (ROADMAP §1 item 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        Engine(tmodel, tparams, EngineConfig(),
-               devices=[torch.device("cpu")] * 2)
+    # a tensor-parallel slice is ported: it serves (token identity with
+    # the reference's sequential decode is tests/test_torch_tp.py)
+    tp = Engine(tmodel, tparams, EngineConfig(**WIDE),
+                devices=[torch.device("cpu")] * 2)
+    assert tp.tp_degree == 2
+    res = tp.run([Request(prompt=p.copy(), max_new_tokens=g, rid=2)])
+    assert len(res[2].tokens) == g
     # request deadlines and reclaim_requests are ported (the cluster
     # layer's tests are tests/test_torch_cluster.py)
     eng = Engine(tmodel, tparams, EngineConfig(**WIDE), device="cpu")

@@ -20,7 +20,7 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.configs.h2o_danube_3_4b",
            "repro_torch.configs.dbrx_132b",
            "repro_torch.configs.llava_next_34b",
-           "repro_torch.tree",
+           "repro_torch.tree", "repro_torch.sharding",
            "repro_torch.kernels", "repro_torch.kernels._build",
            "repro_torch.kernels.prng", "repro_torch.kernels.sampling",
            "repro_torch.kernels.fused_update",
