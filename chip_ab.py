@@ -17,8 +17,9 @@ running while the other waits.  In each turn a side runs:
   qwen2-1.5b, ``mcfg`` for mamba2-370m, ``dcfg`` for the served
   deepseek-v3 cut, ``rcfg`` for recurrentgemma-2b, ``ec`` the serving
   engine's config, ``work`` the
-  serving workload); every ``ms`` the phase returns is kept, under the
-  path of keys and labels that leads to it;
+  serving workload; a parameter with a default keeps it); every ``ms``
+  and ``step_ms`` the phase returns is kept, under the path of keys and
+  labels that leads to it;
 - ``--serve ARCH:DEPTH``: ARCH at full width (bf16, random weights from
   seed 0) serving the workload of ``serve.profile_engine`` greedily at
   that steps_per_dispatch, through the port's ``Engine``: tok/s and TTFT
@@ -55,6 +56,8 @@ def timings(result, path=()):
     if isinstance(result, dict):
         if isinstance(result.get("ms"), float):
             yield " ".join(path), result["ms"]
+        if isinstance(result.get("step_ms"), float):   # a training phase
+            yield " ".join(path + ("step_ms",)), result["step_ms"]
         for key, value in result.items():
             if isinstance(value, (dict, list, tuple)):
                 parts = key if isinstance(key, tuple) else (key,)
@@ -124,7 +127,8 @@ def worker(tree: Path) -> int:
             fn = getattr(cs, "phase_" + cmd[1])
             args = {name: (served_config(archs[name]) if name in archs
                            else context[name])
-                    for name in inspect.signature(fn).parameters}
+                    for name, p in inspect.signature(fn).parameters.items()
+                    if p.default is inspect.Parameter.empty}
             return {f"{cmd[1]} {label}": ms
                     for label, ms in timings(fn(**args))}
         arch, depth = cmd[1], int(cmd[2])

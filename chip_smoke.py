@@ -14,8 +14,9 @@
    their ties planted on both sides of every slice edge of that size;
    the gumbel sampler also at a top-k row no cluster's shared memory
    holds), the fused
-   update at every leaf shape of full-width qwen2-1.5b and of ResNet-50
-   (161 f32 leaves, 106 of them batch-norm vectors).  Each kernel is
+   update at every leaf shape of full-width qwen2-1.5b, ResNet-50
+   (161 f32 leaves, 106 of them batch-norm vectors), recurrentgemma-2b,
+   whisper-tiny and mamba2-370m.  Each kernel is
    held against its plain PyTorch version on the same card inputs
    (kernels 1, 2 and 7 in both templates, bf16 and f32; kernel 2 in
    bf16 also bit for bit against kernel 1 on the same keys) and timed
@@ -167,17 +168,29 @@
    llava-next-34b at LLAVA_TRAIN_LAYERS over the 2,880-token image
    prefix and LLAVA_TEXT text tokens a row; finite losses, exactly their kernel-5 launches, the step time
    and peak memory printed with the card's name and power limit.
-13. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
+13. Training over a mesh (one rank: data 1 x model 1): dbrx-132b at full
+   width cut to DBRX_TRAIN_LAYERS layer through
+   ``launch.builders.make_train_step`` (the reference's FSDP / pjit step
+   for an MoE config, expert-parallel), 8 LSGD steps of 4 x 512 tokens:
+   finite losses, exactly its kernel-5 launches, the step time and peak
+   memory; kernel 5 held against its plain version over that training
+   state's leaves a piece at a time and timed in place; mamba2-370m
+   uncut (48 layers) trained through the launcher as qwen2-1.5b; and
+   ``make_pjit_step`` with fsdp equal to the launcher's step within 1e-5
+   (qwen2-1.5b, 2 layers, float32, 3 steps + finalize), also over two
+   NCCL ranks where the machine has two cards.
+14. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
    bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
    gumbel sample (with and without top-k) and a greedy sample each run
    their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
-14. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
-   same kernels at the last four configs' shapes and at one shard's
-   layouts of a TP slice, each naming its ``case`` and counting that
-   config's or slice's launches), the card's name and
+15. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
+   same kernels at the last four configs' shapes, at one shard's
+   layouts of a TP slice and (kernel 5) at dbrx's and mamba2-370m's
+   training leaves, each naming its ``case`` and counting that config's
+   or slice's launches), the card's name and
    power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -262,6 +275,29 @@ LM_TRAIN_ARGVS = (
     ["--arch", "h2o-danube-3-4b"] + TRAIN_ARGV[2:],
     ["--arch", "llava-next-34b"] + TRAIN_ARGV[2:] + [
         "--seq", str(2880 + LLAVA_TEXT), "--layers", str(LLAVA_TRAIN_LAYERS)])
+# training over a mesh (one rank here: the mesh is data 1 x model 1):
+# dbrx-132b at full width cut to DBRX_TRAIN_LAYERS of its 40 layers,
+# bf16, through launch.builders.make_train_step, the reference's choice
+# for an MoE config (the FSDP / pjit step with the mesh active, so the
+# MoE runs expert-parallel), 8 LSGD steps of 4 x 512 tokens, fused SGD
+# at lr 0.01; at 12 bytes a parameter (bf16 params and grads, f32
+# momentum and pending update) its 1 layer and embeddings, about 4.5B
+# parameters, take about 54 GB before activations
+DBRX_TRAIN_LAYERS = 1
+PJIT_STEPS, PJIT_BATCH, PJIT_SEQ = 8, 4, 512
+# mamba2-370m uncut (48 layers) through the launcher, as qwen2-1.5b
+MAMBA_TRAIN_ARGV = ["--arch", "mamba2-370m"] + TRAIN_ARGV[2:]
+# the FSDP step against the launcher's step: qwen2-1.5b at full width
+# cut to 2 layers, float32 (TF32 off), 3 steps + finalize, the bound of
+# tests/test_equivalence.py; on two cards or more also as two NCCL ranks
+FSDP_LAYERS = 2
+FSDP_STEPS = 3
+FSDP_BOUND = 1e-5
+# kernel 5's whole-set call over dbrx's training state is held against
+# the plain version a piece at a time (the plain version's f32
+# temporaries of its 1.06B-element leaf would not fit beside the state):
+# pieces of at most this many elements
+UPDATE_PIECE = 1 << 28
 # virtual CSGD vs LSGD on the card: full width cut to 2 layers, float32
 # (TF32 off), 4 workers of 1 x 256 tokens in groups of 2, 3 steps; the
 # bound of tests/test_equivalence.py
@@ -1376,12 +1412,14 @@ def phase_fused_update(torch, timer, cfg):
     batch-norm scales and biases of 64-2048 floats); recurrentgemma-2b
     (bf16 w, 2.383B params, a 655M-element embedding); whisper-tiny (bf16
     w, the stacked encoder and decoder leaves, 384-wide layernorm biases,
-    a 51,865 x 384 embedding); then the ragged set.  The JSON row's error
-    is the worst over all of them."""
+    a 51,865 x 384 embedding); mamba2-370m (bf16 w, 48 stacked layers, a
+    tied 50,280 x 1,024 embedding); then the ragged set.  The JSON row's
+    error is the worst over all of them.  Returns (the row, each set's
+    numbers by label)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     out = {}
-    for label in (cfg.name, "resnet50", RGEMMA, WHISPER):
+    for label in (cfg.name, "resnet50", RGEMMA, WHISPER, MAMBA):
         c = cfg if label == cfg.name else get_config(label)
         params = build_model(c).init(SEED, "cuda")
         out[label] = _fused_update_layout(torch, timer, label,
@@ -1389,10 +1427,10 @@ def phase_fused_update(torch, timer, cfg):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    row = out[cfg.name]
+    row = dict(out[cfg.name])
     row["max_abs_err"] = max([r["max_abs_err"] for r in out.values()]
                              + [_fused_update_ragged(torch)])
-    return row
+    return row, out
 
 
 # ---------------------------------------------------------------------------
@@ -2070,6 +2108,348 @@ def phase_virtual(torch, cfg):
         fail(f"virtual csgd and lsgd differ by {diff} (bound "
              f"{VIRTUAL_BOUND})")
     return diff
+
+
+def _synth_batches(torch, cfg, batch, seq, steps, device="cuda"):
+    """The launcher's synthetic batches (``data_config_for``, seed SEED)
+    on ``device``."""
+    from types import SimpleNamespace
+
+    from repro_torch.data.pipeline import data_config_for, synth_batch
+    dcfg = data_config_for(cfg, SimpleNamespace(seq_len=seq,
+                                                global_batch=batch), SEED)
+    return [{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in synth_batch(dcfg, t).items()} for t in range(steps)]
+
+
+def phase_train_pjit(torch, cfg, mesh=None, batch=PJIT_BATCH, zero3=False):
+    """The reference's training step for an MoE config on a mesh
+    (``launch.builders.make_train_step``: the FSDP / pjit step, the mesh
+    active, so the MoE runs ``apply_moe_ep``; ``zero3`` forces ZeRO-3):
+    PJIT_STEPS LSGD steps of ``batch`` x PJIT_SEQ tokens (the global
+    batch; each rank its rows) and the trailing update, every launch
+    count set to 0 just before and read just after.  ``mesh`` defaults
+    to one rank; over several (``chip_mesh.py``, one process a card)
+    every step starts at a barrier, the peak memory is the largest
+    rank's and rank 0 prints.  Finite losses, and kernel 5 launched
+    exactly ``launches_per_call`` of the state's dtypes for each of the
+    7 deferred updates and ``finalize``.  Returns (results,
+    ``make_train_step``'s TrainStep)."""
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch import builders
+    from repro_torch.launch.mesh import make_mesh
+    mesh = mesh or make_mesh((1, 1), ("data", "model"))
+    ranks = dist.is_initialized()
+    shape = builders.ShapeConfig("chip", PJIT_SEQ, batch, "train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts = builders.make_train_step(cfg, shape, mesh, "lsgd", zero3=zero3,
+                                  lr_fn=lambda t: 0.01)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = _synth_batches(torch, cfg, batch, PJIT_SEQ, PJIT_STEPS)
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for b in batches:
+        if ranks:
+            dist.barrier()
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = ts(b)
+        losses.append(float(loss))          # waits for the step
+        step_s.append(time.perf_counter() - t)
+    ts.finish()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{cfg.name} pjit training loss not finite: {losses}")
+    per_step = _update_launches(ts.state)
+    if counts["fused_sgd_update"] != per_step * len(losses):
+        fail(f"{cfg.name} pjit training: {counts['fused_sgd_update']} "
+             f"fused_sgd_update launches, want {per_step} a deferred "
+             f"update x {len(losses)}")
+    med = statistics.median(step_s[-6:])
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                        device="cuda")
+    if ranks:
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    res = dict(loss_first=losses[0], loss_last=losses[-1],
+               step_ms=med * 1e3, tokens_per_s=batch * PJIT_SEQ / med,
+               peak_gb=peak.item(), launches=counts)
+    if mesh.rank == 0:
+        print(f"[train pjit] {cfg.name} full width, {cfg.num_layers} "
+              f"layers, {ts.n_params / 1e9:.3f}B params {cfg.param_dtype}, "
+              f"{ts.description} on {mesh} ({mesh.world} rank(s), "
+              f"expert-parallel MoE), batch {batch} x {PJIT_SEQ}, fused "
+              f"sgd, lr 0.01: init {init_s:.1f}s; losses "
+              f"{[round(x, 4) for x in losses]}; step ms (median of the "
+              f"last 6) {res['step_ms']:.1f}; train tok/s "
+              f"{res['tokens_per_s']:.0f}; peak memory"
+              f"{' (largest rank)' if ranks else ''} {res['peak_gb']:.2f} "
+              f"GB; step ms all {[round(x * 1e3, 1) for x in step_s]}; "
+              f"launches={json.dumps(counts)}; card: {nvidia_smi()}",
+              flush=True)
+    return res, ts
+
+
+def _fused_update_inplace(torch, timer, label, ws, ms_, gs):
+    """Kernel 5 over a training state as it lies (params, f32 momentum,
+    f32 pending update), where copies of the set would not fit on the
+    card.  For sgd and then lars, one call over the whole set in place
+    at lr 0.01 (the launches exactly ``launches_per_call``), held
+    against the plain version run on the card a piece of at most
+    UPDATE_PIECE elements at a time from host copies of w and m taken
+    before the call (and put back before the next): w within one bf16
+    ulp, m within UPDATE_M_RTOL, as ``_fused_update_check``; LARS's
+    trust from the kernel's norms within ``fu.LARS_TRUST_RTOL`` of the
+    plain trust, and the plain update given the kernel's trust.  Some
+    weights must change, or the w comparison would hold whatever the
+    kernel did.  Then the whole set timed in place (the kernel, the LARS
+    set, the plain version) and the library yardstick
+    ``torch.optim.SGD(fused=True)`` over the f32 momentum as its params
+    (all-f32, as the other sets' yardstick)."""
+    from repro_torch.kernels import fused_update as fu
+    keys = [(w.dtype, m.dtype, g.dtype) for w, m, g in zip(ws, ms_, gs)]
+    host_w = [w.cpu() for w in ws]
+    host_m = [m.cpu() for m in ms_]
+    lr = torch.full((), 0.01, device="cuda")
+    lkw = dict(eta=1e-3, eps=1e-9, weight_decay=1e-4)
+    worst = worst_t = 0.0
+    moved = {}
+    for mode in ("sgd", "lars"):
+        if mode == "lars":              # the state the sgd call started from
+            for w, m, hw, hm in zip(ws, ms_, host_w, host_m):
+                w.copy_(hw)
+                m.copy_(hm)
+        before = fu.fused_sgd_update.launches
+        trust = None
+        if mode == "lars":
+            trust = fu.lars_trust(ws, gs, **lkw)
+            want = fu.lars_trust_plain(ws, gs, **lkw)
+            worst_t = ((trust - want).abs() / want.abs()).max().item()
+            if not worst_t <= fu.LARS_TRUST_RTOL:
+                fail(f"lars_trust {label}: {worst_t:.3g} relative from the "
+                     f"plain trust (bound {fu.LARS_TRUST_RTOL})")
+        kw = dict(lr=lr, momentum=0.9, weight_decay=1e-4)
+        fu.fused_sgd_update(ws, ms_, gs, trust=trust, **kw)
+        launched = fu.fused_sgd_update.launches - before
+        want_n = fu.launches_per_call(keys, lars=mode == "lars")
+        if launched != want_n:
+            fail(f"fused_sgd_update {label} {mode}: {launched} launches, "
+                 f"want {want_n}")
+        changed = 0
+        for i, (w, m, g) in enumerate(zip(ws, ms_, gs)):
+            fw, fm, fg = w.view(-1), m.view(-1), g.view(-1)
+            hw, hm = host_w[i].view(-1), host_m[i].view(-1)
+            t = None if trust is None else trust[i:i + 1]
+            for lo in range(0, fw.numel(), UPDATE_PIECE):
+                sl = slice(lo, lo + UPDATE_PIECE)
+                w2, m2 = hw[sl].cuda(), hm[sl].cuda()
+                changed += int((fw[sl] != w2).sum())
+                fu.fused_sgd_update_plain([w2], [m2], [fg[sl]], trust=t,
+                                          **kw)
+                w_rtol = 2.0 ** -7 if w2.dtype == torch.bfloat16 else \
+                    UPDATE_M_RTOL
+                dw = (fw[sl].float() - w2.float()).abs()
+                dm = (fm[sl] - m2).abs()
+                if not (bool((dw <= w2.float().abs() * w_rtol).all())
+                        and bool((dm <= m2.abs() * UPDATE_M_RTOL).all())):
+                    fail(f"fused_sgd_update {label} {mode} leaf "
+                         f"{tuple(w.shape)} piece {lo}: kernel and plain "
+                         "version disagree")
+                worst = max(worst, dw.max().item(), dm.max().item())
+                del w2, m2, dw, dm
+        moved[mode] = changed / sum(w.numel() for w in ws)
+        if not moved[mode] > 0:
+            fail(f"fused_sgd_update {label} {mode}: no weight changed, so "
+                 "the comparison shows nothing")
+    del host_w, host_m
+    n = sum(w.numel() for w in ws)
+    w_bytes = ws[0].element_size()
+    kw = dict(lr=1e-6, momentum=0.9, weight_decay=1e-4)
+
+    def lars_set():
+        trust = fu.lars_trust(ws, gs, **lkw)
+        fu.fused_sgd_update(ws, ms_, gs, trust=trust, **kw)
+
+    ms = timer(lambda: fu.fused_sgd_update(ws, ms_, gs, **kw))
+    lars_ms = timer(lars_set)
+    plain_ms = timer(lambda: fu.fused_sgd_update_plain(ws, ms_, gs, **kw))
+    for m, g in zip(ms_, gs):
+        m.grad = g
+    opt = torch.optim.SGD(ms_, lr=1e-6, momentum=0.9, weight_decay=1e-4,
+                          fused=True)
+    lib_ms = timer(opt.step)
+    for m in ms_:
+        m.grad = None
+    del opt
+    bnd, by = bound_ms(n * (2 * w_bytes + 4 + 4 + 4), 6 * n, F32_OPS_PER_S)
+    print(f"[fused_sgd_update] {label} whole set (the training state, in "
+          f"place): {len(ws)} leaves, {n / 1e9:.3f}B params ({ws[0].dtype} "
+          f"w, f32 m and g), one call each of sgd and lars at lr 0.01 over "
+          f"the whole set, held against the plain version in pieces of "
+          f"{UPDATE_PIECE}: max |kernel - plain| {worst:.3g}, share of "
+          f"weights the update changed sgd {moved['sgd']:.4f} lars "
+          f"{moved['lars']:.4f}, lars trust max relative error "
+          f"{worst_t:.3g}; kernel_ms={ms:.4f} lars_ms={lars_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bnd:.4f} ({by}; "
+          f"{bnd / ms:.1%} of the bound) library_ms(torch.optim.SGD "
+          f"fused, all-f32)={lib_ms:.4f} ({ms / lib_ms:.2f}x); card: "
+          f"{nvidia_smi()}", flush=True)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_dbrx_train(torch, timer):
+    """dbrx-132b at DBRX_TRAIN_LAYERS layers through ``phase_train_pjit``,
+    then kernel 5 over its training state's leaves (``_fused_update_inplace``;
+    the pending update refilled with N(0, 0.01) noise, which the trailing
+    update had zeroed).  Returns (training results, kernel-5 row)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DBRX).replace(num_layers=DBRX_TRAIN_LAYERS)
+    res, ts = phase_train_pjit(torch, cfg)
+    st = ts.state
+    ws, ms_ = list(_leaves(st["params"])), list(_leaves(st["opt"]["m"]))
+    gs = list(_leaves(st["pending"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for x in gs:
+        x.normal_(0.0, 1e-2, generator=g)
+    row = _fused_update_inplace(torch, timer, f"{DBRX} {DBRX_TRAIN_LAYERS}"
+                                f" layer", ws, ms_, gs)
+    del ts, st, ws, ms_, gs
+    return res, row
+
+
+_FSDP_RANK = r"""
+import os, sys, json
+import torch, torch.distributed as dist
+rank, world, port, layers, steps = (int(sys.argv[1]), int(sys.argv[2]),
+                                    sys.argv[3], int(sys.argv[4]),
+                                    int(sys.argv[5]))
+sys.path.insert(0, os.path.join(os.getcwd(), "src"))
+torch.cuda.set_device(rank)
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=world)
+import chip_smoke as cs
+diff, moved = cs.fsdp_against_launcher(torch, layers, steps,
+                                       torch.device("cuda", rank))
+if rank == 0:
+    print("FSDP_NCCL", json.dumps({"diff": diff, "moved": moved}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def fsdp_against_launcher(torch, layers, steps, device):
+    """qwen2-1.5b at full width, ``layers`` deep, float32: ``steps`` LSGD
+    steps and ``finalize`` through ``make_pjit_step`` (fsdp on, a data
+    axis over the process group's ranks) and through the launcher's
+    ``make_step``, from the seed's weights and the launcher's batches,
+    with fused SGD and with LARS (whose norms the FSDP step sums over the
+    shard group).  Returns (max |param diff|, how far the params moved),
+    the worst over both optimizers."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import trainer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.sgd import OptimConfig
+    from repro_torch.tree import leaves
+    cfg = get_config(QWEN2).replace(num_layers=layers, param_dtype="float32",
+                                    compute_dtype="float32")
+    model = build_model(cfg)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh((world,), ("data",))
+    batches = _synth_batches(torch, cfg, PJIT_BATCH, PJIT_SEQ, steps,
+                             device)
+    lr_fn = lambda t: 0.01
+    p0 = model.init(SEED, device)
+    diff = moved = 0.0
+    for kind in ("sgd", "lars"):
+        out = []
+        for fsdp in (True, False):
+            tcfg = trainer.TrainerConfig(sync_mode="lsgd", fsdp=fsdp,
+                                         optim=OptimConfig(kind=kind))
+            plan = trainer.FsdpPlan(model, tcfg, mesh) if fsdp else None
+            state = trainer.make_init_state(model, tcfg, device, plan)(SEED)
+            step = (trainer.make_pjit_step(model, tcfg, lr_fn, plan) if fsdp
+                    else trainer.make_step(model, tcfg, lr_fn))
+            for b in batches:
+                state, _ = step(state, trainer.local_batch(b, mesh))
+            state = trainer.make_finalize(model, tcfg, lr_fn, plan)(state)
+            out.append(plan.gather(state["params"]) if fsdp
+                       else state["params"])
+            del state
+        diff = max([diff] + [(a - b).abs().max().item()
+                             for a, b in zip(leaves(out[0]), leaves(out[1]))])
+        moved = max([moved] + [(a - b).abs().max().item()
+                               for a, b in zip(leaves(out[1]), leaves(p0))])
+    return diff, moved
+
+
+@float32_exact()
+def phase_fsdp_parity(torch):
+    """The FSDP step equals the launcher's step on the card
+    (``fsdp_against_launcher`` at FSDP_LAYERS layers, FSDP_STEPS steps)
+    within FSDP_BOUND, the params having moved; on one rank its
+    collectives are the identity.  On a machine with two cards or more,
+    the same over two NCCL ranks (one process a card); with one card the
+    multi-rank collectives ran only under gloo on the CPU (NCCL refuses
+    two ranks on one card)."""
+    diff, moved = fsdp_against_launcher(torch, FSDP_LAYERS, FSDP_STEPS,
+                                        torch.device("cuda", 0))
+    print(f"[fsdp] {QWEN2} {FSDP_LAYERS} layers f32, {FSDP_STEPS} lsgd steps "
+          f"of {PJIT_BATCH} x {PJIT_SEQ} + finalize, sgd and lars, one rank: "
+          f"make_pjit_step"
+          f"(fsdp) vs the launcher's make_step max |param diff| {diff:.3g} "
+          f"(bound {FSDP_BOUND}); params moved {moved:.3g}", flush=True)
+    if not (diff < FSDP_BOUND and moved > 0):
+        fail(f"FSDP step and launcher step differ by {diff} (bound "
+             f"{FSDP_BOUND})")
+    if torch.cuda.device_count() < 2:
+        print("[fsdp] one card: the FSDP step's all-gather, reduce-scatter "
+              "and expert all-to-all over several ranks ran only under gloo "
+              "on the CPU (tests/test_torch_fsdp.py, "
+              "tests/test_torch_moe_ep.py)", flush=True)
+        return diff
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FSDP_RANK, str(r), "2", port,
+         str(FSDP_LAYERS), str(FSDP_STEPS)], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    line = next((x for x in outs[0].splitlines()
+                 if x.startswith("FSDP_NCCL ")), None)
+    if any(p.returncode for p in procs) or line is None:
+        fail(f"two NCCL ranks of the FSDP check failed: {outs[0][-3000:]} "
+             f"{outs[1][-3000:]}")
+    got = json.loads(line.split(" ", 1)[1])
+    print(f"[fsdp] two NCCL ranks (cuda:0, cuda:1), data 2, sgd and lars: "
+          f"make_pjit_step"
+          f"(fsdp) vs make_step max |param diff| {got['diff']:.3g} (bound "
+          f"{FSDP_BOUND}); params moved {got['moved']:.3g}", flush=True)
+    if not (got["diff"] < FSDP_BOUND and got["moved"] > 0):
+        fail(f"two NCCL ranks: FSDP step and launcher step differ by "
+             f"{got['diff']}")
+    return max(diff, got["diff"])
 
 
 def phase_resnet_train(torch):
@@ -3735,7 +4115,8 @@ def main() -> int:
     lms = (ccfg, hcfg, bcfg, lcfg)
     gb = phase(phase_gumbel, torch, timer, cfg,
                (mcfg, dcfg, rcfg) + lms, ec)
-    fu = phase(phase_fused_update, torch, Timer(torch, iters=10), cfg)
+    fu, fu_sets = phase(phase_fused_update, torch, Timer(torch, iters=10),
+                        cfg)
     launches = phase(phase_serve, torch, cfg)
     phase(phase_depth_f32, torch,
           cfg.replace(num_layers=F32_GATE_LAYERS[QWEN2]))
@@ -3874,6 +4255,16 @@ def main() -> int:
     for argv in LM_TRAIN_ARGVS:
         out = phase(phase_train, torch, argv)
         launches["fused_sgd_update"] += out["launches"]["fused_sgd_update"]
+    # training over a mesh: dbrx-132b's FSDP / expert-parallel step at
+    # DBRX_TRAIN_LAYERS (then kernel 5 over its training state),
+    # mamba2-370m uncut through the launcher, and the FSDP step against
+    # the launcher's in float32
+    dbrx_tr, fu_dbrx = phase(phase_dbrx_train, torch, Timer(torch, iters=10))
+    mamba_tr = phase(phase_train, torch, MAMBA_TRAIN_ARGV)
+    phase(phase_fsdp_parity, torch)
+    train_launches = {DBRX: dbrx_tr["launches"]["fused_sgd_update"],
+                      MAMBA: mamba_tr["launches"]["fused_sgd_update"]}
+    launches["fused_sgd_update"] += sum(train_launches.values())
     phase(phase_census, torch, cfg, mcfg, ec)
 
     def row(results, label):
@@ -4019,6 +4410,13 @@ def main() -> int:
         tp_row("mla_decode_paged", f"deepseek-v3 shard 64 heads B={top} C=1",
                row(mp_tp, f"B={top} C=1")),
     ]
+    base5 = next(r for r in rows if r["name"] == "fused_sgd_update")
+    rows += [
+        dict(base5, case=f"{DBRX} {DBRX_TRAIN_LAYERS} layer training state "
+             "(bf16 w, f32 m and g)", launches=train_launches[DBRX],
+             **fu_dbrx),
+        dict(base5, case=f"{MAMBA} leaves (bf16 w, f32 m and g)",
+             launches=train_launches[MAMBA], **fu_sets[MAMBA])]
     for c in lms:
         rows += [lm_row("greedy_sample", c.name,
                         f"V {c.vocab_size} B={top}", gs_lm[c.name][top]),

@@ -18,14 +18,18 @@ def _in_layout_of(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(p, dtype=g.dtype).copy_(g)
 
 
-def value_and_grad(loss_fn, params, batch):
+def value_and_grad(loss_fn, params, batch, wrap=None):
     """Returns (loss, metrics, grads): loss and metrics detached, grads a
     tree like ``params`` in the params' dtypes and strides.  The params
     are used through detached aliases, so the caller's tensors need no
-    ``requires_grad`` and may be updated in place afterwards."""
+    ``requires_grad`` and may be updated in place afterwards.  ``wrap``
+    maps the list of aliases to the params tree the loss reads (the
+    FSDP step's gathers, whose backward hands each alias its
+    gradient)."""
     with torch.enable_grad():
         ps = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss, metrics = loss_fn(unflatten(params, ps), batch)
+        loss, metrics = loss_fn(wrap(ps) if wrap else unflatten(params, ps),
+                                batch)
         grads = torch.autograd.grad(loss, ps)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             unflatten(params, [_in_layout_of(g, p)

@@ -17,22 +17,49 @@ update, after which LSGD's params equal CSGD's after as many steps.
 The state is a dict: params, opt, step (a host int: the schedule needs
 no device value), pending (deferred modes), residual (compressed mode)
 and inflight (the phase-2 collective not yet waited for).  Params and
-optimizer state are updated in place.  The reference's pjit/FSDP path
-(``make_pjit_step``) is not ported.
+optimizer state are updated in place.
+
+**The FSDP / pjit path** (``make_pjit_step``, the reference's step for
+the 100B+ and expert-parallel configs): ZeRO-3 over the data-parallel
+ranks of a mesh (``launch.mesh``).  ``FsdpPlan`` places each leaf by the
+reference's training specs (``sharding.train_plan``): a leaf split over
+``data`` is held as this rank's part, and params, momentum and the
+pending buffer all hold that part.  The loss reads a split leaf through
+an all-gather over the data group whose backward reduce-scatters the
+gradient back to the parts (``sharding.Part``): a decoder gathers each
+layer's leaves when the layer runs, so a gathered layer lives for the
+layer (under remat it is gathered again for the backward), and the
+embedding, head and final norm once a loss; ResNet and the
+encoder-decoder gather every leaf when the loss starts.  The routed
+experts under expert parallelism are read as this rank's own
+(``models/moe.py``).
+After the backward, whole leaves' gradients are summed over the data
+group (phase 1, the fast axis), then every gradient part over the pods
+(phase 2, the slow axis, issued asynchronously) and divided by the
+data-parallel width.  LSGD's deferral holds: step t's averaged gradient
+part becomes ``pending``, its pod collective may be in flight until the
+top of step t+1, where it is applied.  The reference's pjit step syncs
+through the identity, so ``lsgd_rsag`` runs there as ``lsgd`` does and
+``lsgd_compressed`` (an error-feedback residual) raises.  LARS sums its
+norms over the shard group (``kernels.fused_update.ShardNorms``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.configs.base import _DTYPES
 from repro_torch.core.autodiff import value_and_grad
-from repro_torch.core.sync import GradSync
+from repro_torch.core.sync import SYNC_MODES, GradSync, Inflight
 from repro_torch.core.topology import Topology
+from repro_torch.kernels.fused_update import ShardNorms
+from repro_torch.models import moe
 from repro_torch.optim.sgd import OptimConfig, apply_update, init_state
-from repro_torch.tree import tree_map
+from repro_torch.tree import items, leaves, tree_map, unflatten, zip_leaves
 
 
 @dataclass(frozen=True)
@@ -41,8 +68,11 @@ class TrainerConfig:
                                   # lsgd_compressed
     optim: OptimConfig = field(default_factory=OptimConfig)
     topology: Topology = field(default_factory=Topology)
+    fsdp: bool = False            # the pjit step shards every large leaf
     pending_dtype: str = "float32"  # deferred-gradient buffer dtype
-    grad_dtype: str = "float32"   # gradient sync dtype
+    grad_dtype: str = "float32"   # gradient sync dtype (bf16 halves the
+                                  # FSDP sync's bytes; the update still
+                                  # computes in f32)
 
     @property
     def defer_update(self) -> bool:
@@ -53,11 +83,16 @@ class TrainerConfig:
         return self.sync_mode != "csgd"
 
 
-def make_init_state(model, tcfg: TrainerConfig, device):
-    """Returns init_fn(seed) -> state dict on ``device``."""
+def make_init_state(model, tcfg: TrainerConfig, device, plan=None):
+    """Returns init_fn(seed) -> state dict on ``device``.  With an
+    ``FsdpPlan`` the params are the unsharded init sliced to this rank's
+    parts (so weights carried from the reference shard the same way),
+    and the optimizer state and pending buffers take the parts' shapes."""
 
     def init_fn(seed: int):
         params = model.init(seed, device)
+        if plan is not None:
+            params = plan.shard(params)
         state = {"params": params, "opt": init_state(params, tcfg.optim),
                  "step": 0, "inflight": None}
         if tcfg.defer_update:
@@ -74,7 +109,7 @@ def make_init_state(model, tcfg: TrainerConfig, device):
     return init_fn
 
 
-def _apply_pending(state, lr_fn, ocfg) -> None:
+def _apply_pending(state, lr_fn, ocfg, shards=None) -> None:
     """Deferred update of step t-1 (Alg. 3 line 10): waits for its phase
     2 first; a no-op at step 0."""
     if state.get("inflight") is not None:
@@ -82,7 +117,7 @@ def _apply_pending(state, lr_fn, ocfg) -> None:
         state["inflight"] = None
     if state["step"] > 0:
         apply_update(state["params"], state["opt"], state["pending"],
-                     lr_fn(state["step"] - 1), ocfg)
+                     lr_fn(state["step"] - 1), ocfg, shards)
 
 
 def make_step(model, tcfg: TrainerConfig, lr_fn, sync: GradSync = None):
@@ -125,14 +160,250 @@ def make_step(model, tcfg: TrainerConfig, lr_fn, sync: GradSync = None):
     return step
 
 
-def make_finalize(model, tcfg: TrainerConfig, lr_fn):
-    """Flush the trailing pending update (makes LSGD == CSGD exactly)."""
+def make_finalize(model, tcfg: TrainerConfig, lr_fn, plan=None):
+    """Flush the trailing pending update (makes LSGD == CSGD exactly);
+    ``plan`` the ``FsdpPlan`` of a sharded state."""
 
     def finalize(state):
         if not tcfg.defer_update:
             return state
-        _apply_pending(state, lr_fn, tcfg.optim)
-        state["pending"] = tree_map(torch.zeros_like, state["pending"])
+        _apply_pending(state, lr_fn, tcfg.optim,
+                       plan.norms(state["params"]) if plan is not None
+                       else None)
+        for p in leaves(state["pending"]):  # in place: no second tree
+            p.zero_()
         return state
 
     return finalize
+
+
+# ---------------------------------------------------------------------------
+# the FSDP / pjit path
+# ---------------------------------------------------------------------------
+
+# the state subtrees laid out like the params (the pjit step keeps no
+# residual: lsgd_compressed does not run on it)
+_MIRRORS = ("params", "pending")
+
+
+def _cast_(tree, dtype) -> None:
+    """Every leaf of ``tree`` to ``dtype``, replaced in place (the old
+    leaf freed as soon as its copy exists)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _cast_(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+
+
+class FsdpPlan:
+    """The layout of the FSDP / pjit step on this rank of ``mesh``: the
+    reference's training specs of ``model``'s params (``fsdp`` per
+    ``tcfg``; the routed experts split over ``data`` either way),
+    legalized for the mesh, as ``sharding.Shard`` placements; and the
+    mesh's groups the step reduces over."""
+
+    def __init__(self, model, tcfg: TrainerConfig, mesh):
+        self.mesh, self.cfg = mesh, model.cfg
+        self.places = sharding.train_plan(model.init(0, "meta"), mesh,
+                                          fsdp=tcfg.fsdp)
+        for pl in leaves(self.places):
+            if pl is not None and pl.axes != ("data",):
+                raise NotImplementedError(
+                    f"the FSDP step splits leaves over data only, not {pl}")
+        self.n_dp = mesh.size(("pod", "data"))
+        self.data = mesh.group("data")
+        self.pod = mesh.group("pod")
+        self.dp = mesh.group(("pod", "data"))
+        self._experts = sharding.map_paths(
+            lambda path, _: "moe/experts/" in path, self.places)
+
+    def norms(self, params) -> Optional[ShardNorms]:
+        """How LARS sums the norms of ``params``' leaves (in their
+        order): the split ones over the data group."""
+        sharded = [pl is not None for pl in zip_leaves(params,
+                                                       self.places)[1]]
+        if self.data is None or not any(sharded):
+            return None
+        return ShardNorms(self.data, sharded, self.mesh.index("data") == 0)
+
+    # -- the state ----------------------------------------------------------
+
+    def shard(self, tree):
+        """This rank's parts of a tree of whole leaves (params-shaped), in
+        the plan's leaf order."""
+        return tree_map(lambda pl, x: x if pl is None else pl.take(x),
+                        self.places, tree)
+
+    def gather(self, tree):
+        """The whole leaves of a tree of this rank's parts (a collective
+        over the data group)."""
+        return tree_map(lambda x, pl: x if pl is None else sharding.gather_dim(
+            x, pl.dim, pl.size, self.data), tree, self.places)
+
+    def _state_map(self, fn, state):
+        out = dict(state)
+        for k in _MIRRORS:
+            if out.get(k) is not None:
+                out[k] = fn(out[k])
+        out["opt"] = {k: fn(v) if isinstance(v, dict) else v
+                      for k, v in state["opt"].items()}
+        return out
+
+    def shard_state(self, state):
+        """A trainer state of whole leaves cut to this rank's parts."""
+        return self._state_map(self.shard, state)
+
+    def whole_items(self, state):
+        """(path, leaf) of every leaf of a sharded trainer state, in leaf
+        order, each split leaf gathered whole only when it is reached (a
+        collective every rank joins): a consumer that drops each leaf
+        before taking the next holds one whole leaf at a time."""
+        places = dict(items(self._state_map(lambda _: self.places, state)))
+        for path, x in items(state):
+            pl = places.get(path)
+            yield path, (sharding.gather_dim(x, pl.dim, pl.size, self.data)
+                         if isinstance(pl, sharding.Shard) else x)
+
+    # -- the step -------------------------------------------------------------
+
+    def ep(self) -> bool:
+        """Whether the loss runs expert-parallel (``moe.ep_mesh``), on
+        this plan's mesh."""
+        mesh = moe.ep_mesh(self.cfg)
+        if mesh is not None and mesh is not self.mesh:
+            raise ValueError("the active mesh is not the FSDP plan's mesh")
+        return mesh is not None
+
+    def wrap(self, params, ep: bool):
+        """The params the loss reads, from the aliases of this rank's
+        parts: a decoder's split leaves as ``sharding.Part``s in a
+        ``PartTree`` (gathered layer by layer as the forward runs), other
+        models' gathered whole at once; the routed experts under expert
+        parallelism as this rank's own."""
+        if self.data is None:               # nothing is split
+            return None
+        lazy = self.cfg.family not in ("resnet", "audio")
+
+        def read(p, pl, expert):
+            if pl is None or (ep and expert):
+                return p
+            part = sharding.Part(p, pl.dim, pl.size, self.data)
+            return part if lazy else part.full()
+
+        def f(ps):
+            tree = tree_map(read, unflatten(params, ps), self.places,
+                            self._experts)
+            return sharding.PartTree(tree) if lazy else tree
+
+        return f
+
+    def reduce_data(self, grads) -> None:
+        """Phase 1: sum the whole leaves' gradients over the data group
+        (split leaves' parts were summed by their reduce-scatter, local
+        experts' by the all-to-all's backward)."""
+        if self.data is None:
+            return
+        for g, pl in zip(*zip_leaves(grads, self.places)):
+            if pl is None:
+                dist.all_reduce(g, group=self.data)
+
+    def reduce_pods(self, grads) -> Inflight:
+        """Phase 2: sum every gradient part over the pods (issued
+        asynchronously) and divide by the data-parallel width."""
+        gs, n = leaves(grads), self.n_dp
+
+        def finish():
+            if n > 1:
+                for g in gs:
+                    g.div_(n)
+
+        works = ([] if self.pod is None else
+                 [dist.all_reduce(g, group=self.pod, async_op=True)
+                  for g in gs])
+        return Inflight(works, finish)
+
+    def mean(self, loss, metrics):
+        """The data-parallel mean of the loss and the metrics."""
+        if self.dp is None:
+            return loss, metrics
+        vals = torch.stack([loss.float()] + [v.float()
+                                             for v in metrics.values()])
+        dist.all_reduce(vals, group=self.dp)
+        vals /= self.n_dp
+        return vals[0], dict(zip(metrics, vals[1:]))
+
+
+def make_pjit_step(model, tcfg: TrainerConfig, lr_fn, plan: FsdpPlan):
+    """The reference's pjit step (``_algorithm`` with an identity sync)
+    on a state sharded by ``plan`` (``make_init_state(..., plan=plan)``):
+    step(state, batch) -> (state, (loss, metrics)), ``batch`` this rank's
+    rows of the global batch (``local_batch``)."""
+    if tcfg.sync_mode not in SYNC_MODES:
+        raise ValueError(f"sync mode {tcfg.sync_mode!r} not in {SYNC_MODES}")
+    if tcfg.sync_mode == "lsgd_compressed":
+        raise ValueError(
+            "lsgd_compressed does not run on the FSDP / pjit step: the "
+            "reference's pjit step syncs through the identity (autodiff of "
+            "the global loss already averages), which carries no "
+            "error-feedback residual; train it through make_step")
+    ocfg = tcfg.optim
+    gdt, pdt = _DTYPES[tcfg.grad_dtype], _DTYPES[tcfg.pending_dtype]
+
+    def step(state, batch):
+        if tcfg.defer_update:
+            _apply_pending(state, lr_fn, ocfg, plan.norms(state["params"]))
+            state["pending"] = None     # applied: freed before the backward
+        loss, metrics, grads = value_and_grad(
+            model.loss, state["params"], batch,
+            wrap=plan.wrap(state["params"], plan.ep()))
+        _cast_(grads, gdt)
+        plan.reduce_data(grads)
+        if tcfg.defer_update:
+            _cast_(grads, pdt)
+            state["pending"] = grads
+            state["inflight"] = plan.reduce_pods(grads)
+        else:
+            plan.reduce_pods(grads).wait()
+            apply_update(state["params"], state["opt"], grads,
+                         lr_fn(state["step"]), ocfg,
+                         plan.norms(state["params"]))
+        state["step"] += 1
+        return state, plan.mean(loss, metrics)
+
+    return step
+
+
+def state_pspecs(state, *, fsdp: bool):
+    """The reference's spec tree of a trainer state: params by
+    ``sharding.param_pspecs``, the momentum, pending and residual trees
+    as the params, the counters whole."""
+    pspec = sharding.param_pspecs(state["params"], fsdp=fsdp)
+    specs = {"params": pspec,
+             "opt": {k: () if k == "t" else pspec for k in state["opt"]},
+             "step": ()}
+    for k in ("pending", "residual"):
+        if k in state:
+            specs[k] = pspec
+    return specs
+
+
+def batch_pspecs(batch, mesh):
+    """Every batch leaf split on its rows over the mesh's data-parallel
+    axes (pod, data)."""
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return {k: (dp,) + (None,) * (v.dim() - 1) for k, v in batch.items()}
+
+
+def local_batch(batch, mesh):
+    """This rank's rows of a global batch under ``batch_pspecs``: its
+    (pod, data) position's equal share, in rank order."""
+    n, i = mesh.size(("pod", "data")), mesh.index(("pod", "data"))
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch leaf {k}: {v.shape[0]} rows over {n} "
+                             "data-parallel ranks")
+        per = v.shape[0] // n
+        out[k] = v[i * per:(i + 1) * per]
+    return out

@@ -381,15 +381,15 @@ extern "C" int rt_fused_sgd_update(const long long* leaves, const int* idx,
   return cudaGetLastError();
 }
 
-// LARS's trust of `count` leaves of one (w, g) dtype pair: two launches,
-// the chunks' sums of squares into `partial` (chunk0[count] float2s),
-// then trust[idx[i]] for every leaf i; `sms` the card's SMs.  Returns
-// cudaGetLastError().
-extern "C" int rt_lars_trust(const long long* leaves, const int* idx,
+// LARS's norms pass over `count` leaves of one (w, g) dtype pair: each
+// chunk's two sums of squares into `partial` (chunk0[count] float2s);
+// `sms` the card's SMs.  Returns cudaGetLastError().  The caller may sum
+// `partial` over the ranks that hold a sharded leaf's other parts (equal
+// parts: the chunks line up) before rt_lars_trust reads it.
+extern "C" int rt_lars_norms(const long long* leaves, const int* idx,
                              const int* chunk0, int count, void* partial,
-                             void* trust, int w_dtype, int g_dtype,
-                             float eta, float weight_decay, float eps,
-                             int sms, void* stream) {
+                             int w_dtype, int g_dtype, int sms,
+                             void* stream) {
   Table t;
   if (sms < 1 || !codes_ok(w_dtype, g_dtype, 0) ||
       !fill(t, leaves, idx, chunk0, count))
@@ -400,11 +400,22 @@ extern "C" int rt_lars_trust(const long long* leaves, const int* idx,
     launch_norms<float>(t, g_dtype, p, sms, s);
   else
     launch_norms<__nv_bfloat16>(t, g_dtype, p, sms, s);
-  const int err = cudaGetLastError();
-  if (err) return err;
+  return cudaGetLastError();
+}
+
+// LARS's trust of the same `count` leaves from their chunks' sums in
+// `partial`: trust[idx[i]] for every leaf i, a warp a leaf.  Returns
+// cudaGetLastError().
+extern "C" int rt_lars_trust(const long long* leaves, const int* idx,
+                             const int* chunk0, int count,
+                             const void* partial, void* trust, float eta,
+                             float weight_decay, float eps, void* stream) {
+  Table t;
+  if (!fill(t, leaves, idx, chunk0, count)) return cudaErrorInvalidValue;
   const int warps_per_cta = kThreads / 32;
   lars_trust_kernel<<<(count + warps_per_cta - 1) / warps_per_cta, kThreads,
-                      0, s>>>(t, p, static_cast<float*>(trust), eta,
-                              weight_decay, eps);
+                      0, static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<const float2*>(partial), static_cast<float*>(trust),
+      eta, weight_decay, eps);
   return cudaGetLastError();
 }

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import items
+
 SEP = "::"
 
 
@@ -53,19 +55,11 @@ def to_flat(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     (bf16 leaves come back as float32, as the reference's checkpoints
     store them)."""
     flat: Dict[str, np.ndarray] = {}
-
-    def visit(prefix, node):
-        for k, v in node.items():
-            key = f"{prefix}{SEP}{k}" if prefix else k
-            if isinstance(v, dict):
-                visit(key, v)
-            else:
-                t = v.detach().cpu()
-                if t.dtype == torch.bfloat16:
-                    t = t.float()
-                flat[key] = t.numpy()
-
-    visit("", params)
+    for path, v in items(params):
+        t = v.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        flat[SEP.join(path)] = t.numpy()
     return flat
 
 

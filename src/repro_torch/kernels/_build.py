@@ -40,7 +40,8 @@ SIGNATURES = {
     "rt_gumbel_sample": [_P] * 3 + [_I] * 5 + [_F, _P],
     "rt_fused_sgd_update": [_P] * 3 + [_I, _P, _F, _P] + [_I] * 3
     + [_F, _F, _I, _I, _P],
-    "rt_lars_trust": [_P] * 3 + [_I, _P, _P, _I, _I, _F, _F, _F, _I, _P],
+    "rt_lars_norms": [_P] * 3 + [_I, _P, _I, _I, _I, _P],
+    "rt_lars_trust": [_P] * 3 + [_I, _P, _P, _F, _F, _F, _P],
     "rt_slot_gather": [_P, _P, _P, _I, _P, _I, _I, _I, _L, _I, _I, _P],
     "rt_slot_scatter": [_P, _P, _P, _I, _P, _I, _I, _I, _L, _I, _P],
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],

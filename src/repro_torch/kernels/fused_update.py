@@ -204,10 +204,49 @@ def fused_sgd_update(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
 fused_sgd_update.launches = 0
 
 
+class ShardNorms:
+    """How LARS's norms of sharded leaves add up: ``sharded[i]`` says
+    whether leaf i is this rank's part of a leaf split over ``group``
+    (its sums of squares are summed over the group); the other leaves
+    are whole on every rank of the group and count once, from the rank
+    where ``lead`` is true (the others' sums are zeroed before the
+    sum)."""
+
+    def __init__(self, group, sharded: Sequence[bool], lead: bool):
+        self.group, self.lead = group, lead
+        self.sharded = np.asarray(sharded, dtype=bool)
+
+    def sum_(self, sq: torch.Tensor, leaf_of_row: np.ndarray) -> None:
+        """Sum the (rows, 2) float32 sums of squares ``sq`` over the
+        group in place; row r belongs to leaf ``leaf_of_row[r]``."""
+        import torch.distributed as dist
+        if not self.lead:
+            zero = ~self.sharded[leaf_of_row]
+            if zero.any():
+                sq[torch.from_numpy(zero).to(sq.device)] = 0.0
+        dist.all_reduce(sq, group=self.group)
+
+
+def _trust_of(sq: torch.Tensor, *, eta: float, eps: float,
+              weight_decay: float) -> torch.Tensor:
+    wn, gn = sq.sqrt().unbind(-1)
+    t = eta * wn / (gn + weight_decay * wn + eps)
+    return torch.where((wn > 0) & (gn > 0), t, torch.ones_like(t))
+
+
 def lars_trust_plain(ws, gs, *, eta: float, eps: float,
-                     weight_decay: float) -> torch.Tensor:
+                     weight_decay: float,
+                     shards: Optional[ShardNorms] = None) -> torch.Tensor:
     """Plain version: the reference's ``_lars_trust`` a leaf, stacked
-    (float32, one entry a leaf)."""
+    (float32, one entry a leaf).  With ``shards`` the leaves' sums of
+    squares are summed over the shard group first (the norms of the
+    whole leaves)."""
+    if shards is not None:
+        sq = torch.stack([torch.stack([w.float().square().sum(),
+                                       g.float().square().sum()])
+                          for w, g in zip(ws, gs)])
+        shards.sum_(sq, np.arange(len(ws)))
+        return _trust_of(sq, eta=eta, eps=eps, weight_decay=weight_decay)
     out = []
     for w, g in zip(ws, gs):
         wn = torch.linalg.vector_norm(w.float())
@@ -218,28 +257,37 @@ def lars_trust_plain(ws, gs, *, eta: float, eps: float,
 
 
 def lars_trust(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], *,
-               eta: float, eps: float, weight_decay: float) -> torch.Tensor:
+               eta: float, eps: float, weight_decay: float,
+               shards: Optional[ShardNorms] = None) -> torch.Tensor:
     """LARS's per-leaf trust ratio, eta * ||w|| / (||g|| + wd * ||w|| +
     eps) and 1 where either norm is 0, as a float32 device vector (no
     host sync).  CPU tensors take the plain version; CUDA tensors run
     kernel 5's norms pass over the update's table, two launches for each
     (w, g) dtype pair and each TABLE_LEAVES leaves of it, counted in
-    ``fused_sgd_update.launches``."""
+    ``fused_sgd_update.launches``.  With ``shards`` (FSDP: leaves that
+    are this rank's parts) the chunks' sums of squares are summed over
+    the shard group between the two launches."""
     ws, gs = list(ws), list(gs)
     if ws[0].device.type == "cpu":
         return lars_trust_plain(ws, gs, eta=eta, eps=eps,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay, shards=shards)
     dev, launches = _tables("lars_trust", ws, None, gs)
     trust = torch.empty(len(ws), dtype=torch.float32, device=dev)
     lib = _build.library()
+    sms = sm_count(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for (wc, _, gc), table, idx, off in launches:
-        partial = torch.empty(2 * int(off[-1]), dtype=torch.float32,
+        partial = torch.empty((int(off[-1]), 2), dtype=torch.float32,
                               device=dev)
-        rc = lib.rt_lars_trust(
-            _ptr(table), _ptr(idx), _ptr(off), len(idx), partial.data_ptr(),
-            trust.data_ptr(), wc, gc, float(eta), float(weight_decay),
-            float(eps), sm_count(dev), stream)
+        rc = lib.rt_lars_norms(_ptr(table), _ptr(idx), _ptr(off), len(idx),
+                               partial.data_ptr(), wc, gc, sms, stream)
+        _build.check(rc, "lars_trust")
+        if shards is not None:
+            shards.sum_(partial, np.repeat(idx, np.diff(off)))
+        rc = lib.rt_lars_trust(_ptr(table), _ptr(idx), _ptr(off), len(idx),
+                               partial.data_ptr(), trust.data_ptr(),
+                               float(eta), float(weight_decay), float(eps),
+                               stream)
         _build.check(rc, "lars_trust")
         fused_sgd_update.launches += 2
     return trust

@@ -1,16 +1,151 @@
-"""Device slices for serving replicas (``repro/launch/mesh.py``'s
-``replica_slices``, over ``torch.device``s).
+"""Meshes over the training ranks and device slices for serving
+replicas (``repro/launch/mesh.py``).
 
-The reference's TPU constants and mesh builders have no counterpart
-here: the port's trainer runs one process per rank, and an engine takes
-its slice as a tuple of devices (a slice of several serves one
-tensor-parallel engine, ``serve.engine.Engine``), not as a sub-mesh.
+A training mesh (``make_mesh``) lays the process group's ranks out on
+named axes, row-major (the last axis fastest), as ``jax.make_mesh`` lays
+out devices: ``("pod", "data", "model")`` or a suffix of it.  ``pod`` is
+LSGD's slow axis, ``data`` its fast one (data parallelism, FSDP shards,
+expert parallelism) and ``model`` tensor parallelism.  Each rank holds
+one process-group handle for each set of axes it communicates over (the
+ranks that share its other coordinates), made when the mesh is built:
+``dist.new_group`` is a collective call, so every rank builds the same
+mesh.  Without a process group the mesh is the one rank.
+
+The reference's TPU constants and production meshes have no
+counterpart here.  An engine takes its slice as a tuple of devices (a
+slice of several serves one tensor-parallel engine,
+``serve.engine.Engine``), not as a sub-mesh.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import itertools
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+AXES = ("pod", "data", "model")
+
+
+class Mesh:
+    """The ranks of the default process group on named axes (the
+    reference's ``jax.sharding.Mesh`` for one process per rank)."""
+
+    # the axis sets a trainer reduces over: each alone, and the
+    # data-parallel pair
+    GROUPS = (("pod",), ("data",), ("model",), ("pod", "data"))
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        shape, axes = tuple(int(n) for n in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} do not "
+                             "pair up")
+        if min(shape, default=1) < 1:
+            raise ValueError(f"mesh shape {shape} has an empty axis")
+        on = dist.is_available() and dist.is_initialized()
+        self.world = dist.get_world_size() if on else 1
+        self.rank = dist.get_rank() if on else 0
+        if math.prod(shape) != self.world:
+            raise ValueError(f"mesh {dict(zip(axes, shape))} holds "
+                             f"{math.prod(shape)} ranks; the process group "
+                             f"has {self.world}")
+        self.shape, self.axis_names = shape, axes
+        self.coords = dict(zip(axes, _unravel(self.rank, shape)))
+        self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
+        for names in self.GROUPS:
+            names = tuple(a for a in names if a in axes)
+            if names and names not in self._groups \
+                    and self.size(names) > 1:
+                self._groups[names] = self._make(names)
+
+    def __repr__(self) -> str:
+        return f"Mesh({dict(zip(self.axis_names, self.shape))})"
+
+    def _make(self, names):
+        """Every rank's group over ``names`` (one for each setting of the
+        other axes, in rank order); returns this rank's (group, ranks)."""
+        mine = None
+        others = [a for a in self.axis_names if a not in names]
+        for fixed in itertools.product(*(range(self.sizes[a])
+                                         for a in others)):
+            at = dict(zip(others, fixed))
+            ranks = sorted(self._rank_of({**at, **dict(zip(names, c))})
+                           for c in itertools.product(
+                               *(range(self.sizes[a]) for a in names)))
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = (g, ranks)
+        return mine
+
+    def _rank_of(self, coords: Dict[str, int]) -> int:
+        r = 0
+        for a, n in zip(self.axis_names, self.shape):
+            r = r * n + coords[a]
+        return r
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    def size(self, names) -> int:
+        """Ranks along the axes ``names`` (a name or a tuple; an axis the
+        mesh lacks counts 1)."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        return math.prod(self.sizes.get(a, 1) for a in names)
+
+    def group(self, names):
+        """This rank's process group over ``names`` (the ranks sharing
+        its other coordinates); None when that is this rank alone."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        names = tuple(a for a in names if a in self.axis_names)
+        if self.size(names) == 1:
+            return None
+        if names not in self._groups:
+            raise KeyError(f"no group over {names}; the mesh makes groups "
+                           f"over {list(self._groups)}")
+        return self._groups[names][0]
+
+    def index(self, names) -> int:
+        """This rank's position along ``names`` (row-major over them)."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        i = 0
+        for a in names:
+            i = i * self.sizes.get(a, 1) + self.coords.get(a, 0)
+        return i
+
+
+def _unravel(rank: int, shape) -> Tuple[int, ...]:
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` on ``axes`` over the default process group's
+    ranks; raises unless the shape holds exactly the world's ranks."""
+    return Mesh(shape, axes)
+
+
+def make_host_mesh(shape=(2, 2, 2), axes=AXES) -> Mesh:
+    """The reference's small test mesh, over the process group's ranks
+    (gloo ranks on the CPU)."""
+    return make_mesh(shape, axes)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    return mesh.sizes
+
+
+def mesh_from_dims(dims: Sequence[int]) -> Mesh:
+    """The launcher's ``--mesh``: ``dims`` on the last ``len(dims)`` of
+    ("pod", "data", "model"), as the reference names them."""
+    dims = tuple(int(x) for x in dims)
+    if not 1 <= len(dims) <= len(AXES):
+        raise ValueError(f"--mesh takes 1 to {len(AXES)} dims, got {dims}")
+    return make_mesh(dims, AXES[-len(dims):])
 
 
 def cuda_devices() -> List[torch.device]:

@@ -15,6 +15,11 @@
     python -m repro_torch.launch.train --arch resnet50 --steps 8 \\
         --batch 64 --ckpt-dir ckpt --ckpt-every 4
 
+    # four ranks on a (pod 2, data 2) mesh: LSGD's slow phase across
+    # the pods, its fast phase within each (as --intra-group-size 2)
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
+        --device cpu --sync-mode lsgd --mesh 2,2,1
+
     # the RG-LRU hybrid, and whisper-tiny (each row 1,500 stub frames
     # and --seq decoder tokens)
     python -m repro_torch.launch.train --arch recurrentgemma-2b \\
@@ -32,7 +37,17 @@ step).  SGD and LARS run through the fused CUDA
 update.  With ``--ckpt-dir`` the run restores the newest checkpoint
 there when one exists, saves every ``--ckpt-every`` steps and after
 ``finalize``, as the reference does (its data stream, too, starts again
-at batch 0 after a restore).  The reference's ``--mesh`` is not ported.
+at batch 0 after a restore).
+
+``--mesh`` lays the ranks out as the reference's does, on the last
+dims of (pod, data, model): ``--mesh 4,1`` is data 4, ``--mesh 2,2,1``
+pod 2 and data 2 (``launch.mesh``); the dims' product must be the number
+of ranks.  As in the reference, the launcher keeps its shard_map path
+(``make_step``) and sets no active mesh: ``pod`` is LSGD's slow axis and
+``data`` its fast one, so with two pods or more each pod's ranks are
+one fast group (``--intra-group-size`` still subdivides them).  A model
+axis over 1 raises: the port does not train along it yet.  The
+reference's FSDP / pjit step is ``launch.builders.make_train_step``.
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ from repro_torch.core.topology import Topology
 from repro_torch.core.trainer import (TrainerConfig, make_finalize,
                                       make_init_state, make_step)
 from repro_torch.data.pipeline import HostLoader, data_config_for
+from repro_torch.launch.mesh import mesh_from_dims
 from repro_torch.models.model import build_model
 from repro_torch.optim import schedules
 from repro_torch.optim.sgd import OptimConfig
@@ -73,6 +89,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--sync-mode", default="lsgd", choices=SYNC_MODES)
     ap.add_argument("--intra-group-size", type=int, default=None)
+    ap.add_argument("--mesh", default="",
+                    help="comma dims for the (pod,data,model) rank mesh; "
+                         "default one data axis over every rank")
     ap.add_argument("--optimizer", default="sgd",
                     choices=["sgd", "lars", "adamw"])
     ap.add_argument("--base-lr", type=float, default=0.1)
@@ -123,11 +142,32 @@ def lr_schedule(args):
     return lambda t: args.base_lr
 
 
-def trainer_config(args) -> TrainerConfig:
+def mesh_of(args):
+    """The ``--mesh`` over the process group's ranks, or None without
+    one.  A model axis over 1 raises ``NotImplementedError``; dims whose
+    product is not the number of ranks raise ``ValueError``."""
+    if not args.mesh:
+        return None
+    dims = tuple(int(x) for x in args.mesh.split(","))
+    if dims and dims[-1] > 1:          # the last dim is always "model"
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: training along the model axis "
+            "(tensor-parallel training) is not ported yet (ROADMAP.md "
+            "queue 1, item 4)")
+    return mesh_from_dims(dims)
+
+
+def trainer_config(args, mesh=None) -> TrainerConfig:
+    """The trainer of ``args``; on a ``mesh`` with pods, each pod's data
+    ranks form LSGD's fast groups unless ``--intra-group-size`` cuts them
+    finer."""
+    intra = args.intra_group_size
+    if mesh is not None and intra is None and mesh.size("pod") > 1:
+        intra = mesh.size("data")
     return TrainerConfig(
         sync_mode=args.sync_mode,
         optim=OptimConfig(kind=args.optimizer),
-        topology=Topology(intra_group_size=args.intra_group_size))
+        topology=Topology(intra_group_size=intra))
 
 
 def data_config(cfg, args):
@@ -185,10 +225,11 @@ def main(argv=None) -> Dict[str, Any]:
     if args.batch % world:
         raise ValueError(f"--batch {args.batch} not divisible by {world} "
                          "ranks")
+    mesh = mesh_of(args)
     cfg = model_config(args)
     model = build_model(cfg)
     lr_fn = lr_schedule(args)
-    tcfg = trainer_config(args)
+    tcfg = trainer_config(args, mesh)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     state = make_init_state(model, tcfg, device)(args.seed)
@@ -199,8 +240,8 @@ def main(argv=None) -> Dict[str, Any]:
     log = rank == 0
     if log:
         print(f"arch={cfg.name} params={n_params:,} sync={args.sync_mode} "
-              f"ranks={world} device={device} optimizer={args.optimizer}",
-              flush=True)
+              f"ranks={world} mesh={mesh} device={device} "
+              f"optimizer={args.optimizer}", flush=True)
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
         state = checkpoint.restore(args.ckpt_dir, state)
         if log:

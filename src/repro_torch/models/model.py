@@ -85,7 +85,10 @@ class Model:
 
 def seeded_init(seed: int, device, *, cfg, init_params=transformer.init_params,
           **kw):
-    gen = torch.Generator(device=device)
+    """The params of ``cfg`` drawn from ``seed`` on ``device``; on the
+    ``meta`` device, their shapes and dtypes only."""
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device)
     gen.manual_seed(seed)
     return init_params(cfg, gen, device, **kw)
 

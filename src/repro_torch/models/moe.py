@@ -9,6 +9,16 @@ a token's output never depends on its batchmates) and capacity-bounded
 dropped).  The router is the reference's softmax one, not DeepSeek's
 published sigmoid router.  The expert products are plain batched matrix
 products (``torch.bmm``), as the reference leaves them to XLA.
+
+Expert parallelism (``apply_moe_ep``, the reference's shard_map path):
+in training, with an active mesh (``sharding.set_active_mesh``) whose
+``data`` axis divides the experts, each rank holds E / data routed
+experts and routes its own tokens; the dispatch buffer crosses the
+``data`` group (never the pods) by an all-to-all whose backward is the
+reverse exchange.  Unlike the reference, a fault there raises (the
+reference falls back to the scatter path), and the EP region runs in
+the compute dtype (the reference's f32 casts work around an XLA CPU
+partitioner crash).
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.models.layers import apply_mlp, dense_init
 
 # an expert pass over weights of another dtype than its activations (the
@@ -32,6 +43,8 @@ def _expert_init(gen: torch.Generator, n: int, e: int, shape, dtype,
     shape leaf, whose fan-in is its first axis, E (kept as the reference
     has it), without an f32 draw of the whole leaf."""
     out = torch.empty((n, e) + tuple(shape), dtype=dtype, device=device)
+    if out.is_meta:                    # shapes only (``builders``)
+        return out
     scale = 1.0 / math.sqrt(max(e, 1))
     for i in range(n):
         for j in range(e):
@@ -104,7 +117,9 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
     """x (B,S,D) -> (y (B,S,D), aux loss).  ``dropless`` (serving): the
     capacity is T, so nothing is dropped (top-k ids are distinct per
     token, so no expert gets more than T assignments); otherwise the
-    reference's training capacity, overflow dropped.
+    reference's training capacity, overflow dropped, and expert-parallel
+    (``apply_moe_ep``) when the active mesh has a ``data`` axis that
+    divides the experts, as the reference chooses.
 
     An expert-parallel shard (``repro_torch.sharding``) holds the routed
     experts ``expert0`` onward, as many as its ``experts`` leaves have,
@@ -112,6 +127,9 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
     routes over every expert, the shard adds only its own experts'
     contributions, and y is its partial sum."""
     m = cfg.moe
+    mesh = None if dropless else ep_mesh(cfg)
+    if mesh is not None:
+        return apply_moe_ep(params, x, cfg, mesh)
     b, s, d = x.shape
     t, k, e = b * s, m.num_experts_per_tok, m.num_experts
     mine = params["experts"]["w_gate"].shape[-3]
@@ -152,6 +170,123 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
     y_slots = ye[flat_e, slot] * (gate_vals.reshape(tk, 1).to(dt)
                                   * keep[:, None].to(dt))
     y = y_slots.reshape(t, k, d).sum(1)
+    if "shared" in params:
+        y = y + apply_mlp(params["shared"], xt, cfg)
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over the mesh's data axis
+# ---------------------------------------------------------------------------
+
+
+def ep_mesh(cfg):
+    """The active mesh when ``cfg``'s training MoE runs expert-parallel
+    (the reference's rule: a mesh with a ``data`` axis that divides the
+    experts), else None."""
+    mesh = sharding.active_mesh()
+    if (cfg.moe is None or mesh is None or "data" not in mesh.axis_names
+            or cfg.moe.num_experts % mesh.size("data")):
+        return None
+    return mesh
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all of equal leading blocks over a group; its backward is
+    the reverse exchange, which for equal blocks is the same one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g.contiguous(), ctx.group), None
+
+
+def _exchange(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """All-to-all of x's n equal leading blocks over ``group``: block j
+    goes to the group's rank j, and block i of the result came from rank
+    i.  Autograd-aware; the identity on one rank."""
+    if n == 1:
+        return x
+    return _AllToAll.apply(x.contiguous(), group)
+
+
+def _moe_local(xt, router_w, w_gate, w_up, w_down, cfg, n: int, group):
+    """The reference's per-shard MoE body on one rank: xt (T_loc, D) this
+    rank's tokens, the experts this rank's E / n.  The f32 router, the
+    aux loss from local statistics, the capacity per shard, C_loc =
+    max(4, ceil(T_loc K cf / E)) rounded up to a multiple of n, a local
+    scatter into (E, C_loc, D), the exchange over the data group to
+    (E / n, n C_loc, D), the expert products, the reverse exchange and
+    the gate-weighted combine.  Returns (y (T_loc, D), aux)."""
+    m = cfg.moe
+    t, d = xt.shape
+    k, e = m.num_experts_per_tok, m.num_experts
+    probs, gate_vals, expert_ids = route({"router": {"w": router_w}}, xt,
+                                         cfg)
+    tk = t * k
+    flat_e = expert_ids.reshape(tk)
+    ce = torch.zeros((e,), dtype=torch.float32, device=xt.device).index_add_(
+        0, flat_e, torch.ones((tk,), dtype=torch.float32,
+                              device=xt.device)) / tk
+    aux = e * torch.sum(probs.mean(0) * ce) * m.aux_loss_weight
+
+    cap = int(max(4, -(-t * k * m.capacity_factor // e)))
+    cap += (-cap) % n                  # the exchange splits evenly
+    order = torch.argsort(flat_e, stable=True)
+    ranks = torch.empty_like(flat_e).scatter_(
+        0, order, _segment_rank(flat_e[order], tk))
+    keep = ranks < cap
+    slot = torch.where(keep, ranks, torch.zeros_like(ranks))
+    tok_idx = torch.arange(t, device=xt.device).repeat_interleave(k)
+    vals = xt[tok_idx] * keep[:, None].to(xt.dtype)
+    xe = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
+    xe = xe.index_put((flat_e, slot), vals, accumulate=True)
+
+    # (E, C, D) -> (n, E/n, C, D) by destination -> (E/n, n C, D)
+    el = e // n
+    xe = _exchange(xe, n, group).view(n, el, cap, d).transpose(0, 1)
+    ye = _expert_ffn(xe.reshape(el, n * cap, d),
+                     {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
+    ye = ye.view(el, n, cap, d).transpose(0, 1).reshape(e, cap, d)
+    ye = _exchange(ye, n, group)       # back to (E, C, D), by source
+
+    dt = ye.dtype
+    y_slots = ye[flat_e, slot] * (gate_vals.reshape(tk, 1).to(dt)
+                                  * keep[:, None].to(dt))
+    return y_slots.reshape(t, k, d).sum(1), aux
+
+
+def apply_moe_ep(params, x: torch.Tensor, cfg, mesh):
+    """Expert-parallel training MoE on one rank of ``mesh``: x (B_loc, S,
+    D) this rank's rows, ``params["experts"]`` this rank's E / data
+    experts (``sharding``'s plan: rank ``data`` index i holds experts [i
+    E / data, (i + 1) E / data)).  Returns (y, aux): aux this rank's,
+    which the data-parallel mean of the loss averages over the ranks as
+    the reference averages it over its shards.  The shared expert is
+    added outside the exchange.  Raises when the experts are not this
+    rank's share, or when the mesh has a model axis over 1."""
+    m = cfg.moe
+    b, s, d = x.shape
+    n = mesh.size("data")
+    if mesh.size("model") > 1:
+        raise NotImplementedError(
+            "expert parallelism with a model axis over 1 needs training "
+            "along the model axis (ROADMAP.md queue 1, item 4)")
+    ex = params["experts"]
+    if m.num_experts % n or ex["w_gate"].shape[-3] != m.num_experts // n:
+        raise ValueError(
+            f"expert parallelism over data = {n}: this rank holds "
+            f"{ex['w_gate'].shape[-3]} experts, want {m.num_experts} / {n}")
+    xt = x.reshape(b * s, d)
+    y, aux = _moe_local(xt, params["router"]["w"], ex["w_gate"], ex["w_up"],
+                        ex["w_down"], cfg, n, mesh.group("data"))
     if "shared" in params:
         y = y + apply_mlp(params["shared"], xt, cfg)
     return y.reshape(b, s, d), aux

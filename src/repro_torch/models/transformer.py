@@ -48,7 +48,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
                                        dense_init, embed_init, init_norm)
-from repro_torch.sharding import ShardedParams, shard_cache
+from repro_torch.sharding import (PartTree, ShardedParams, gather_top,
+                                  gathered, shard_cache)
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
@@ -306,6 +307,10 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
                           block_tables=block_tables, pos=pos,
                           valid_len=valid_len, state_slots=state_slots,
                           need_logits=need_logits)
+    # the FSDP step's params: each layer's split leaves gathered as the
+    # layer runs (and again under remat), the others once
+    params = gather_top(params)
+    lazy = isinstance(params, PartTree)
     h = embed_tokens(params, tokens, cfg)
     if cfg.num_image_tokens and image_embeds is not None:
         if cache is not None:
@@ -331,6 +336,8 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
                 block_tables=block_tables, pos=pos, valid_len=valid_len)
 
         def block(h, lp, lc, kind=kind, ffn=ffn):
+            if lazy:
+                lp = gathered(lp)
             return apply_layer(lp, h, cfg, kind, ffn, rope=rope, write=write,
                                cache=lc, block_tables=block_tables, pos=pos,
                                valid_len=valid_len, state_slots=state_slots,
@@ -463,6 +470,7 @@ def lm_loss(params, batch, cfg):
     Returns (loss, metrics ``ce``, ``aux``, ``mtp_ce`` (with MTP) and
     ``loss``)."""
     tokens = batch["tokens"]
+    params = gather_top(params)
     chunked = bool(cfg.loss_chunk)
     image = batch.get("image_embeds") if cfg.num_image_tokens else None
     n_img = 0 if image is None else image.shape[1]

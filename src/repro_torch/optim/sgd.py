@@ -22,12 +22,13 @@ would double the parameter and state memory for its length.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import _DTYPES
-from repro_torch.kernels.fused_update import fused_sgd_update, lars_trust
+from repro_torch.kernels.fused_update import (ShardNorms, fused_sgd_update,
+                                              lars_trust)
 from repro_torch.tree import tree_map, zip_leaves
 
 
@@ -62,16 +63,18 @@ def init_state(params, cfg: OptimConfig) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def apply_update(params, state, grads, lr, cfg: OptimConfig
-                 ) -> Tuple[Any, Any]:
+def apply_update(params, state, grads, lr, cfg: OptimConfig,
+                 shards: Optional[ShardNorms] = None) -> Tuple[Any, Any]:
     """One optimizer step, in place; returns (params, state).  ``lr`` is
-    a float or a 0-dim tensor."""
+    a float or a 0-dim tensor.  ``shards`` (FSDP): which leaves are this
+    rank's parts of sharded leaves, whose LARS norms are summed over the
+    shard group (SGD is elementwise and needs nothing)."""
     if cfg.kind in ("sgd", "lars"):
         ws, ms, gs = zip_leaves(params, state["m"], grads)
         trust = None
         if cfg.kind == "lars":
             trust = lars_trust(ws, gs, eta=cfg.lars_eta, eps=cfg.lars_eps,
-                               weight_decay=cfg.weight_decay)
+                               weight_decay=cfg.weight_decay, shards=shards)
         fused_sgd_update(ws, ms, gs, lr=lr, trust=trust,
                          momentum=cfg.momentum,
                          weight_decay=cfg.weight_decay,

@@ -1,6 +1,22 @@
-"""The tensor-parallel serving plan of the port (``repro/sharding.py``'s
-``serve_param_pspecs`` / ``serve_cache_pspecs``), written for explicit
-per-shard tensors.
+"""The port's partition plans (``repro/sharding.py``): the training
+plan over a rank mesh, and the tensor-parallel serving plan.
+
+**Training** (``param_pspecs``, ``filter_spec_for_mesh``,
+``legalize_pspecs``, ``placements``): the reference's ``_RULES`` and its
+FSDP rule, one spec a leaf (a tuple with an entry a dim: None, an axis
+name or a tuple of names), matched against the leaf's ``/``-joined path.
+The routed experts split over ``data`` always (expert parallelism);
+``fsdp`` also splits the first large replicated dim of every other
+matched leaf over ``data``, skipping the stacked-layer axis of a leaf of
+three dims or more.  ``placements`` turns the legalized specs into what
+a rank holds: ``Shard(dim, axes)`` (this rank's equal slice along dim
+over those mesh axes) or None (the whole leaf).  A ``model`` entry stays
+in the specs, but a plan that would split along ``model`` raises: the
+port does not train along that axis yet.  ``set_active_mesh`` is the
+reference's switch for expert parallelism (``models/moe.py``).
+
+**Serving** (``serve_param_pspecs`` / ``serve_cache_pspecs`` of the
+reference), written for explicit per-shard tensors.
 
 An engine over a slice of ``tp`` devices holds ``tp`` shards, shard ``s``
 on ``devices[s]`` (a slice may name one device twice: that is how one
@@ -42,11 +58,311 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.tree import split_tree
+
+# ---------------------------------------------------------------------------
+# the training plan
+# ---------------------------------------------------------------------------
+
+_ACTIVE_MESH = None
+
+
+def set_active_mesh(mesh) -> None:
+    """Make ``mesh`` (``launch.mesh.Mesh``) the active one, or clear it
+    with None.  An active mesh with a ``data`` axis turns expert
+    parallelism on in the training MoE."""
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+
+
+def active_mesh():
+    return _ACTIVE_MESH
+
+
+def axis_size(name: str) -> int:
+    """Ranks along ``name`` on the active mesh (1 without one or without
+    that axis)."""
+    return 1 if _ACTIVE_MESH is None else _ACTIVE_MESH.size(name)
+
+
+# Matched against the '/'-joined path of each param leaf, first match
+# wins; written for the per-layer shape, leading stacked-layer axes
+# padded with None (the reference's table, entry for entry).
+_RULES = [
+    # embeddings / unembedding: vocab over model
+    (r"embed/embedding$",        ("model", None)),
+    (r"lm_head/w$",              (None, "model")),
+    (r"pos_embed/embedding$",    (None, None)),
+    # attention
+    (r"attn/wq$",                (None, "model")),
+    (r"attn/wk$",                (None, "model")),
+    (r"attn/wv$",                (None, "model")),
+    (r"attn/wo$",                ("model", None)),
+    (r"attn/[bw]?b[qkv]$",       ("model",)),
+    # MLA
+    (r"attn/wq_a$",              (None, None)),
+    (r"attn/wq_b$",              (None, "model")),
+    (r"attn/wkv_a$",             (None, None)),
+    (r"attn/wkv_b$",             (None, "model")),
+    (r"attn/(q_norm|kv_norm)/scale$", (None,)),
+    # dense mlp
+    (r"mlp/w_gate$",             (None, "model")),
+    (r"mlp/w_up$",               (None, "model")),
+    (r"mlp/w_down$",             ("model", None)),
+    # MoE: experts over data (expert parallel), hidden over model
+    (r"moe/router/w$",           (None, None)),
+    (r"moe/experts/w_gate$",     ("data", None, "model")),
+    (r"moe/experts/w_up$",       ("data", None, "model")),
+    (r"moe/experts/w_down$",     ("data", "model", None)),
+    (r"moe/shared/w_gate$",      (None, "model")),
+    (r"moe/shared/w_up$",        (None, "model")),
+    (r"moe/shared/w_down$",      ("model", None)),
+    # mamba2 / SSD
+    (r"ssm/in_proj$",            (None, "model")),
+    (r"ssm/conv_w$",             (None, "model")),
+    (r"ssm/conv_b$",             ("model",)),
+    (r"ssm/(A_log|D|dt_bias)$",  ("model",)),
+    (r"ssm/norm/scale$",         ("model",)),
+    (r"ssm/out_proj$",           ("model", None)),
+    # RG-LRU
+    (r"rglru/w_x$",              (None, "model")),
+    (r"rglru/w_gate$",           (None, "model")),
+    (r"rglru/conv_w$",           (None, "model")),
+    (r"rglru/conv_b$",           ("model",)),
+    (r"rglru/(w_r|w_i)$",        (None, "model")),
+    (r"rglru/(b_r|b_i|lam)$",    ("model",)),
+    (r"rglru/w_out$",            ("model", None)),
+    # norms & scalars: replicated
+    (r"(norm|ln)[^/]*/(scale|bias)$", None),
+    (r"scale$|bias$",            None),
+    # resnet convs
+    (r"conv[^/]*/w$",            (None, None, None, "model")),
+    (r"fc/w$",                   (None, "model")),
+]
+
+
+def _spec_for(path: str, ndim: int, fsdp_axis: Optional[str]) -> tuple:
+    """The reference's ``_spec_for``: the first rule matching ``path``,
+    padded for leading stacked axes; ``fsdp_axis`` also goes on the first
+    replicated dim (not a 3+-dim leaf's stacked axis 0)."""
+    for pat, spec in _RULES:
+        if re.search(pat, path):
+            if spec is None:
+                return ()
+            spec = list(spec)
+            while len(spec) < ndim:
+                spec.insert(0, None)
+            spec = spec[:ndim] if len(spec) > ndim else spec
+            used = {a for s in spec if s
+                    for a in (s if isinstance(s, tuple) else (s,))}
+            if fsdp_axis and fsdp_axis not in used:
+                for i, s in enumerate(spec):
+                    if s is None and ndim - i <= len(spec):
+                        if i == 0 and ndim > 2:
+                            continue
+                        spec[i] = fsdp_axis
+                        break
+            return tuple(spec)
+    return ()
+
+
+def map_paths(fn, tree, prefix=""):
+    """``fn(path, leaf)`` over a nested dict, paths ``/``-joined."""
+    return {k: map_paths(fn, v, f"{prefix}{k}/") if isinstance(v, dict)
+            else fn(f"{prefix}{k}", v) for k, v in tree.items()}
+
+
+def param_pspecs(params: Dict[str, Any], *, fsdp: bool = False):
+    """The spec of every leaf of ``params`` (tensors, meta tensors
+    included, or anything with ``.shape``)."""
+    axis = "data" if fsdp else None
+    return map_paths(lambda path, leaf: _spec_for(path, len(leaf.shape),
+                                                    axis), params)
+
+
+def _spec_map(fn, specs, *rest):
+    return {k: _spec_map(fn, v, *(r[k] for r in rest))
+            if isinstance(v, dict) else fn(v, *(r[k] for r in rest))
+            for k, v in specs.items()}
+
+
+def filter_spec_for_mesh(specs, mesh):
+    """Drop axis names the mesh does not have (e.g. no ``pod``)."""
+    axes = set(mesh.axis_names)
+
+    def clean(spec):
+        out = []
+        for s in spec:
+            if isinstance(s, tuple):
+                kept = tuple(a for a in s if a in axes)
+                out.append(kept if kept else None)
+            else:
+                out.append(s if s in axes else None)
+        return tuple(out)
+
+    return _spec_map(clean, specs)
+
+
+def legalize_pspecs(tree, specs, mesh):
+    """Drop split entries whose dim the mesh's axes do not divide (a
+    vocabulary of 50,280 over 16 stays whole), as the reference does."""
+    sizes = mesh.sizes
+
+    def fix(leaf, spec):
+        out = []
+        for i, s in enumerate(spec):
+            if s is None or i >= len(leaf.shape):
+                out.append(None if i >= len(leaf.shape) else s)
+                continue
+            names = s if isinstance(s, tuple) else (s,)
+            n = 1
+            for a in names:
+                n *= sizes.get(a, 1)
+            out.append(s if n and leaf.shape[i] % n == 0 else None)
+        return tuple(out)
+
+    return _spec_map(lambda spec, leaf: fix(leaf, spec), specs, tree)
+
+
+@dataclass(frozen=True)
+class Shard:
+    """A leaf held as this rank's slice along ``dim``: the leaf's
+    ``size`` equal parts over the mesh axes ``axes``, part ``index``."""
+    dim: int
+    axes: Tuple[str, ...]
+    size: int
+    index: int
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole leaf, as a tensor of its own."""
+        n = full.shape[self.dim] // self.size
+        return full.narrow(self.dim, self.index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+
+def placements(specs, mesh):
+    """What this rank holds of each leaf under legalized ``specs`` on
+    ``mesh``: a ``Shard`` over the axes of size > 1, or None (whole).
+    Raises where a leaf would split along ``model`` or along two dims."""
+
+    def place(spec):
+        split = []
+        for dim, s in enumerate(spec):
+            names = s if isinstance(s, tuple) else (s,)
+            names = tuple(a for a in names if a and mesh.size(a) > 1)
+            if names:
+                split.append((dim, names))
+        if not split:
+            return None
+        if len(split) > 1 or "model" in split[0][1]:
+            raise NotImplementedError(
+                f"a training plan splitting {split} needs training along "
+                "the model axis, which the port does not do yet "
+                "(ROADMAP.md queue 1, item 4)")
+        dim, names = split[0]
+        return Shard(dim, names, mesh.size(names), mesh.index(names))
+
+    return _spec_map(place, specs)
+
+
+def train_plan(params, mesh, *, fsdp: bool):
+    """``placements`` of the reference's training specs for ``params``
+    (``param_pspecs`` filtered and legalized for ``mesh``)."""
+    specs = filter_spec_for_mesh(param_pspecs(params, fsdp=fsdp), mesh)
+    return placements(legalize_pspecs(params, specs, mesh), mesh)
+
+
+def gather_dim(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """The n ranks' equal parts of a leaf along ``dim``, whole."""
+    import torch.distributed as dist
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(g: torch.Tensor, dim: int, n: int, group
+                       ) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum of the n ranks' g."""
+    import torch.distributed as dist
+    gt = g.movedim(dim, 0).contiguous()
+    out = gt.new_empty((gt.shape[0] // n,) + tuple(gt.shape[1:]))
+    dist.reduce_scatter_tensor(out, gt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    """A split leaf, gathered whole where the loss reads it; the
+    backward sums the ranks' gradients of the whole leaf and hands each
+    rank its part (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, part, dim, n, group):
+        ctx.dim, ctx.n, ctx.group = dim, n, group
+        return gather_dim(part, dim, n, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_dim(g, ctx.dim, ctx.n, ctx.group), None,
+                None, None)
+
+
+class Part:
+    """A leaf this rank holds as its part (``tensor``) of a leaf split
+    along ``dim`` over ``group`` (``size`` ranks), read whole through
+    ``full()``: an all-gather whose backward reduce-scatters the
+    gradient to the part.  A stacked leaf's layers are parts of their
+    own (``unbind``), so a layer gathers its slice alone, when it runs
+    (and again when remat runs it again)."""
+
+    __slots__ = ("tensor", "dim", "size", "group")
+
+    def __init__(self, tensor, dim: int, size: int, group):
+        self.tensor, self.dim, self.size, self.group = tensor, dim, size, group
+
+    def full(self) -> torch.Tensor:
+        return _Gather.apply(self.tensor, self.dim, self.size, self.group)
+
+    def unbind(self, dim: int = 0):
+        if dim != 0:
+            raise ValueError("a part unbinds its leading (layer) axis only")
+        if self.dim == 0:              # split along the layers: gather first
+            return self.full().unbind(0)
+        return [Part(t, self.dim - 1, self.size, self.group)
+                for t in self.tensor.unbind(0)]
+
+
+class PartTree(dict):
+    """Params whose split leaves are ``Part``s (the FSDP step's): the
+    decoder gathers each layer's leaves as the layer runs
+    (``gathered``) and the other leaves once (``gather_top``)."""
+
+
+def gathered(tree):
+    """``tree`` with every ``Part`` read whole."""
+    return {k: gathered(v) if isinstance(v, dict)
+            else v.full() if isinstance(v, Part) else v
+            for k, v in tree.items()}
+
+
+def gather_top(params):
+    """A ``PartTree`` with every leaf outside ``layers`` read whole (the
+    embedding, the head, the final norm, the MTP head: once a loss);
+    other params as they are."""
+    if not isinstance(params, PartTree):
+        return params
+    return PartTree({k: v if k == "layers" else
+                     gathered(v) if isinstance(v, dict)
+                     else v.full() if isinstance(v, Part) else v
+                     for k, v in params.items()})
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel serving plan
+# ---------------------------------------------------------------------------
 
 EVERY = "every"          # a whole copy on every shard of the module
 

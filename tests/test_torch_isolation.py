@@ -46,7 +46,8 @@ MODULES = ["repro_torch", "repro_torch.configs", "repro_torch.interop",
            "repro_torch.core.sync", "repro_torch.core.trainer",
            "repro_torch.data.pipeline", "repro_torch.launch.train",
            "repro_torch.launch.profile_train",
-           "repro_torch.launch.fig7_equivalence"]
+           "repro_torch.launch.fig7_equivalence",
+           "repro_torch.launch.builders"]
 
 
 def test_port_imports_with_jax_and_repro_blocked():

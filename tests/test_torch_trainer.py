@@ -6,7 +6,8 @@
   under ``remat`` and ``"blocked"`` attention (16-token blocks, 80
   tokens past its 64-token window: autograd through the scan), and the
   smoke MLA + MoE + MTP deepseek (3 layers: the training-capacity MoE's
-  aux loss and the MTP head's CE); loss, metrics and every gradient
+  aux loss and the MTP head's CE), the smoke mamba2 and the smoke dbrx
+  (GQA + MoE); loss, metrics and every gradient
   within 1e-5 (two f32 stacks of matmuls summing in different orders).
 - The port's virtual serial SGD, CSGD and LSGD equal each other and the
   JAX package's ``core/virtual.py`` after T steps from the same weights,
@@ -50,6 +51,7 @@ from repro_torch.optim.sgd import OptimConfig
 from repro_torch.tree import leaves
 from test_torch_hybrid_engine import carried_hybrid
 from test_torch_mla_engine import carried_deepseek
+from torch_decoders import carried
 from test_torch_model import carried_models
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -86,14 +88,18 @@ LOSS_CASES = {
                                     attn_block_q=16, attn_block_kv=16),
                (2, 80)),
     "moe_mtp": (carried_deepseek, {}, (3, 13)),
+    "ssm": (lambda: carried("mamba2-370m"), {}, (2, 64)),
+    "moe_gqa": (lambda: carried("dbrx-132b", from_port=True), {}, (3, 13)),
 }
 
 
 @pytest.mark.parametrize("variant", list(LOSS_CASES))
 def test_lm_loss_and_grad_match_jax(tiny, variant):
     """"smoke" is the smoke qwen2 itself (d_model 256, vocab 512),
-    "hybrid" the smoke recurrentgemma and "moe_mtp" the 3-layer smoke
-    deepseek-v3; the others the tiny qwen2 of the equivalence tests."""
+    "hybrid" the smoke recurrentgemma, "moe_mtp" the 3-layer smoke
+    deepseek-v3, "ssm" the smoke mamba2 (64 tokens, two SSD chunks) and
+    "moe_gqa" the smoke dbrx (GQA attention, a training-capacity MoE);
+    the others the tiny qwen2 of the equivalence tests."""
     carry, over, (b, s) = LOSS_CASES[variant]
     jcfg, _, jparams, tcfg, _, tparams = carry() if carry else tiny
     jcfg, tcfg = jcfg.replace(**over), tcfg.replace(**over)
@@ -111,6 +117,8 @@ def test_lm_loss_and_grad_match_jax(tiny, variant):
         assert abs(float(metrics[k]) - float(jm[k])) < BOUND, k
     if variant == "moe_mtp":
         assert float(metrics["aux"]) > 0 and "mtp_ce" in metrics
+    elif variant == "moe_gqa":
+        assert float(metrics["aux"]) > 0 and "mtp_ce" not in metrics
     else:
         assert float(metrics["ce"]) == float(tl)
     assert _max_diff(tg, jg) < BOUND
