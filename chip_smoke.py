@@ -179,18 +179,32 @@
    ``make_pjit_step`` with fsdp equal to the launcher's step within 1e-5
    (qwen2-1.5b, 2 layers, float32, 3 steps + finalize), also over two
    NCCL ranks where the machine has two cards.
-14. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
+14. Training along the model axis (``phase_tp_train``): two ranks at
+   model 2, on cuda:0 over gloo (NCCL refuses two ranks on one card) or
+   over NCCL on two cards where the machine has them, the transport
+   printed.  qwen2-1.5b and mamba2-370m at full width cut to
+   TP_PARITY_LAYERS, float32 (TF32 off), 3 LSGD steps of 4 x 256 +
+   finalize with sgd and LARS through the launcher's ``--mesh 1,1,2``
+   equal the one-rank launcher within 1e-5 (params and losses); then
+   qwen2-1.5b uncut in bf16, 8 LSGD steps of 4 x 512 at ``--mesh
+   1,1,2``: finite losses, the step time and each rank's peak memory,
+   and on each rank exactly kernel 5's ``launches_per_call`` an update;
+   then kernel 5 over model rank 0's shard of qwen2-1.5b's leaves
+   against its plain version, timed beside its bound and
+   ``torch.optim.SGD(fused=True)``.
+15. Shows from ``torch.profiler`` that kernel 2's bf16 launch runs kernel
    1's tensor-core template over view keys, that a slot gather with a
    bool mask, a ``slot_state_scatter`` with an int32 valid_len, a
    gumbel sample (with and without top-k) and a greedy sample each run
    their kernel alone,
    and from a captured CUDA graph that each is one launch a call (last:
    the profiler leaves the host slower for the rest of the process).
-15. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
+16. Prints the ``kernels`` JSON line (a row a kernel, then rows of the
    same kernels at the last four configs' shapes, at one shard's
    layouts of a TP slice and (kernel 5) at dbrx's and mamba2-370m's
-   training leaves, each naming its ``case`` and counting that config's
-   or slice's launches), the card's name and
+   training leaves and at a model-2 rank's shard of qwen2-1.5b, each
+   naming its ``case`` and counting that config's or slice's
+   launches), the card's name and
    power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a main-path run and read just
@@ -402,6 +416,17 @@ CLUSTER_HEALTH = dict(soft_deadline_s=60.0, hard_deadline_s=120.0,
 CLUSTER_HANG_HEALTH = dict(soft_deadline_s=1.0, hard_deadline_s=3.0,
                            interval_s=0.02)
 CLUSTER_JOIN_S = 120.0
+# tensor-parallel training (phase_tp_train): model TP_TRAIN over two
+# ranks, float32 parity against the one-rank launcher (full width cut
+# to TP_PARITY_LAYERS, 3 steps of 4 x 256 + finalize, the bound of
+# tests/test_equivalence.py), then qwen2-1.5b uncut as TRAIN_ARGV
+TP_TRAIN = 2
+TP_PARITY_LAYERS = 2
+TP_BOUND = 1e-5
+TP_PARITY_ARGV = ["--steps", "3", "--batch", "4", "--seq", "256",
+                  "--layers", str(TP_PARITY_LAYERS), "--sync-mode", "lsgd",
+                  "--base-lr", "0.01", "--schedule", "const", "--log-every",
+                  "100", "--seed", "0", "--device", "cuda"]
 # tensor-parallel serving: slices of TP shards (tp_devices), every
 # family cut to TP_LAYERS (deepseek: its 3 dense layers and the first
 # MoE layer, profile_engine's cut)
@@ -2452,6 +2477,234 @@ def phase_fsdp_parity(torch):
     return max(diff, got["diff"])
 
 
+@contextlib.contextmanager
+def launcher_f32():
+    """The launcher's configs in float32 (params and compute) while the
+    block runs: the launcher has no dtype flag."""
+    from repro_torch.launch import train
+    orig = train.model_config
+    train.model_config = lambda args: orig(args).replace(
+        param_dtype="float32", compute_dtype="float32")
+    try:
+        yield
+    finally:
+        train.model_config = orig
+
+
+def tp_parity_cases():
+    """(name, launcher argv) of the tensor-parallel parity runs."""
+    return [(f"{arch}_{kind}", ["--arch", arch, "--optimizer", kind]
+             + TP_PARITY_ARGV) for arch in (QWEN2, MAMBA)
+            for kind in ("sgd", "lars")]
+
+
+def tp_train_rank(torch, mesh, out_dir, bf16=True):
+    """One rank of the tensor-parallel training check (``_TP_RANK``):
+    the parity cases through the launcher at ``--mesh mesh`` in float32
+    with TF32 off, the first data-parallel replica of each model shard
+    saving its part of the final params under ``out_dir`` (the parent
+    compares them with the one-rank run); then, with ``bf16``,
+    TRAIN_ARGV at ``--mesh mesh``, every launch count set to 0 just
+    before and read just after.  Returns this rank's numbers."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch import train
+    from repro_torch.tree import items
+    res = {"rank": dist.get_rank()}
+    with float32_exact(), launcher_f32():
+        for name, argv in tp_parity_cases():
+            out = train.main(argv + ["--mesh", mesh])
+            plan = out["plan"]
+            if plan.mesh.index(("pod", "data")) == 0:
+                torch.save({"/".join(p): t.cpu() for p, t in
+                            items(out["state"]["params"])},
+                           Path(out_dir) / f"{name}_m{plan.tp.index}.pt")
+            res[name] = out["losses"]
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+    if bf16:
+        kernels.reset_launch_counts()
+        out = train.main(TRAIN_ARGV + ["--mesh", mesh])
+        torch.cuda.synchronize()
+        res.update(losses=out["losses"], step_s=out["step_s"],
+                   peak_gb=out["peak_mem_bytes"] / 1e9,
+                   launches=kernels.launch_counts()["fused_sgd_update"],
+                   per_update=_update_launches(out["state"]),
+                   params=out["params"], tokens=out["tokens_per_step"],
+                   model_index=out["plan"].tp.index)
+        del out
+    return res
+
+
+_TP_RANK = r"""
+import os, sys, json
+import torch, torch.distributed as dist
+rank, world, port, backend, mesh, out_dir, bf16 = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+    sys.argv[5], sys.argv[6], sys.argv[7] == "1")
+sys.path.insert(0, os.path.join(os.getcwd(), "src"))
+torch.cuda.set_device(rank if backend == "nccl" else 0)
+dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=world)
+import chip_smoke as cs
+out = cs.tp_train_rank(torch, mesh, out_dir, bf16)
+print("TP_RANK", json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def run_tp_ranks(world, backend, mesh, out_dir, bf16):
+    """``tp_train_rank`` as ``world`` processes over ``backend`` (gloo:
+    every rank on cuda:0; nccl: rank r on cuda:r), the parity runs at
+    ``--mesh mesh``; returns each rank's numbers, in rank order."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TP_RANK, str(r), str(world), port, backend,
+         mesh, str(out_dir), "1" if bf16 else "0"], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    got = []
+    for p, out in zip(procs, outs):
+        line = next((x for x in out.splitlines()
+                     if x.startswith("TP_RANK ")), None)
+        if p.returncode or line is None:
+            fail(f"tensor-parallel training rank over {backend} failed: "
+                 f"{out[-4000:]}")
+        got.append(json.loads(line.split(" ", 1)[1]))
+    return got
+
+
+def tp_parity(torch, out_dir, tp, ranks):
+    """The one-rank launcher's parity runs (float32, TF32 off: call
+    under ``float32_exact``) against the model parts the ranks saved
+    under ``out_dir`` (``tp`` model shards) and their losses: (max
+    |param diff|, max |loss diff|, how far the params moved)."""
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import take_part, train_placement
+    from repro_torch.tree import items
+    diff = loss_diff = moved = 0.0
+    with launcher_f32():
+        for name, argv in tp_parity_cases():
+            out = train.main(argv)
+            args = train.parse_args(argv)
+            cfg = train.model_config(args)
+            dev = next(iter(items(out["state"]["params"])))[1].device
+            init = dict(items(build_model(cfg).init(SEED, dev)))
+            for r in ranks:
+                loss_diff = max([loss_diff] + [
+                    abs(a - b) for a, b in zip(out["losses"], r[name])])
+            for m in range(tp):
+                part = torch.load(Path(out_dir) / f"{name}_m{m}.pt")
+                for path, want in items(out["state"]["params"]):
+                    place = train_placement(cfg, "/".join(path), tp)
+                    got = part["/".join(path)].to(dev)
+                    diff = max(diff, (got - take_part(want, place, m, tp))
+                               .abs().max().item())
+                    moved = max(moved, (want - init[path]).abs().max()
+                                .item())
+            del out, init
+            gc.collect()
+            torch.cuda.empty_cache()
+    return diff, loss_diff, moved
+
+
+@float32_exact()
+def phase_tp_train(torch, timer):
+    """Tensor-parallel training on the card (model TP_TRAIN, data 1):
+    two ranks, each on cuda:0 over gloo (NCCL refuses two ranks on one
+    card) or over NCCL on cuda:0 and cuda:1 where the machine has two.
+    The parity runs (``tp_parity_cases``: qwen2-1.5b and mamba2-370m at
+    full width cut to TP_PARITY_LAYERS, float32, sgd and LARS) equal the
+    one-rank launcher within TP_BOUND, the params having moved; then
+    qwen2-1.5b uncut in bf16 (TRAIN_ARGV at ``--mesh 1,1,2``): finite
+    losses, and on each rank kernel 5 launched exactly its
+    ``launches_per_call`` for each of the 7 deferred updates and
+    ``finalize``; then kernel 5 over model rank 0's shard of
+    qwen2-1.5b's leaves against its plain version, timed
+    (``_fused_update_layout``).  Returns (the bf16 run's numbers with
+    its kernel-5 launches summed over the ranks, kernel 5's row)."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import take_part, train_placement
+    from repro_torch.tree import items
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    transport = ("NCCL, rank r on cuda:r" if two else
+                 "gloo, both ranks on cuda:0 (NCCL refuses two ranks on "
+                 "one card)")
+    out_dir = ROOT / "build" / "tp_train"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mesh = f"1,1,{TP_TRAIN}"
+    t0 = time.perf_counter()
+    ranks = run_tp_ranks(TP_TRAIN, backend, mesh, out_dir, True)
+    ranks_s = time.perf_counter() - t0
+    diff, loss_diff, moved = tp_parity(torch, out_dir, TP_TRAIN, ranks)
+    print(f"[tp train] model {TP_TRAIN} over {transport}: {QWEN2} and "
+          f"{MAMBA} at {TP_PARITY_LAYERS} layers f32, "
+          f"{TP_PARITY_ARGV[1]} lsgd steps of {TP_PARITY_ARGV[3]} x "
+          f"{TP_PARITY_ARGV[5]} + finalize, sgd and lars, --mesh {mesh} vs "
+          f"one rank: max |param diff| {diff:.3g}, max |loss diff| "
+          f"{loss_diff:.3g} (bound {TP_BOUND}); params moved {moved:.3g}",
+          flush=True)
+    if not (diff < TP_BOUND and loss_diff < TP_BOUND and moved > 0):
+        fail(f"tensor-parallel training differs from one rank by {diff} "
+             f"(losses {loss_diff}; bound {TP_BOUND})")
+    for r in ranks:
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"tensor-parallel training rank {r['rank']}: loss not "
+                 f"finite: {r['losses']}")
+        want = r["per_update"] * len(r["losses"])
+        if r["launches"] != want:
+            fail(f"tensor-parallel training rank {r['rank']}: "
+                 f"{r['launches']} fused_sgd_update launches, want "
+                 f"{r['per_update']} an update x {len(r['losses'])}")
+    med = [statistics.median(r["step_s"][-6:]) for r in ranks]
+    r0 = ranks[0]
+    res = dict(loss_first=r0["losses"][0], loss_last=r0["losses"][-1],
+               step_ms=med[0] * 1e3, tokens_per_s=r0["tokens"] / med[0],
+               peak_gb=max(r["peak_gb"] for r in ranks),
+               launches=sum(r["launches"] for r in ranks))
+    print(f"[tp train] {QWEN2} full width, {r0['params'] / 1e9:.3f}B "
+          f"params bf16, model {TP_TRAIN} over {transport}, batch "
+          f"{TRAIN_ARGV[5]} x {TRAIN_ARGV[7]}, lsgd, fused sgd, lr 0.01: "
+          f"losses {[round(x, 4) for x in r0['losses']]}; step ms (median "
+          f"of the last 6) by rank {[round(m * 1e3, 1) for m in med]}; "
+          f"train tok/s {res['tokens_per_s']:.0f}; peak memory by rank "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} GB; kernel 5 "
+          f"launches by rank {[r['launches'] for r in ranks]} "
+          f"({r0['per_update']} an update); step ms all (rank 0) "
+          f"{[round(x * 1e3, 1) for x in r0['step_s']]}; ranks' process "
+          f"{ranks_s:.1f}s; card: {nvidia_smi()}", flush=True)
+    cfg = get_config(QWEN2)
+    params = build_model(cfg).init(SEED, "cuda")
+    ws = [take_part(leaf, train_placement(cfg, "/".join(path), TP_TRAIN), 0,
+                    TP_TRAIN).contiguous() for path, leaf in items(params)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = _fused_update_layout(torch, timer, f"{QWEN2} model-{TP_TRAIN} "
+                               f"rank 0 shard", ws)
+    del ws
+    return res, row
+
+
 def phase_resnet_train(torch):
     """ResNet-50, the paper's model, through ``repro_torch.launch.train``
     with RESNET_ARGV (full width, 224 x 224, batch 64, f32, LSGD, fused
@@ -4262,8 +4515,13 @@ def main() -> int:
     dbrx_tr, fu_dbrx = phase(phase_dbrx_train, torch, Timer(torch, iters=10))
     mamba_tr = phase(phase_train, torch, MAMBA_TRAIN_ARGV)
     phase(phase_fsdp_parity, torch)
+    # training along the model axis: float32 parity with one rank, then
+    # qwen2-1.5b uncut in bf16 at model 2, then kernel 5 over one model
+    # rank's shard
+    tp_tr, fu_tp = phase(phase_tp_train, torch, Timer(torch, iters=10))
     train_launches = {DBRX: dbrx_tr["launches"]["fused_sgd_update"],
-                      MAMBA: mamba_tr["launches"]["fused_sgd_update"]}
+                      MAMBA: mamba_tr["launches"]["fused_sgd_update"],
+                      "tp": tp_tr["launches"]}
     launches["fused_sgd_update"] += sum(train_launches.values())
     phase(phase_census, torch, cfg, mcfg, ec)
 
@@ -4416,7 +4674,10 @@ def main() -> int:
              "(bf16 w, f32 m and g)", launches=train_launches[DBRX],
              **fu_dbrx),
         dict(base5, case=f"{MAMBA} leaves (bf16 w, f32 m and g)",
-             launches=train_launches[MAMBA], **fu_sets[MAMBA])]
+             launches=train_launches[MAMBA], **fu_sets[MAMBA]),
+        dict(base5, case=f"{QWEN2} model-{TP_TRAIN} rank 0 shard (bf16 w, "
+             "f32 m and g); launches: both ranks' bf16 run",
+             launches=train_launches["tp"], **fu_tp)]
     for c in lms:
         rows += [lm_row("greedy_sample", c.name,
                         f"V {c.vocab_size} B={top}", gs_lm[c.name][top]),

@@ -16,10 +16,11 @@ all meet at a barrier.  ``lsgd_compressed``'s error-feedback residual is
 rank-local in the port (one per group, ``core/sync.py``); rank 0's is
 written and every rank restores it (ROADMAP.md §3).
 
-A state sharded by an FSDP plan (``core.trainer.FsdpPlan``, passed as
-``plan``) is saved in the same full-leaf layout: every rank joins the
-gathers, one leaf at a time, and rank 0 writes; a restore reads the full
-leaves on the host and keeps this rank's parts.  So a sharded run
+A state sharded by a plan (``core.trainer.FsdpPlan``, passed as
+``plan``: over data, over model, or a leaf over both) is saved in the
+same full-leaf layout: every rank joins the gathers, one leaf at a time
+(over data, then over model), and rank 0 writes; a restore reads the
+full leaves on the host and keeps this rank's parts.  So a sharded run
 restores an unsharded checkpoint, either package's, and the reverse.
 """
 from __future__ import annotations

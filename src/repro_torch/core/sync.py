@@ -16,7 +16,10 @@ differs only in the collectives it schedules:
                     f32 re-expansion of the bf16 payload.
 
 Phase 1 and phase 2 groups come from ``Topology.phase1_groups`` /
-``phase2_groups`` over the world's ranks.  With one rank, or one group
+``phase2_groups`` over the data-parallel ranks: the world's, or on a
+mesh (``launch.mesh``) the (pod, data) ranks that share this rank's
+model coordinate, so that a tensor-parallel rank averages with the
+replicas of its own shard.  With one rank, or one group
 (``intra_group_size`` None), phase 2 is absent; with one rank every mode
 is the identity.  Collectives work in place on the tensors they are
 given.
@@ -50,32 +53,47 @@ class Inflight:
 
 class GradSync:
     """The sync of one trainer, bound to the default process group's
-    ranks.  Every rank must construct it (``dist.new_group`` is a
-    collective call)."""
+    ranks, or with ``mesh`` to this rank's (pod, data) ranks (``world``
+    of them, this one at ``rank`` among them).  Every rank must
+    construct it (``dist.new_group`` is a collective call)."""
 
-    def __init__(self, mode: str, topology: Topology = Topology()):
+    def __init__(self, mode: str, topology: Topology = Topology(),
+                 mesh=None):
         if mode not in SYNC_MODES:
             raise ValueError(f"sync mode {mode!r} not in {SYNC_MODES}")
         self.mode = mode
         on = dist.is_available() and dist.is_initialized()
-        self.world = dist.get_world_size() if on else 1
-        self.rank = dist.get_rank() if on else 0
+        me = dist.get_rank() if on else 0
+        if mesh is None:
+            lines = [list(range(dist.get_world_size() if on else 1))]
+            self.g_all = None                  # the default group
+        else:
+            lines = mesh.lines(("pod", "data"))
+            self.g_all = mesh.group(("pod", "data"))
+        line = next(x for x in lines if me in x)
+        self.world, self.rank = len(line), line.index(me)
         self.g1 = self.g2 = None
         self.n1, self.n2 = self.world, 1
         if self.world == 1:
             return
         p1 = topology.phase1_groups(self.world)
         p2 = topology.phase2_groups(self.world)
-        self.g1, self.n1 = self._mine(p1 or [list(range(self.world))])
+        self.g1, self.n1 = self._mine(lines, me,
+                                      p1 or [list(range(self.world))])
         if p2 is not None:
-            self.g2, self.n2 = self._mine(p2)
+            self.g2, self.n2 = self._mine(lines, me, p2)
 
-    def _mine(self, groups):
+    @staticmethod
+    def _mine(lines, me, groups):
+        """Every line's groups (positions along it), made by every rank
+        in one order; returns this rank's (group, size)."""
         mine = None
-        for ranks in groups:            # every rank creates every group
-            g = dist.new_group(ranks)
-            if self.rank in ranks:
-                mine = (g, len(ranks))
+        for line in lines:
+            for idx in groups:
+                ranks = [line[i] for i in idx]
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    mine = (g, len(ranks))
         return mine
 
     # -- the phases -----------------------------------------------------
@@ -85,8 +103,16 @@ class GradSync:
         if self.world == 1:
             return
         for g in leaves(grads):
-            dist.all_reduce(g)
+            dist.all_reduce(g, group=self.g_all)
             g.div_(self.world)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the data-parallel ranks (a copy)."""
+        if self.world == 1:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, group=self.g_all)
+        return x / self.world
 
     def phase1(self, grads) -> None:
         """Mean within this rank's fast group, in place."""

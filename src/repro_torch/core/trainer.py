@@ -42,6 +42,20 @@ top of step t+1, where it is applied.  The reference's pjit step syncs
 through the identity, so ``lsgd_rsag`` runs there as ``lsgd`` does and
 ``lsgd_compressed`` (an error-feedback residual) raises.  LARS sums its
 norms over the shard group (``kernels.fused_update.ShardNorms``).
+
+**Tensor parallelism** (a mesh with ``model`` over 1, either step): a
+rank at model coordinate m holds shard m of each split module
+(``sharding.TpPlan``: heads, kv groups, channels, vocab, the experts'
+hidden width), and under ZeRO-3 its data part of that shard, so a leaf
+may split on two dims.  The loss reads the shard through a
+``PartTree`` with the rank's ``ModelAxis`` (``transformer.apply_layer_rank``:
+copy-in and reduce-out collectives over the model group).  After the
+backward the pieces that several model ranks hold (a shared kv head,
+mamba's B and C columns) have their gradients summed over those ranks
+(``FsdpPlan.reduce_model``); then the data-parallel sync runs over the
+(pod, data) ranks of this rank's model coordinate, exactly as without a
+model axis.  The loss each model rank reports is the same; it is
+averaged over the data-parallel ranks only.
 """
 from __future__ import annotations
 
@@ -120,19 +134,27 @@ def _apply_pending(state, lr_fn, ocfg, shards=None) -> None:
                      lr_fn(state["step"] - 1), ocfg, shards)
 
 
-def make_step(model, tcfg: TrainerConfig, lr_fn, sync: GradSync = None):
+def make_step(model, tcfg: TrainerConfig, lr_fn, sync: GradSync = None,
+              plan: Optional["FsdpPlan"] = None):
     """Returns step(state, batch) -> (state, (loss, metrics)); ``state``
     is updated and returned.  ``sync`` defaults to a ``GradSync`` over
-    the default process group (the identity on one rank)."""
+    the default process group (the identity on one rank).  ``plan``: a
+    tensor-parallel rank's layout (``FsdpPlan(..., shard_data=False)``:
+    its model shard, whole over data), the state sharded by it
+    (``make_init_state(..., plan=plan)``)."""
     sync = sync or GradSync(tcfg.sync_mode, tcfg.topology)
     ocfg = tcfg.optim
     gdt = _DTYPES[tcfg.grad_dtype]
 
     def step(state, batch):
+        norms = plan.norms(state["params"]) if plan is not None else None
         if tcfg.defer_update:
-            _apply_pending(state, lr_fn, ocfg)
-        loss, metrics, grads = value_and_grad(model.loss, state["params"],
-                                              batch)
+            _apply_pending(state, lr_fn, ocfg, norms)
+        loss, metrics, grads = value_and_grad(
+            model.loss, state["params"], batch,
+            wrap=plan.wrap(state["params"], False) if plan else None)
+        if plan is not None:
+            plan.reduce_model(grads)
         grads = tree_map(lambda g: g.to(gdt), grads)
         if tcfg.sync_mode == "csgd":
             sync.flat(grads)
@@ -149,20 +171,17 @@ def make_step(model, tcfg: TrainerConfig, lr_fn, sync: GradSync = None):
                 if inflight is not None:
                     inflight.wait()
             apply_update(state["params"], state["opt"], grads,
-                         lr_fn(state["step"]), ocfg)
+                         lr_fn(state["step"]), ocfg, norms)
         state["step"] += 1
-        if sync.world > 1:          # report the data-parallel mean
-            loss = loss.clone()
-            dist.all_reduce(loss)
-            loss /= sync.world
-        return state, (loss, metrics)
+        return state, (sync.mean(loss), metrics)
 
     return step
 
 
 def make_finalize(model, tcfg: TrainerConfig, lr_fn, plan=None):
     """Flush the trailing pending update (makes LSGD == CSGD exactly);
-    ``plan`` the ``FsdpPlan`` of a sharded state."""
+    ``plan`` the ``FsdpPlan`` of a sharded state (over data, model or
+    both)."""
 
     def finalize(state):
         if not tcfg.defer_update:
@@ -181,9 +200,9 @@ def make_finalize(model, tcfg: TrainerConfig, lr_fn, plan=None):
 # the FSDP / pjit path
 # ---------------------------------------------------------------------------
 
-# the state subtrees laid out like the params (the pjit step keeps no
-# residual: lsgd_compressed does not run on it)
-_MIRRORS = ("params", "pending")
+# the state subtrees laid out like the params (lsgd_compressed's
+# residual only on the shard_map step: the pjit step refuses that mode)
+_MIRRORS = ("params", "pending", "residual")
 
 
 def _cast_(tree, dtype) -> None:
@@ -197,16 +216,24 @@ def _cast_(tree, dtype) -> None:
 
 
 class FsdpPlan:
-    """The layout of the FSDP / pjit step on this rank of ``mesh``: the
-    reference's training specs of ``model``'s params (``fsdp`` per
+    """The layout of a trainer state on this rank of ``mesh``: along
+    ``model`` its shard of each split module (``tp``, a
+    ``sharding.TpPlan``, None without a model axis), and over ``data``
+    the reference's training specs of ``model``'s params (``fsdp`` per
     ``tcfg``; the routed experts split over ``data`` either way),
-    legalized for the mesh, as ``sharding.Shard`` placements; and the
-    mesh's groups the step reduces over."""
+    legalized for the mesh, as ``sharding.Shard`` placements of the
+    model part (``places``; with ``shard_data`` False, the launcher's
+    shard_map step on a tensor-parallel mesh, none: the model part is
+    whole over data); and the mesh's groups the steps reduce over."""
 
-    def __init__(self, model, tcfg: TrainerConfig, mesh):
+    def __init__(self, model, tcfg: TrainerConfig, mesh, *,
+                 shard_data: bool = True):
         self.mesh, self.cfg = mesh, model.cfg
-        self.places = sharding.train_plan(model.init(0, "meta"), mesh,
-                                          fsdp=tcfg.fsdp)
+        meta = model.init(0, "meta")
+        self.tp = (sharding.TpPlan(model.cfg, meta, mesh)
+                   if mesh.size("model") > 1 else None)
+        self.places = (sharding.train_plan(meta, mesh, fsdp=tcfg.fsdp)
+                       if shard_data else tree_map(lambda _: None, meta))
         for pl in leaves(self.places):
             if pl is not None and pl.axes != ("data",):
                 raise NotImplementedError(
@@ -220,26 +247,52 @@ class FsdpPlan:
 
     def norms(self, params) -> Optional[ShardNorms]:
         """How LARS sums the norms of ``params``' leaves (in their
-        order): the split ones over the data group."""
-        sharded = [pl is not None for pl in zip_leaves(params,
-                                                       self.places)[1]]
-        if self.data is None or not any(sharded):
-            return None
-        return ShardNorms(self.data, sharded, self.mesh.index("data") == 0)
+        order) over the ranks of a model replica (data x model): the
+        data-split ones and the model parts summed, a piece that several
+        ranks hold counted once."""
+        split = [pl is not None for pl in zip_leaves(params,
+                                                     self.places)[1]]
+        over_data = self.data is not None and any(split)
+        lead = self.mesh.index("data") == 0
+        keep = [s or lead or not over_data for s in split]
+        if self.tp is None:
+            return ShardNorms(self.data, keep) if over_data else None
+        keep_m, drop = self.tp.counts()
+        keep = [a and b for a, b in zip(keep, keep_m)]
+        group = self.mesh.group(("data", "model") if over_data
+                                else "model")
+        return ShardNorms(group, keep,
+                          {i: d for i, d in drop.items() if keep[i]})
 
     # -- the state ----------------------------------------------------------
 
     def shard(self, tree):
         """This rank's parts of a tree of whole leaves (params-shaped), in
         the plan's leaf order."""
-        return tree_map(lambda pl, x: x if pl is None else pl.take(x),
-                        self.places, tree)
+        def part(pl, mp, x):
+            if self.tp is not None:
+                x = sharding.take_part(x, mp, self.tp.index, self.tp.size)
+            return x if pl is None else pl.take(x)
+
+        return tree_map(part, self.places, self._model_places(tree), tree)
+
+    def _whole(self, x, pl, mp):
+        """The whole leaf of this rank's part ``x`` (``pl`` its data
+        placement, ``mp`` its model one): gathered over data, then over
+        model."""
+        if isinstance(pl, sharding.Shard):
+            x = sharding.gather_dim(x, pl.dim, pl.size, self.data)
+        return x if self.tp is None else self.tp.gather_leaf(x, mp)
+
+    def _model_places(self, tree):
+        return (self.tp.places if self.tp is not None
+                else tree_map(lambda _: None, tree))
 
     def gather(self, tree):
         """The whole leaves of a tree of this rank's parts (a collective
-        over the data group)."""
-        return tree_map(lambda x, pl: x if pl is None else sharding.gather_dim(
-            x, pl.dim, pl.size, self.data), tree, self.places)
+        over the data and model groups)."""
+        return tree_map(lambda x, pl, mp: self._whole(x, pl, mp), tree,
+                        self.places, self._model_places(tree))
 
     def _state_map(self, fn, state):
         out = dict(state)
@@ -260,10 +313,14 @@ class FsdpPlan:
         collective every rank joins): a consumer that drops each leaf
         before taking the next holds one whole leaf at a time."""
         places = dict(items(self._state_map(lambda _: self.places, state)))
+        model = dict(items(self._state_map(
+            lambda t: self._model_places(t), state)))
         for path, x in items(state):
-            pl = places.get(path)
-            yield path, (sharding.gather_dim(x, pl.dim, pl.size, self.data)
-                         if isinstance(pl, sharding.Shard) else x)
+            pl, mp = places.get(path), model.get(path)
+            if isinstance(pl, sharding.Shard) or isinstance(
+                    mp, sharding.Split):
+                x = self._whole(x, pl, mp)
+            yield path, x
 
     # -- the step -------------------------------------------------------------
 
@@ -278,10 +335,12 @@ class FsdpPlan:
     def wrap(self, params, ep: bool):
         """The params the loss reads, from the aliases of this rank's
         parts: a decoder's split leaves as ``sharding.Part``s in a
-        ``PartTree`` (gathered layer by layer as the forward runs), other
+        ``PartTree`` (gathered over data layer by layer as the forward
+        runs; with the rank's ``ModelAxis`` on a model axis), other
         models' gathered whole at once; the routed experts under expert
         parallelism as this rank's own."""
-        if self.data is None:               # nothing is split
+        axis = self.tp.axis if self.tp is not None else None
+        if self.data is None and axis is None:       # nothing is split
             return None
         lazy = self.cfg.family not in ("resnet", "audio")
 
@@ -294,9 +353,16 @@ class FsdpPlan:
         def f(ps):
             tree = tree_map(read, unflatten(params, ps), self.places,
                             self._experts)
-            return sharding.PartTree(tree) if lazy else tree
+            return sharding.PartTree(tree, axis) if lazy else tree
 
         return f
+
+    def reduce_model(self, grads) -> None:
+        """Sum the gradients of the pieces that several model ranks hold
+        over those ranks (``TpPlan.reduce_partial``); nothing without a
+        model axis."""
+        if self.tp is not None:
+            self.tp.reduce_partial(grads)
 
     def reduce_data(self, grads) -> None:
         """Phase 1: sum the whole leaves' gradients over the data group
@@ -357,6 +423,7 @@ def make_pjit_step(model, tcfg: TrainerConfig, lr_fn, plan: FsdpPlan):
         loss, metrics, grads = value_and_grad(
             model.loss, state["params"], batch,
             wrap=plan.wrap(state["params"], plan.ep()))
+        plan.reduce_model(grads)
         _cast_(grads, gdt)
         plan.reduce_data(grads)
         if tcfg.defer_update:

@@ -205,25 +205,39 @@ fused_sgd_update.launches = 0
 
 
 class ShardNorms:
-    """How LARS's norms of sharded leaves add up: ``sharded[i]`` says
-    whether leaf i is this rank's part of a leaf split over ``group``
-    (its sums of squares are summed over the group); the other leaves
-    are whole on every rank of the group and count once, from the rank
-    where ``lead`` is true (the others' sums are zeroed before the
-    sum)."""
+    """How LARS's norms of sharded leaves add up over the ranks of
+    ``group`` that hold pieces of them (split over data, over model or
+    both): each rank's sums of squares are summed over the group, and a
+    piece several ranks hold counts once.  ``keep[i]`` false: another
+    rank counts all of this rank's leaf i (its sums are zeroed before
+    the sum); ``drop[i]``: the (axis, lo, n) pieces of a kept leaf that
+    another rank counts (their squares are taken off leaf i's first
+    row)."""
 
-    def __init__(self, group, sharded: Sequence[bool], lead: bool):
-        self.group, self.lead = group, lead
-        self.sharded = np.asarray(sharded, dtype=bool)
+    def __init__(self, group, keep: Sequence[bool],
+                 drop: Optional[Dict[int, list]] = None):
+        self.group = group
+        self.keep = np.asarray(keep, dtype=bool)
+        self.drop = drop or {}
 
-    def sum_(self, sq: torch.Tensor, leaf_of_row: np.ndarray) -> None:
+    def sum_(self, sq: torch.Tensor, leaf_of_row: np.ndarray, ws, gs
+             ) -> None:
         """Sum the (rows, 2) float32 sums of squares ``sq`` over the
-        group in place; row r belongs to leaf ``leaf_of_row[r]``."""
+        group in place; row r belongs to leaf ``leaf_of_row[r]`` of
+        ``ws`` / ``gs``."""
         import torch.distributed as dist
-        if not self.lead:
-            zero = ~self.sharded[leaf_of_row]
-            if zero.any():
-                sq[torch.from_numpy(zero).to(sq.device)] = 0.0
+        zero = ~self.keep[leaf_of_row]
+        if zero.any():
+            sq[torch.from_numpy(zero).to(sq.device)] = 0.0
+        for i, pieces in self.drop.items():
+            rows = np.flatnonzero(leaf_of_row == i)
+            if not len(rows):
+                continue
+            for axis, lo, n in pieces:
+                w = ws[i].narrow(axis, lo, n).float()
+                g = gs[i].narrow(axis, lo, n).float()
+                sq[int(rows[0])] -= torch.stack([w.square().sum(),
+                                                 g.square().sum()])
         dist.all_reduce(sq, group=self.group)
 
 
@@ -245,7 +259,7 @@ def lars_trust_plain(ws, gs, *, eta: float, eps: float,
         sq = torch.stack([torch.stack([w.float().square().sum(),
                                        g.float().square().sum()])
                           for w, g in zip(ws, gs)])
-        shards.sum_(sq, np.arange(len(ws)))
+        shards.sum_(sq, np.arange(len(ws)), ws, gs)
         return _trust_of(sq, eta=eta, eps=eps, weight_decay=weight_decay)
     out = []
     for w, g in zip(ws, gs):
@@ -283,7 +297,7 @@ def lars_trust(ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], *,
                                partial.data_ptr(), wc, gc, sms, stream)
         _build.check(rc, "lars_trust")
         if shards is not None:
-            shards.sum_(partial, np.repeat(idx, np.diff(off)))
+            shards.sum_(partial, np.repeat(idx, np.diff(off)), ws, gs)
         rc = lib.rt_lars_trust(_ptr(table), _ptr(idx), _ptr(off), len(idx),
                                partial.data_ptr(), trust.data_ptr(),
                                float(eta), float(weight_decay), float(eps),

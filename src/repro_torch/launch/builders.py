@@ -10,6 +10,10 @@ Path selection, as the reference's:
     for the configs past ``FSDP_PARAM_THRESHOLD`` parameters, and every
     MoE config (expert parallelism over ``data``) and ResNet.  The step
     runs with the mesh active, so the MoE runs expert-parallel.
+On a mesh with ``model`` over 1 either step trains tensor-parallel
+(``core.trainer``: each rank its model shard, under ZeRO-3 its data part
+of it) for the dense GQA, GQA + MoE and mamba2 families; the others
+raise ``NotImplementedError`` when the plan is built.
 The reference's serving lowerables, dry run and HLO accounting have no
 counterpart here.
 
@@ -87,6 +91,7 @@ class TrainStep:
     tcfg: TrainerConfig
     lr_fn: Callable
     plan: Optional[FsdpPlan] = None
+    tp: Optional[FsdpPlan] = None    # the shard_map step's model layout
     description: str = ""
     n_params: int = field(default=0)
 
@@ -120,11 +125,8 @@ def make_train_step(cfg, shape: ShapeConfig, mesh, sync_mode: str = "lsgd",
     ``device`` (CUDA unless the caller asks for the CPU), and ``lr_fn``
     (default ``paper_lr_fn(shape)``).  ZeRO-3 is on past the threshold,
     as in the reference, or where ``zero3`` forces it (on the pjit
-    path, whatever the arch)."""
-    if mesh.size("model") > 1:
-        raise NotImplementedError(
-            "training along the model axis (tensor-parallel training) is "
-            "not ported yet (ROADMAP.md queue 1, item 4)")
+    path, whatever the arch).  A ``model`` axis over 1 splits the
+    params along it on either path."""
     dev = device_of(device)
     model = build_model(cfg)
     lr_fn = lr_fn or paper_lr_fn(shape)
@@ -139,15 +141,21 @@ def make_train_step(cfg, shape: ShapeConfig, mesh, sync_mode: str = "lsgd",
         fsdp=pjit_path and (big or zero3),
         pending_dtype="bfloat16" if big else "float32",
         grad_dtype="bfloat16" if big else "float32")
+    tp = mesh.size("model")
     plan = FsdpPlan(model, tcfg, mesh) if pjit_path else None
-    state = make_init_state(model, tcfg, dev, plan)(0)
+    shard = (FsdpPlan(model, tcfg, mesh, shard_data=False)
+             if tp > 1 and not pjit_path else None)
+    layout = plan or shard
+    state = make_init_state(model, tcfg, dev, layout)(0)
     if pjit_path:
         fn = make_pjit_step(model, tcfg, lr_fn, plan)
     else:
-        fn = make_step(model, tcfg, lr_fn, GradSync(sync_mode, tcfg.topology))
+        fn = make_step(model, tcfg, lr_fn,
+                       GradSync(sync_mode, tcfg.topology, mesh), shard)
     return TrainStep(
-        fn=fn, finalize=make_finalize(model, tcfg, lr_fn, plan), state=state,
-        mesh=mesh, tcfg=tcfg, lr_fn=lr_fn, plan=plan,
+        fn=fn, finalize=make_finalize(model, tcfg, lr_fn, layout),
+        state=state, mesh=mesh, tcfg=tcfg, lr_fn=lr_fn, plan=plan, tp=shard,
         description=f"train[{'pjit' if pjit_path else 'shard_map'}/"
-                    f"{sync_mode}{'/fsdp' if tcfg.fsdp else ''}]",
+                    f"{sync_mode}{'/fsdp' if tcfg.fsdp else ''}"
+                    f"{f'/tp{tp}' if tp > 1 else ''}]",
         n_params=param_count(cfg))

@@ -32,9 +32,11 @@ class Mesh:
     """The ranks of the default process group on named axes (the
     reference's ``jax.sharding.Mesh`` for one process per rank)."""
 
-    # the axis sets a trainer reduces over: each alone, and the
-    # data-parallel pair
-    GROUPS = (("pod",), ("data",), ("model",), ("pod", "data"))
+    # the axis sets a trainer reduces over: each alone, the
+    # data-parallel pair, and data x model (LARS's norms of a model
+    # replica's leaves)
+    GROUPS = (("pod",), ("data",), ("model",), ("pod", "data"),
+              ("data", "model"))
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str]):
         shape, axes = tuple(int(n) for n in shape), tuple(axes)
@@ -53,6 +55,7 @@ class Mesh:
         self.shape, self.axis_names = shape, axes
         self.coords = dict(zip(axes, _unravel(self.rank, shape)))
         self._groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
+        self._blocks: Dict[Tuple[str, int], object] = {}
         for names in self.GROUPS:
             names = tuple(a for a in names if a in axes)
             if names and names not in self._groups \
@@ -62,21 +65,52 @@ class Mesh:
     def __repr__(self) -> str:
         return f"Mesh({dict(zip(self.axis_names, self.shape))})"
 
+    def lines(self, names) -> List[List[int]]:
+        """The ranks along ``names`` for each setting of the other axes
+        (in rank order), each list ordered by the position along
+        ``names`` (row-major over them)."""
+        names = tuple(a for a in self.axis_names if a in names)
+        others = [a for a in self.axis_names if a not in names]
+        return [[self._rank_of({**dict(zip(others, fixed)),
+                                **dict(zip(names, c))})
+                 for c in itertools.product(*(range(self.sizes[a])
+                                              for a in names))]
+                for fixed in itertools.product(*(range(self.sizes[a])
+                                                 for a in others))]
+
     def _make(self, names):
         """Every rank's group over ``names`` (one for each setting of the
         other axes, in rank order); returns this rank's (group, ranks)."""
         mine = None
-        others = [a for a in self.axis_names if a not in names]
-        for fixed in itertools.product(*(range(self.sizes[a])
-                                         for a in others)):
-            at = dict(zip(others, fixed))
-            ranks = sorted(self._rank_of({**at, **dict(zip(names, c))})
-                           for c in itertools.product(
-                               *(range(self.sizes[a]) for a in names)))
+        for ranks in self.lines(names):
             g = dist.new_group(ranks)
             if self.rank in ranks:
                 mine = (g, ranks)
         return mine
+
+    def block_group(self, name: str, block: int):
+        """This rank's group over the ``block`` consecutive positions
+        along axis ``name`` that hold its own (positions [b * block, (b +
+        1) * block)), sharing its other coordinates; None for a block of
+        one.  Made at the first call, which is a collective call: every
+        rank makes the same calls in the same order."""
+        if block == 1:
+            return None
+        if block == self.size(name):
+            return self.group(name)
+        if self.size(name) % block:
+            raise ValueError(f"{block} does not divide axis {name} of "
+                             f"{self.size(name)}")
+        if (name, block) not in self._blocks:
+            mine = None
+            for line in self.lines((name,)):
+                for b0 in range(0, len(line), block):
+                    ranks = line[b0:b0 + block]
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        mine = g
+            self._blocks[(name, block)] = mine
+        return self._blocks[(name, block)]
 
     def _rank_of(self, coords: Dict[str, int]) -> int:
         r = 0

@@ -20,6 +20,12 @@
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
         --device cpu --sync-mode lsgd --mesh 2,2,1
 
+    # four ranks as data 2 x model 2: each rank holds half of every
+    # split module (tensor parallelism), each pair of model ranks one
+    # data-parallel replica
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
+        --device cpu --sync-mode lsgd --mesh 1,2,2
+
     # the RG-LRU hybrid, and whisper-tiny (each row 1,500 stub frames
     # and --seq decoder tokens)
     python -m repro_torch.launch.train --arch recurrentgemma-2b \\
@@ -46,8 +52,13 @@ of ranks.  As in the reference, the launcher keeps its shard_map path
 (``make_step``) and sets no active mesh: ``pod`` is LSGD's slow axis and
 ``data`` its fast one, so with two pods or more each pod's ranks are
 one fast group (``--intra-group-size`` still subdivides them).  A model
-axis over 1 raises: the port does not train along it yet.  The
-reference's FSDP / pjit step is ``launch.builders.make_train_step``.
+axis over 1 trains tensor-parallel (``core.trainer``): each rank holds
+its model shard (``FsdpPlan(..., shard_data=False)``), the (pod, data)
+ranks of one model coordinate sync as the ranks of a mesh without a
+model axis do, and they share each batch's rows by their (pod, data)
+position.  The dense GQA, GQA + MoE and mamba2 families train so; the
+others raise ``NotImplementedError``.  The reference's FSDP / pjit
+step is ``launch.builders.make_train_step``.
 """
 from __future__ import annotations
 
@@ -63,15 +74,16 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.core.sync import SYNC_MODES
+from repro_torch.core.sync import SYNC_MODES, GradSync
 from repro_torch.core.topology import Topology
-from repro_torch.core.trainer import (TrainerConfig, make_finalize,
+from repro_torch.core.trainer import (FsdpPlan, TrainerConfig, make_finalize,
                                       make_init_state, make_step)
 from repro_torch.data.pipeline import HostLoader, data_config_for
 from repro_torch.launch.mesh import mesh_from_dims
 from repro_torch.models.model import build_model
 from repro_torch.optim import schedules
 from repro_torch.optim.sgd import OptimConfig
+from repro_torch.sharding import check_tp_training
 from repro_torch.tree import leaves
 
 
@@ -142,18 +154,15 @@ def lr_schedule(args):
     return lambda t: args.base_lr
 
 
-def mesh_of(args):
+def mesh_of(args, cfg):
     """The ``--mesh`` over the process group's ranks, or None without
-    one.  A model axis over 1 raises ``NotImplementedError``; dims whose
+    one.  A model axis over 1 for a family the port does not train
+    along it raises ``NotImplementedError`` (checked first); dims whose
     product is not the number of ranks raise ``ValueError``."""
     if not args.mesh:
         return None
     dims = tuple(int(x) for x in args.mesh.split(","))
-    if dims and dims[-1] > 1:          # the last dim is always "model"
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training along the model axis "
-            "(tensor-parallel training) is not ported yet (ROADMAP.md "
-            "queue 1, item 4)")
+    check_tp_training(cfg, dims[-1])   # the last dim is always "model"
     return mesh_from_dims(dims)
 
 
@@ -216,42 +225,53 @@ def init_distributed(device: torch.device):
 
 def main(argv=None) -> Dict[str, Any]:
     """Train; returns a summary (losses, step times, samples and tokens
-    per step, peak device memory, the final state)."""
+    per step, peak device memory, the final state: this rank's shard on
+    a model axis, with its layout as ``plan``)."""
     args = parse_args(argv)
     device = device_of(args.device)
     rank, world = init_distributed(device)
     if device.type == "cuda" and world > 1:
         device = torch.device("cuda", torch.cuda.current_device())
-    if args.batch % world:
-        raise ValueError(f"--batch {args.batch} not divisible by {world} "
-                         "ranks")
-    mesh = mesh_of(args)
     cfg = model_config(args)
+    mesh = mesh_of(args, cfg)
+    # the data-parallel ranks: every rank, or a mesh's (pod, data) ranks
+    n_dp, i_dp = ((world, rank) if mesh is None else
+                  (mesh.size(("pod", "data")), mesh.index(("pod", "data"))))
+    if args.batch % n_dp:
+        raise ValueError(f"--batch {args.batch} not divisible by {n_dp} "
+                         "data-parallel ranks")
     model = build_model(cfg)
     lr_fn = lr_schedule(args)
     tcfg = trainer_config(args, mesh)
+    plan = (FsdpPlan(model, tcfg, mesh, shard_data=False)
+            if mesh is not None and mesh.size("model") > 1 else None)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state = make_init_state(model, tcfg, device)(args.seed)
-    if world > 1:                       # every rank starts from rank 0's w0
+    state = make_init_state(model, tcfg, device, plan)(args.seed)
+    if n_dp > 1:         # every replica starts from its first one's w0
+        line = (list(range(world)) if mesh is None else
+                next(x for x in mesh.lines(("pod", "data")) if rank in x))
+        group = None if mesh is None else mesh.group(("pod", "data"))
         for p in leaves(state["params"]):
-            dist.broadcast(p, 0)
-    n_params = sum(p.numel() for p in leaves(state["params"]))
+            dist.broadcast(p, line[0], group=group)
+    n_params = sum(p.numel() for p in leaves(model.init(0, "meta")))
     log = rank == 0
     if log:
         print(f"arch={cfg.name} params={n_params:,} sync={args.sync_mode} "
               f"ranks={world} mesh={mesh} device={device} "
               f"optimizer={args.optimizer}", flush=True)
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
-        state = checkpoint.restore(args.ckpt_dir, state)
+        state = checkpoint.restore(args.ckpt_dir, state, plan=plan)
         if log:
             print(f"restored checkpoint at step {state['step']}", flush=True)
 
-    step_fn = make_step(model, tcfg, lr_fn)
-    finalize = make_finalize(model, tcfg, lr_fn)
+    step_fn = make_step(model, tcfg, lr_fn,
+                        None if mesh is None else
+                        GradSync(tcfg.sync_mode, tcfg.topology, mesh), plan)
+    finalize = make_finalize(model, tcfg, lr_fn, plan)
     dcfg = data_config(cfg, args)
     images = dcfg.kind == "image"
-    per = args.batch // world
+    per = args.batch // n_dp
     losses: List[float] = []
     step_s: List[float] = []
     loader = HostLoader(dcfg, io_latency_s=args.io_latency)
@@ -259,7 +279,7 @@ def main(argv=None) -> Dict[str, Any]:
     try:
         for i in range(args.steps):
             t0 = time.perf_counter()
-            batch = {k: to_device(v[rank * per:(rank + 1) * per], device)
+            batch = {k: to_device(v[i_dp * per:(i_dp + 1) * per], device)
                      for k, v in next(loader).items()}
             state, (loss, _) = step_fn(state, batch)
             losses.append(float(loss))           # waits for the step
@@ -272,12 +292,13 @@ def main(argv=None) -> Dict[str, Any]:
                       f"{rate:,.0f} step_s {step_s[-1]:.4f}", flush=True)
             if args.ckpt_dir and args.ckpt_every \
                     and (i + 1) % args.ckpt_every == 0:
-                checkpoint.save(args.ckpt_dir, state, state["step"])
+                checkpoint.save(args.ckpt_dir, state, state["step"],
+                                plan=plan)
     finally:
         loader.close()
     state = finalize(state)
     if args.ckpt_dir:
-        checkpoint.save(args.ckpt_dir, state, state["step"])
+        checkpoint.save(args.ckpt_dir, state, state["step"], plan=plan)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     peak = (torch.cuda.max_memory_allocated(device)
@@ -287,7 +308,8 @@ def main(argv=None) -> Dict[str, Any]:
               f"{losses[-1]:.4f}", flush=True)
     return {"losses": losses, "step_s": step_s, "samples_per_step": args.batch,
             "tokens_per_step": None if images else args.batch * args.seq,
-            "params": n_params, "peak_mem_bytes": peak, "state": state}
+            "params": n_params, "peak_mem_bytes": peak, "state": state,
+            "plan": plan}
 
 if __name__ == "__main__":
     try:

@@ -1,7 +1,8 @@
 """Shared building blocks: inits, rmsnorm and layernorm, the swiglu and
 gelu MLPs, rotary and sinusoidal position embeddings, the depthwise
 causal conv with its slot-state helpers, and the cross-entropy loss
-(``repro/models/layers.py``)."""
+(``repro/models/layers.py``), with the vocab-parallel embedding lookup
+and cross-entropy of a tensor-parallel training rank."""
 from __future__ import annotations
 
 import math
@@ -185,3 +186,67 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (logz - ll).mean()
+
+
+# ---------------------------------------------------------------------------
+# over a vocab split along the model axis (a tensor-parallel training rank)
+# ---------------------------------------------------------------------------
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, axis, dtype
+                ) -> torch.Tensor:
+    """The embedding rows of ``tokens`` when this rank holds rows [index
+    * n, (index + 1) * n) of the table (n = ``table.shape[0]``): each
+    rank looks up the tokens of its rows (zeros for the others) and the
+    sum over the model group (``axis.reduce_out``) is each token's row,
+    exactly."""
+    n = table.shape[0]
+    local = tokens.long() - axis.index * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(dtype)
+    return axis.reduce_out(rows * hit[..., None].to(dtype))
+
+
+class _VocabNll(torch.autograd.Function):
+    """Per-token cross-entropy over logits split by vocab columns: the
+    row max and the sum of exponentials over the model group, the target
+    logit from the rank whose columns hold it.  Backward: this rank's
+    columns of softmax - onehot, scaled by the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, group):
+        import torch.distributed as dist
+        m = logits.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m[:, None])
+        s = e.sum(-1)
+        dist.all_reduce(s, group=group)
+        local = labels - lo
+        hit = (local >= 0) & (local < logits.shape[-1])
+        idx = local.clamp(0, logits.shape[-1] - 1)
+        tgt = torch.where(hit, logits.gather(-1, idx[:, None])[:, 0],
+                          torch.zeros((), dtype=logits.dtype,
+                                      device=logits.device))
+        dist.all_reduce(tgt, group=group)
+        ctx.save_for_backward(e, s, idx, hit)
+        return torch.log(s) + m - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, idx, hit = ctx.saved_tensors
+        grad = e * (g / s)[:, None]
+        grad.scatter_add_(-1, idx[:, None],
+                          torch.where(hit, -g, torch.zeros_like(g))[:, None])
+        return grad, None, None, None
+
+
+def vocab_nll(logits: torch.Tensor, labels: torch.Tensor, axis
+              ) -> torch.Tensor:
+    """Per-token next-token CE in f32 (labels' shape) when ``logits``
+    (..., V / size) are this rank's vocab columns [index * V / size,
+    ...): the whole-vocab CE of each token, on every rank."""
+    v = logits.shape[-1]
+    flat = _VocabNll.apply(logits.float().reshape(-1, v),
+                           labels.long().reshape(-1), axis.index * v,
+                           axis.group)
+    return flat.reshape(labels.shape)

@@ -19,6 +19,16 @@ reverse exchange.  Unlike the reference, a fault there raises (the
 reference falls back to the scatter path), and the EP region runs in
 the compute dtype (the reference's f32 casts work around an XLA CPU
 partitioner crash).
+
+On a tensor-parallel training rank (``tp``, a ``sharding.ModelAxis``)
+the routed experts' hidden width and the shared expert's are this
+rank's part: the router is whole and reads the whole input (its aux
+loss is the same on every model rank); the tokens enter the expert
+products, and the gates the combine, through copy-ins, so their
+gradients sum over the model group; y is this rank's partial sum, which
+the caller reduces over ``model``.  Under expert parallelism the
+exchange runs over the data group of this rank's model coordinate, the
+same on every model rank.
 """
 from __future__ import annotations
 
@@ -113,7 +123,7 @@ def _expert_ffn(xe: torch.Tensor, experts) -> torch.Tensor:
 
 
 def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
-              expert0: int = 0):
+              expert0: int = 0, tp=None):
     """x (B,S,D) -> (y (B,S,D), aux loss).  ``dropless`` (serving): the
     capacity is T, so nothing is dropped (top-k ids are distinct per
     token, so no expert gets more than T assignments); otherwise the
@@ -125,11 +135,12 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
     experts ``expert0`` onward, as many as its ``experts`` leaves have,
     and the shared expert's share of its hidden width: the whole router
     routes over every expert, the shard adds only its own experts'
-    contributions, and y is its partial sum."""
+    contributions, and y is its partial sum.  ``tp``: a tensor-parallel
+    training rank's ``ModelAxis`` (see the module's docstring)."""
     m = cfg.moe
     mesh = None if dropless else ep_mesh(cfg)
     if mesh is not None:
-        return apply_moe_ep(params, x, cfg, mesh)
+        return apply_moe_ep(params, x, cfg, mesh, tp)
     b, s, d = x.shape
     t, k, e = b * s, m.num_experts_per_tok, m.num_experts
     mine = params["experts"]["w_gate"].shape[-3]
@@ -159,8 +170,9 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
     slot = torch.where(keep, ranks, torch.zeros_like(ranks))
 
     # dispatch into (E, cap, D); dropped assignments add zeros at slot 0
+    xs, gate_vals = _split_inputs(xt, gate_vals, tp)
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
-    vals = xt[tok_idx] * keep[:, None].to(xt.dtype)
+    vals = xs[tok_idx] * keep[:, None].to(xt.dtype)
     xe = torch.zeros((mine, cap, d), dtype=xt.dtype, device=x.device)
     xe.index_put_((flat_e, slot), vals, accumulate=True)
     ye = _expert_ffn(xe, params["experts"])
@@ -171,8 +183,17 @@ def apply_moe(params, x: torch.Tensor, cfg, dropless: bool = False,
                                   * keep[:, None].to(dt))
     y = y_slots.reshape(t, k, d).sum(1)
     if "shared" in params:
-        y = y + apply_mlp(params["shared"], xt, cfg)
+        y = y + apply_mlp(params["shared"], xs, cfg)
     return y.reshape(b, s, d), aux
+
+
+def _split_inputs(xt, gate_vals, tp):
+    """(the tokens the expert products read, the gates the combine
+    reads): on a tensor-parallel rank each through a copy-in, whose
+    backward sums the ranks' partial gradients."""
+    if tp is None:
+        return xt, gate_vals
+    return tp.copy_in(xt), tp.copy_in(gate_vals)
 
 
 # ---------------------------------------------------------------------------
@@ -217,14 +238,16 @@ def _exchange(x: torch.Tensor, n: int, group) -> torch.Tensor:
     return _AllToAll.apply(x.contiguous(), group)
 
 
-def _moe_local(xt, router_w, w_gate, w_up, w_down, cfg, n: int, group):
+def _moe_local(xt, router_w, w_gate, w_up, w_down, cfg, n: int, group,
+               tp=None):
     """The reference's per-shard MoE body on one rank: xt (T_loc, D) this
     rank's tokens, the experts this rank's E / n.  The f32 router, the
     aux loss from local statistics, the capacity per shard, C_loc =
     max(4, ceil(T_loc K cf / E)) rounded up to a multiple of n, a local
     scatter into (E, C_loc, D), the exchange over the data group to
     (E / n, n C_loc, D), the expert products, the reverse exchange and
-    the gate-weighted combine.  Returns (y (T_loc, D), aux)."""
+    the gate-weighted combine.  ``tp``: the expert products are this
+    rank's hidden part (``apply_moe``).  Returns (y (T_loc, D), aux)."""
     m = cfg.moe
     t, d = xt.shape
     k, e = m.num_experts_per_tok, m.num_experts
@@ -244,8 +267,9 @@ def _moe_local(xt, router_w, w_gate, w_up, w_down, cfg, n: int, group):
         0, order, _segment_rank(flat_e[order], tk))
     keep = ranks < cap
     slot = torch.where(keep, ranks, torch.zeros_like(ranks))
+    xs, gate_vals = _split_inputs(xt, gate_vals, tp)
     tok_idx = torch.arange(t, device=xt.device).repeat_interleave(k)
-    vals = xt[tok_idx] * keep[:, None].to(xt.dtype)
+    vals = xs[tok_idx] * keep[:, None].to(xt.dtype)
     xe = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
     xe = xe.index_put((flat_e, slot), vals, accumulate=True)
 
@@ -263,22 +287,19 @@ def _moe_local(xt, router_w, w_gate, w_up, w_down, cfg, n: int, group):
     return y_slots.reshape(t, k, d).sum(1), aux
 
 
-def apply_moe_ep(params, x: torch.Tensor, cfg, mesh):
+def apply_moe_ep(params, x: torch.Tensor, cfg, mesh, tp=None):
     """Expert-parallel training MoE on one rank of ``mesh``: x (B_loc, S,
     D) this rank's rows, ``params["experts"]`` this rank's E / data
     experts (``sharding``'s plan: rank ``data`` index i holds experts [i
     E / data, (i + 1) E / data)).  Returns (y, aux): aux this rank's,
     which the data-parallel mean of the loss averages over the ranks as
     the reference averages it over its shards.  The shared expert is
-    added outside the exchange.  Raises when the experts are not this
-    rank's share, or when the mesh has a model axis over 1."""
+    added outside the exchange.  ``tp``: a tensor-parallel rank's
+    ``ModelAxis`` (``apply_moe``); y is then its partial sum.  Raises
+    when the experts are not this rank's share."""
     m = cfg.moe
     b, s, d = x.shape
     n = mesh.size("data")
-    if mesh.size("model") > 1:
-        raise NotImplementedError(
-            "expert parallelism with a model axis over 1 needs training "
-            "along the model axis (ROADMAP.md queue 1, item 4)")
     ex = params["experts"]
     if m.num_experts % n or ex["w_gate"].shape[-3] != m.num_experts // n:
         raise ValueError(
@@ -286,7 +307,8 @@ def apply_moe_ep(params, x: torch.Tensor, cfg, mesh):
             f"{ex['w_gate'].shape[-3]} experts, want {m.num_experts} / {n}")
     xt = x.reshape(b * s, d)
     y, aux = _moe_local(xt, params["router"]["w"], ex["w_gate"], ex["w_up"],
-                        ex["w_down"], cfg, n, mesh.group("data"))
+                        ex["w_down"], cfg, n, mesh.group("data"), tp)
     if "shared" in params:
-        y = y + apply_mlp(params["shared"], xt, cfg)
+        y = y + apply_mlp(params["shared"],
+                          xt if tp is None else tp.copy_in(xt), cfg)
     return y.reshape(b, s, d), aux

@@ -47,9 +47,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cross_entropy,
-                                       dense_init, embed_init, init_norm)
-from repro_torch.sharding import (PartTree, ShardedParams, gather_top,
-                                  gathered, shard_cache)
+                                       dense_init, embed_init, init_norm,
+                                       run_local, vocab_embed, vocab_nll)
+from repro_torch.sharding import (PartTree, ShardedParams, axis_of,
+                                  gather_top, gathered, shard_cache)
 from repro_torch.tree import tree_map
 
 # the (mixer, ffn) runs the port has: attention (GQA or MLA) with a
@@ -206,16 +207,51 @@ def _unstack(tree, n: int):
     return out
 
 
+def _vocab_axis(params):
+    """The ``ModelAxis`` of a tensor-parallel training rank whose plan
+    splits the vocab, else None."""
+    axis = axis_of(params)
+    return axis if axis is not None and axis.modules["vocab"] else None
+
+
 def _logits(params, h, cfg):
+    """The logits of h; on a training rank over a vocab split, this
+    rank's vocab columns (h read through a copy-in)."""
     if isinstance(params, ShardedParams):
         return _logits_tp(params, h, cfg)
+    axis = _vocab_axis(params)
+    if axis is not None:
+        h = axis.copy_in(h)
     dt = h.dtype
     if cfg.tie_embeddings:
         return h @ params["embed"]["embedding"].to(dt).t()
     return h @ params["lm_head"]["w"].to(dt)
 
 
+def _token_nll(params, logits, labels):
+    """Per-token CE in f32 of ``_logits``' output against labels (the
+    whole-vocab CE on a rank holding vocab columns)."""
+    axis = _vocab_axis(params)
+    if axis is not None:
+        return vocab_nll(logits, labels, axis)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
+def _cross_entropy(params, logits, labels):
+    """Mean next-token CE of ``_logits``' output (``cross_entropy``, or
+    its vocab-parallel form on a training rank)."""
+    if _vocab_axis(params) is not None:
+        return _token_nll(params, logits, labels).mean()
+    return cross_entropy(logits, labels)
+
+
 def embed_tokens(params, tokens, cfg):
+    axis = _vocab_axis(params)
+    if axis is not None:
+        return vocab_embed(params["embed"]["embedding"], tokens, axis,
+                           cfg.cdtype)
     return params["embed"]["embedding"][tokens.long()].to(cfg.cdtype)
 
 
@@ -271,6 +307,59 @@ def apply_layer(lp, h, cfg, kind: str, ffn: str, *, rope=None, write=None,
     return h, c, aux
 
 
+def _drive_rank(steps, axis):
+    """Run a training rank's mixer steps (``ssm.ssm_steps``): its
+    ``"sumsq"`` point gets the sum over the model group of each rank's
+    squares (``ModelAxis.sum_all``, summed forward and backward), or,
+    with ``axis`` None (the module runs whole), nothing: the mixer then
+    uses its own.  Returns the mixer's result."""
+    if axis is None:
+        return run_local(steps)
+    try:
+        op, part = next(steps)
+        while True:
+            if op != "sumsq":
+                raise NotImplementedError(
+                    f"a training rank resolves sumsq only, not {op!r}")
+            op, part = steps.send(axis.sum_all(
+                part.float().square().sum(-1, keepdim=True)))
+    except StopIteration as done:
+        return done.value
+
+
+def apply_layer_rank(lp, h, cfg, kind: str, ffn: str, axis, *, rope,
+                     dropless=False):
+    """``apply_layer`` on a tensor-parallel training rank, in the
+    full-sequence form: ``lp`` this rank's shard of the layer, ``axis``
+    its ``ModelAxis``.  Each norm runs once a rank on the whole residual
+    stream; a split module reads it through ``axis.copy_in`` and its
+    partial output is summed by ``axis.reduce_out`` (the MoE enters its
+    routed and shared experts through copy-ins of its own, its router
+    reading the whole stream); a module the plan does not split runs
+    whole.  Returns (h, None, aux)."""
+    x = apply_norm(lp["ln1"], h, cfg)
+    split = axis.modules[_MODULE_OF[kind]]
+    xin = axis.copy_in(x) if split else x
+    if kind == "ssm":
+        y, _ = _drive_rank(ssm_mod.ssm_steps(lp["ssm"], xin, cfg),
+                           axis if split else None)
+    else:
+        y, _ = attn_mod.apply_attention(lp["attn"], xin, cfg, rope=rope,
+                                        window=_layer_window(cfg, kind))
+    h = h + (axis.reduce_out(y) if split else y)
+    if ffn == "none":
+        return h, None, None
+    x = apply_norm(lp["ln2"], h, cfg)
+    split = axis.modules[_MODULE_OF[ffn]]
+    aux = None
+    if ffn == "moe":
+        y, aux = moe_mod.apply_moe(lp["moe"], x, cfg, dropless=dropless,
+                                   tp=axis if split else None)
+    else:
+        y = apply_mlp(lp["mlp"], axis.copy_in(x) if split else x, cfg)
+    return h + (axis.reduce_out(y) if split else y), None, aux
+
+
 def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
             valid_len=None, state_slots=None, need_logits=True,
             dropless=False, make_cache=False, cache_len=0,
@@ -301,6 +390,10 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
     cache with views ("kview"/"vview", "ckv_view"/"kr_view";
     "conv_view"/"state_view"): one decode-loop step, pos (B,).
     params ``ShardedParams`` (a tensor-parallel slice): ``forward_tp``.
+    params a ``PartTree`` with a ``ModelAxis`` (a tensor-parallel
+    training rank's shard): the full-sequence form, each layer by
+    ``apply_layer_rank``; logits are this rank's vocab columns when the
+    plan splits the vocab.
     """
     if isinstance(params, ShardedParams):
         return forward_tp(params, tokens, cfg, cache=cache,
@@ -311,6 +404,10 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
     # layer runs (and again under remat), the others once
     params = gather_top(params)
     lazy = isinstance(params, PartTree)
+    axis = axis_of(params)
+    if axis is not None and (cache is not None or make_cache):
+        raise ValueError("a tensor-parallel training rank runs the "
+                         "full-sequence forward only")
     h = embed_tokens(params, tokens, cfg)
     if cfg.num_image_tokens and image_embeds is not None:
         if cache is not None:
@@ -338,6 +435,9 @@ def forward(params, tokens, cfg, *, cache=None, block_tables=None, pos=None,
         def block(h, lp, lc, kind=kind, ffn=ffn):
             if lazy:
                 lp = gathered(lp)
+            if axis is not None:
+                return apply_layer_rank(lp, h, cfg, kind, ffn, axis,
+                                        rope=rope, dropless=dropless)
             return apply_layer(lp, h, cfg, kind, ffn, rope=rope, write=write,
                                cache=lc, block_tables=block_tables, pos=pos,
                                valid_len=valid_len, state_slots=state_slots,
@@ -443,13 +543,12 @@ def chunked_lm_ce(params, h, labels, cfg, *, mask_from: int = 0):
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for start in range(0, s, chunk):
-        logits = _logits(params, h[:, start:start + chunk], cfg).float()
+        logits = _logits(params, h[:, start:start + chunk], cfg)
         lx = labels[:, start:start + chunk].long()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lx[..., None])[..., 0]
+        nll = _token_nll(params, logits, lx)
         pos = start + torch.arange(chunk, device=h.device)[None]
         m = (pos >= mask_from).float().expand(lx.shape)
-        tot = tot + ((logz - ll) * m).sum()
+        tot = tot + (nll * m).sum()
         cnt = cnt + m.sum()
     return tot / torch.clamp_min(cnt, 1.0)
 
@@ -467,6 +566,9 @@ def lm_loss(params, batch, cfg):
     token p + 1, so positions before Si - 1 are masked (chunked: by
     ``mask_from``; unchunked: the logits from Si - 1 against every text
     token); no MTP term then, as in the reference.
+    On a tensor-parallel training rank (``apply_layer_rank``) the CE is
+    the vocab-parallel one where the plan splits the vocab, and aux the
+    replicated router's, the same on every model rank.
     Returns (loss, metrics ``ce``, ``aux``, ``mtp_ce`` (with MTP) and
     ``loss``)."""
     tokens = batch["tokens"]
@@ -485,9 +587,9 @@ def lm_loss(params, batch, cfg):
                            mask_from=max(n_img - 1, 0))
     elif n_img:
         pred = logits[:, n_img - 1:-1]
-        ce = cross_entropy(pred, tokens[:, :pred.shape[1]])
+        ce = _cross_entropy(params, pred, tokens[:, :pred.shape[1]])
     else:
-        ce = cross_entropy(logits[:, :-1], tokens[:, 1:])
+        ce = _cross_entropy(params, logits[:, :-1], tokens[:, 1:])
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     loss = ce + aux

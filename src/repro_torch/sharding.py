@@ -9,11 +9,19 @@ The routed experts split over ``data`` always (expert parallelism);
 ``fsdp`` also splits the first large replicated dim of every other
 matched leaf over ``data``, skipping the stacked-layer axis of a leaf of
 three dims or more.  ``placements`` turns the legalized specs into what
-a rank holds: ``Shard(dim, axes)`` (this rank's equal slice along dim
-over those mesh axes) or None (the whole leaf).  A ``model`` entry stays
-in the specs, but a plan that would split along ``model`` raises: the
-port does not train along that axis yet.  ``set_active_mesh`` is the
-reference's switch for expert parallelism (``models/moe.py``).
+a rank holds over the data-parallel axes: ``Shard(dim, axes)`` (this
+rank's equal slice along dim over those mesh axes) or None (the whole
+leaf).  A ``model`` entry is left to ``TpPlan``, the tensor-parallel
+training plan: a rank at model coordinate m holds shard m of each split
+module, cut by the serving plan's unit boundaries below (heads, kv
+groups, channels, vocab; the routed experts by their hidden width), and
+a module whose units the model width does not divide runs whole on
+every model rank.  So a leaf may split on two dims: ``model`` by
+``TpPlan`` and ``data`` by its ``Shard`` of the model part.  The
+cross-shard points of a rank's forward are autograd-aware collectives
+over the model group (``ModelAxis``: copy-in, reduce-out, sum-all).
+``set_active_mesh`` is the reference's switch for expert parallelism
+(``models/moe.py``).
 
 **Serving** (``serve_param_pspecs`` / ``serve_cache_pspecs`` of the
 reference), written for explicit per-shard tensors.
@@ -62,7 +70,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.tree import split_tree
+from repro_torch.tree import leaves, split_tree
 
 # ---------------------------------------------------------------------------
 # the training plan
@@ -246,23 +254,24 @@ class Shard:
 
 def placements(specs, mesh):
     """What this rank holds of each leaf under legalized ``specs`` on
-    ``mesh``: a ``Shard`` over the axes of size > 1, or None (whole).
-    Raises where a leaf would split along ``model`` or along two dims."""
+    ``mesh`` over its data-parallel axes: a ``Shard`` over the axes of
+    size > 1, or None (whole).  ``model`` entries are ``TpPlan``'s (the
+    Shard then cuts the model part along another dim).  Raises where a
+    leaf would split along two dims over those axes."""
 
     def place(spec):
         split = []
         for dim, s in enumerate(spec):
             names = s if isinstance(s, tuple) else (s,)
-            names = tuple(a for a in names if a and mesh.size(a) > 1)
+            names = tuple(a for a in names
+                          if a and a != "model" and mesh.size(a) > 1)
             if names:
                 split.append((dim, names))
         if not split:
             return None
-        if len(split) > 1 or "model" in split[0][1]:
-            raise NotImplementedError(
-                f"a training plan splitting {split} needs training along "
-                "the model axis, which the port does not do yet "
-                "(ROADMAP.md queue 1, item 4)")
+        if len(split) > 1:
+            raise ValueError(f"a training plan splitting {split} over the "
+                             "data-parallel axes on two dims")
         dim, names = split[0]
         return Shard(dim, names, mesh.size(names), mesh.index(names))
 
@@ -271,7 +280,8 @@ def placements(specs, mesh):
 
 def train_plan(params, mesh, *, fsdp: bool):
     """``placements`` of the reference's training specs for ``params``
-    (``param_pspecs`` filtered and legalized for ``mesh``)."""
+    (``param_pspecs`` filtered and legalized for ``mesh``) over the
+    data-parallel axes."""
     specs = filter_spec_for_mesh(param_pspecs(params, fsdp=fsdp), mesh)
     return placements(legalize_pspecs(params, specs, mesh), mesh)
 
@@ -339,7 +349,14 @@ class Part:
 class PartTree(dict):
     """Params whose split leaves are ``Part``s (the FSDP step's): the
     decoder gathers each layer's leaves as the layer runs
-    (``gathered``) and the other leaves once (``gather_top``)."""
+    (``gathered``) and the other leaves once (``gather_top``).  On a
+    tensor-parallel training rank ``axis`` is its ``ModelAxis`` and the
+    leaves (or parts) are its model shard's: the decoder then runs
+    ``transformer.apply_layer_rank``."""
+
+    def __init__(self, tree=(), axis=None):
+        super().__init__(tree)
+        self.axis = axis
 
 
 def gathered(tree):
@@ -358,7 +375,12 @@ def gather_top(params):
     return PartTree({k: v if k == "layers" else
                      gathered(v) if isinstance(v, dict)
                      else v.full() if isinstance(v, Part) else v
-                     for k, v in params.items()})
+                     for k, v in params.items()}, params.axis)
+
+
+def axis_of(params):
+    """The ``ModelAxis`` of a tensor-parallel rank's params, else None."""
+    return params.axis if isinstance(params, PartTree) else None
 
 # ---------------------------------------------------------------------------
 # the tensor-parallel serving plan
@@ -407,11 +429,12 @@ def deal(units: int, shard: int, tp: int) -> Tuple[int, int]:
     return u, u + 1
 
 
-def split_modules(cfg, tp: int) -> Dict[str, bool]:
+def split_modules(cfg, tp: int, train: bool = False) -> Dict[str, bool]:
     """Which modules a slice of ``tp`` shards splits (the rest run whole
-    on shard 0): ``vocab``, ``attn`` (GQA or MLA, global or local),
-    ``mlp``, ``moe`` (routed experts and the shared expert), ``ssm`` and
-    ``rglru``."""
+    on shard 0; in training, on every model rank): ``vocab``, ``attn``
+    (GQA or MLA, global or local), ``mlp``, ``moe`` (routed experts and
+    the shared expert: by experts in serving, by their hidden width in
+    training, as the reference's ``_RULES``), ``ssm`` and ``rglru``."""
     def even(n):
         return n > 0 and n % tp == 0
 
@@ -423,7 +446,7 @@ def split_modules(cfg, tp: int) -> Dict[str, bool]:
     moe = False
     if cfg.moe is not None:
         m = cfg.moe
-        moe = even(m.num_experts) and (
+        moe = (even(m.d_ff_expert) if train else even(m.num_experts)) and (
             not m.num_shared_experts
             or even(m.d_ff_expert * m.num_shared_experts))
     ssm = False
@@ -438,10 +461,12 @@ def split_modules(cfg, tp: int) -> Dict[str, bool]:
             "mlp": even(cfg.d_ff), "moe": moe, "ssm": ssm, "rglru": rglru}
 
 
-def _param_rules(cfg, tp: int) -> List[Tuple[str, Any]]:
+def _param_rules(cfg, tp: int, train: bool = False
+                 ) -> List[Tuple[str, Any]]:
     """(path pattern, placement) pairs for ``cfg``'s params over ``tp``
-    shards; the first match wins (the reference's ``_RULES`` order)."""
-    mods = split_modules(cfg, tp)
+    shards; the first match wins (the reference's ``_RULES`` order).
+    ``train``: the routed experts split by their hidden width."""
+    mods = split_modules(cfg, tp, train)
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def split(mod, kind, axis, *segments):
@@ -474,6 +499,13 @@ def _param_rules(cfg, tp: int) -> List[Tuple[str, Any]]:
     if cfg.moe is not None:
         m = cfg.moe
         e, fs = m.num_experts, m.d_ff_expert * m.num_shared_experts
+        fe = m.d_ff_expert
+        if train:
+            rules += [
+                (r"moe/experts/(w_gate|w_up)$",
+                 split("moe", "channels", -1, (fe, fe))),
+                (r"moe/experts/w_down$",
+                 split("moe", "channels", -2, (fe, fe)))]
         rules += [
             (r"moe/experts/", split("moe", "experts", -3, (e, e))),
             (r"moe/shared/(w_gate|w_up)$", split("moe", "channels", -1,
@@ -623,3 +655,228 @@ def shard_cache(cache: Dict[str, Any], cfg, devices: Sequence
         return out
 
     return split_tree(cache, parts, tp)
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training: a rank's model shard
+# ---------------------------------------------------------------------------
+# Megatron-style, one process a rank: the residual stream is whole on
+# every model rank; a split module reads it through a copy-in (identity
+# forward, the gradient summed over the model group backward) and its
+# partial output leaves through a reduce-out (summed forward, identity
+# backward).  Every model rank computes the same loss, so a leaf whole
+# on every model rank gets the same gradient on each and is not summed.
+
+def _tp_unported(cfg) -> Optional[str]:
+    """The family of ``cfg`` if the port does not train it along the
+    model axis yet, else None."""
+    if cfg.family == "resnet":
+        return "ResNet"
+    if cfg.is_encoder_decoder or cfg.family == "audio":
+        return "the encoder-decoder (whisper)"
+    if cfg.mla is not None:
+        return "MLA attention (deepseek-v3)"
+    if cfg.rglru is not None:
+        return "the RG-LRU hybrid (recurrentgemma)"
+    return None
+
+
+def check_tp_training(cfg, tp: int) -> None:
+    """Raise ``NotImplementedError`` when ``cfg`` cannot train over a
+    model axis of ``tp`` ranks (the dense GQA, GQA + MoE and mamba2
+    families can)."""
+    what = _tp_unported(cfg)
+    if tp > 1 and what:
+        raise NotImplementedError(
+            f"{cfg.name}: training along the model axis (model {tp}) is "
+            f"not ported for {what} yet (ROADMAP.md queue 1, item 4)")
+
+
+def _all_reduce(x, group):
+    import torch.distributed as dist
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _CopyIn(torch.autograd.Function):
+    """The identity; backward sums the gradient over the group (the
+    whole input feeds every rank's part of a split module)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """The sum over the group of the ranks' partial outputs; backward the
+    identity (the sum feeds the same loss on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumAll(torch.autograd.Function):
+    """The sum over the group, forward and backward: each rank reads the
+    sum in its own way (the gated norm's sum of squares)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """A training rank's place on the model axis: ``size`` ranks, this
+    one at ``index``, their process ``group``, and the modules the plan
+    splits (``split_modules(..., train=True)``)."""
+    size: int
+    index: int
+    group: Any
+    modules: Dict[str, bool]
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.group)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(x, self.group)
+
+    def sum_all(self, x: torch.Tensor) -> torch.Tensor:
+        return _SumAll.apply(x, self.group)
+
+
+def train_placement(cfg, path: str, tp: int) -> Optional[Split]:
+    """The model split of the param leaf at ``path`` in training: the
+    unit plan's ``Split``, or None (whole on every model rank: the
+    norms, the router, a module the width does not divide)."""
+    for pat, place in _param_rules(cfg, tp, train=True):
+        if re.search(pat, path):
+            return place if isinstance(place, Split) else None
+    return None
+
+
+def take_part(full: torch.Tensor, place: Optional[Split], index: int,
+              tp: int) -> torch.Tensor:
+    """Model rank ``index``'s part of a whole leaf, a tensor of its own."""
+    if place is None:
+        return full
+    ax = full.dim() + place.axis
+    return torch.cat([full.narrow(ax, lo, n)
+                      for lo, n in place.ranges(index, tp)], ax)
+
+
+class TpPlan:
+    """What this rank of ``mesh`` holds along ``model`` of ``cfg``'s
+    params (``params``: a tree of them, meta tensors will do): each
+    leaf's ``train_placement`` (``places``), the rank's ``ModelAxis``,
+    and the pieces of its parts that other model ranks hold too: a kv
+    head that the tp / KV ranks reading it share, mamba's B and C
+    columns and conv channels that every rank holds (one group).  Each
+    rank's gradient of such a piece is its own heads' share, so it is
+    summed over the ranks that hold it (``reduce_partial``); LARS counts
+    it once (``counts``).  Raises for the families not ported along
+    model (``check_tp_training``)."""
+
+    def __init__(self, cfg, params, mesh):
+        tp = mesh.size("model")
+        check_tp_training(cfg, tp)
+        self.size, self.index = tp, mesh.index("model")
+        self.group = mesh.group("model")
+        self.axis = ModelAxis(tp, self.index, self.group,
+                              split_modules(cfg, tp, train=True))
+        self.places = map_paths(
+            lambda path, _: train_placement(cfg, path, tp), params)
+        # per leaf: [(axis, lo, n, readers)] of its shared pieces
+        self._shared = []
+        for pl in leaves(self.places):
+            shared, off = [], 0
+            if pl is not None:
+                for (_, n), (_, units) in zip(pl.ranges(self.index, tp),
+                                              pl.segments):
+                    # the ranks holding this piece: every rank for a
+                    # run of 0 units, tp / units for a unit several read
+                    readers = tp if units == 0 else max(tp // units, 1)
+                    if readers > 1:
+                        shared.append((pl.axis, off, n, readers))
+                    off += n
+            self._shared.append(shared)
+        # every rank makes the same groups in the same order
+        self._groups = {r: mesh.block_group("model", r)
+                        for r in sorted({s[3] for sh in self._shared
+                                         for s in sh})}
+
+    def gather_leaf(self, x: torch.Tensor, place) -> torch.Tensor:
+        """The whole leaf of this rank's part ``x`` (a collective over
+        the model group): the ranks' parts, each piece put back at its
+        range (a piece several ranks hold is the same on each)."""
+        if place is None:
+            return x
+        ax = x.dim() + place.axis
+        parts = gather_dim(x, ax, self.size, self.group).chunk(self.size, ax)
+        shape = list(x.shape)
+        shape[ax] = sum(length for length, _ in place.segments)
+        full = x.new_empty(shape)
+        for r, part in enumerate(parts):
+            off = 0
+            for lo, n in place.ranges(r, self.size):
+                full.narrow(ax, lo, n).copy_(part.narrow(ax, off, n))
+                off += n
+        return full
+
+    def reduce_partial(self, grads) -> None:
+        """Sum the gradient of every shared piece over the ranks that
+        hold it, in place (``grads`` in the params' leaf order; a leaf
+        may be this rank's data part of its model part, split on
+        another dim)."""
+        import torch.distributed as dist
+        for g, shared in zip(leaves(grads), self._shared):
+            for axis, lo, n, readers in shared:
+                group = self._groups[readers]
+                if n == g.shape[axis]:
+                    dist.all_reduce(g, group=group)
+                    continue
+                piece = g.narrow(axis, lo, n).contiguous()
+                dist.all_reduce(piece, group=group)
+                g.narrow(axis, lo, n).copy_(piece)
+
+    def counts(self):
+        """How LARS counts each leaf's sums of squares on this rank, in
+        leaf order: (keep, drop), keep[i] false where another model rank
+        counts all of leaf i (a leaf whole on every rank counts on rank
+        0, a shared kv head on the first rank that reads it), drop[i]
+        the (axis, lo, n) pieces of a kept leaf that another rank counts
+        (mamba's B and C columns, counted on rank 0)."""
+        keep, drop = [], {}
+        for i, (pl, shared) in enumerate(zip(leaves(self.places),
+                                             self._shared)):
+            if pl is None:
+                keep.append(self.index == 0)
+                continue
+            others = [(a, lo, n) for a, lo, n, r in shared
+                      if self.index % r]
+            whole = sum(n for _, n in pl.ranges(self.index, self.size))
+            if sum(n for _, _, n in others) == whole:
+                keep.append(False)
+                continue
+            keep.append(True)
+            if others:
+                drop[i] = others
+        return keep, drop
+

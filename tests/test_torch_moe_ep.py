@@ -398,15 +398,17 @@ def test_an_ep_fault_raises():
 
 
 def test_mesh_refusals():
-    """``--mesh`` with a model axis over 1 raises NotImplementedError; a
-    mesh whose dims do not multiply to the world size raises; the FSDP
-    step refuses lsgd_compressed, as the reference's pjit step cannot
-    run it."""
+    """``--mesh`` with a model axis over 1 raises NotImplementedError for
+    a family the port does not train along it (the RG-LRU hybrid); a
+    mesh whose dims do not multiply to the world size raises, a model
+    axis included (qwen2 trains along it); the FSDP step refuses
+    lsgd_compressed, as the reference's pjit step cannot run it."""
     base = ["--smoke", "--device", "cpu", "--steps", "1"]
     for dims in ("1,2", "2,2,2", "2"):
         with pytest.raises(NotImplementedError, match="model axis"):
-            train.main(base + ["--mesh", dims])
-    for dims in ("2,1", "1,2,1"):
+            train.main(base + ["--arch", "recurrentgemma-2b", "--mesh",
+                               dims])
+    for dims in ("2,1", "1,2,1", "1,2", "2,2,2", "2"):
         with pytest.raises(ValueError, match="ranks"):
             train.main(base + ["--mesh", dims])
     with pytest.raises(ValueError, match="pair up"):

@@ -2,7 +2,8 @@
 port's trainer runs one process per rank), for the port's multi-rank
 tests: ``run_ranks(code, world, *args)`` starts ``python -c code rank
 world port *args`` for every rank and fails with a rank's output unless
-every rank exits 0 and prints ``RANK_OK <rank>``.  ``RANK_PRELUDE``
+every rank exits 0 and prints ``RANK_OK <rank>`` (``start_ranks`` the
+same, waiting only when its result is called).  ``RANK_PRELUDE``
 joins the process group; a script starts with it and ends with
 ``rank_ok()``, which meets the other ranks at a barrier before it
 prints and leaves the group (a rank that left while another still
@@ -42,8 +43,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(code: str, world: int, *args, timeout: float = 240) -> list:
-    """Every rank's output, after all ranks passed."""
+def start_ranks(code: str, world: int, *args, timeout: float = 240):
+    """Start the ranks and return ``wait()``: every rank's output, after
+    all ranks passed (so a test can work while they run)."""
     port = str(free_port())
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r),
@@ -51,14 +53,23 @@ def run_ranks(code: str, world: int, *args, timeout: float = 240) -> list:
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and f"RANK_OK {r}" in out, out[-4000:]
-    return outs
+
+    def wait() -> list:
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            assert p.returncode == 0 and f"RANK_OK {r}" in out, out[-4000:]
+        return outs
+
+    return wait
+
+
+def run_ranks(code: str, world: int, *args, timeout: float = 240) -> list:
+    """Every rank's output, after all ranks passed."""
+    return start_ranks(code, world, *args, timeout=timeout)()
